@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py          # needs one CUDA card; about 2 minutes
+
+Phases (any failure exits nonzero; no phase is caught and ignored):
+
+1. card: name, and name + power limit as ``nvidia-smi`` reports them;
+2. build: every kernel of the main path, from ``src/repro_torch/kernels/
+   csrc``, one ``nvcc`` per source, all at once;
+3. kernel vs plain, on the card, at the shapes the full-size run gives
+   them: ``torch.equal`` to the plain PyTorch version (the f32 integer
+   regime makes them bit-identical), then each one's time (CUDA events,
+   warmed, over many launches), its bound, the plain version's time and
+   the time of the bare matrix product (product only, not the same
+   function);
+4. small end to end: three graphs, both sides, ``fd_update_mode`` "b2"
+   and "kernel", theta equal to ``bup_oracle``;
+5. full size: the main path — ``tip_decompose`` of
+   ``powerlaw_bipartite(6486, 12942, 96662, seed=0)`` (the published shape
+   of KONECT's Marvel character-comic network), side U, with
+   ``ReceiptConfig(num_partitions=150)`` (the paper's section 5.1 P).
+   Theta must equal an exact oracle (Alg. 2 on a scipy float64 B2), and
+   every kernel of the path must have launched; then two more runs of
+   the same path, under ``torch.profiler`` (device time by kernel, busy
+   share of the wall) and ``cProfile`` (host time by function);
+6. the kernel list as one JSON line, then the result line.
+
+It imports nothing of ``repro`` (the JAX package) or ``jax``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+INT8_OPS_PER_S = 1979e12     # 0/1 operands, counts < 2^24: exact in int8
+HBM_BYTES_PER_S = 3.35e12
+EXACT_LIMIT = 2 ** 24        # f32 integer regime (DESIGN.md section 8)
+
+FULL = dict(n_u=6486, n_v=12942, m=96662, seed=0, partitions=150)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound(ops: float, nbytes: float):
+    """Least time (ms) the card needs for ``ops`` int8 tensor-core
+    operations and ``nbytes`` of HBM traffic, and which one binds."""
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def exact_theta(g):
+    """Alg. 2 (sequential bottom-up peeling, as ``peeling.bup_oracle``)
+    on B2 = C(A A^T, 2) from a scipy sparse float64 product (exact below
+    2^53).  Returns (theta int64, max butterfly support)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    a = sp.csr_matrix((np.ones(g.m), (g.edges_u, g.edges_v)),
+                      shape=(g.n_u, g.n_v), dtype=np.float64)
+    w = np.rint((a @ a.T).toarray()).astype(np.int64)
+    b2 = w * (w - 1) // 2
+    np.fill_diagonal(b2, 0)
+    support = b2.sum(axis=1)
+    max_support = int(support.max(initial=0))
+    theta = np.zeros(g.n_u, np.int64)
+    alive = np.ones(g.n_u, bool)
+    for _ in range(g.n_u):
+        cand = np.where(alive)[0]
+        u = cand[np.argmin(support[cand])]
+        th = support[u]
+        theta[u] = th
+        alive[u] = False
+        upd = (b2[u] > 0) & alive
+        support[upd] = np.maximum(th, support[upd] - b2[u][upd])
+    return theta, max_support
+
+
+def vhub_graph(BipartiteGraph, n_u=300, n_v=60, n_hubs=6, seed=6):
+    """TrU-like regime: V-side hubs, light U side (HUC fires)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    eu, ev = [], []
+    for u in range(n_u):
+        hubs = rng.choice(n_hubs, size=rng.integers(1, 3), replace=False)
+        light = n_hubs + rng.choice(
+            n_v - n_hubs, size=rng.integers(1, 4), replace=False)
+        cols = list(hubs) + list(light)
+        eu += [u] * len(cols)
+        ev += list(cols)
+    return BipartiteGraph.from_edges(n_u, n_v, eu, ev)
+
+
+def where_the_time_goes(torch, run, top: int = 8):
+    """Two more runs of the full-size path: one under ``torch.profiler``
+    (device kernel time by name, and its share of the run's wall time),
+    one under ``cProfile`` (host time by function of the port)."""
+    import cProfile
+    import io
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    from torch.autograd import DeviceType
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side activities only (a CPU op such as aten::copy_ also
+    # carries the device time of what it launched: counting both would
+    # count that time twice); the profiler's own buffer events are not
+    # the program's
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0
+                   and not e.key.startswith("Activity Buffer")),
+                  key=device_us, reverse=True)
+    copies = sum(device_us(e) for e in rows
+                 if e.key.startswith(("Memcpy", "Memset"))) / 1e6
+    busy = sum(device_us(e) for e in rows) / 1e6
+    log(f"profile: wall {wall:.3f} s under torch.profiler; device busy "
+        f"{busy:.3f} s = {busy / wall:.3f} of wall (idle share "
+        f"{1 - busy / wall:.3f}): kernels {busy - copies:.3f} s, "
+        f"memcpy/memset {copies:.3f} s")
+    for e in rows[:top]:
+        log(f"  device {device_us(e) / 1e3:10.3f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+    prof_host = cProfile.Profile()
+    prof_host.enable()
+    run()
+    torch.cuda.synchronize()
+    prof_host.disable()
+    out = io.StringIO()
+    pstats.Stats(prof_host, stream=out).sort_stats("cumulative").print_stats(
+        "repro_torch", 16)
+    root = str(Path(__file__).resolve().parent) + "/"
+    for line in out.getvalue().splitlines():
+        if "repro_torch" in line or "ncalls" in line:
+            log("  host " + line.strip().replace(root, ""))
+
+
+def main() -> int:
+    import torch
+
+    # ---- 1. card ------------------------------------------------------ #
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import numpy as np
+
+    from repro_torch.core.engine import DeviceGraph, ReceiptConfig
+    from repro_torch.core.graph import (BipartiteGraph, paper_fig1_graph,
+                                        powerlaw_bipartite)
+    from repro_torch.core.peeling import bup_oracle
+    from repro_torch.core.receipt import tip_decompose
+    from repro_torch.kernels import _build, butterfly as bfly
+    from repro_torch.kernels import butterfly_sparse as bsp
+    from repro_torch.kernels import ops
+
+    # the plain versions' float32 products stay full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {name} | torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"nvidia-smi: {smi}")
+
+    # ---- 2. build ----------------------------------------------------- #
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s")
+    for path in libs.values():
+        rep = path.with_suffix(".log")
+        if rep.exists():
+            for line in rep.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log("  ptxas:", line.strip())
+
+    # ---- 3. kernel vs plain at the main path's shapes ------------------ #
+    g_full = powerlaw_bipartite(FULL["n_u"], FULL["n_v"], FULL["m"],
+                                seed=FULL["seed"])
+    cfg_full = ReceiptConfig(num_partitions=FULL["partitions"])
+    bi, bj, bk = cfg_full.kernel_blocks
+    # the degree-descending relabel tip_decompose applies before CD, so
+    # phase 3 sees the main path's own matrix
+    dg = DeviceGraph(g_full.relabel_by_degree(),
+                     np.arange(g_full.n_u), cfg_full, device=dev)
+    log(f"full graph: {g_full.m} distinct edges, device matrix "
+        f"{tuple(dg.a.shape)} after DGM ({dg.n_cols} live columns)")
+    rng = np.random.default_rng(0)
+    results = {}
+
+    def measure(key, kernel, plain, product, ops_, nbytes, reps):
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{key}: kernel differs from its plain version, max abs "
+                f"err {(got - want).abs().max().item()}")
+        err = float((got - want).abs().max().item()) if got.numel() else 0.0
+        ms = time_ms(torch, kernel, reps)
+        plain_ms = time_ms(torch, plain, max(3, reps // 4))
+        prod_ms = time_ms(torch, product, reps)
+        b_ms, b_by = bound(ops_, nbytes)
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by,
+                            product_only_ms=prod_ms)
+        log(f"{key}: torch.equal=True ms={ms:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by}) plain_ms={plain_ms:.4f} matmul_ms(product only, not "
+            f"the same function)={prod_ms:.4f}")
+
+    # kernel 1, counting form at the full-size matrix
+    a = dg.a
+    n_a, n_v = a.shape
+    alive = (torch.arange(n_a, device=dev) < dg.n_rows).float()
+    ids = dg.ids
+    measure("butterfly_update[count]",
+            lambda: bfly.butterfly_update(a, a, alive, ids, ids),
+            lambda: bfly.butterfly_update_plain(a, a, alive, ids, ids),
+            lambda: torch.matmul(a, a.T),
+            2.0 * n_a * n_a * n_v, 4.0 * (n_a * n_v + 3 * n_a), reps=10)
+    # kernel 1, a CD peel update: 256 gathered rows with global ids
+    n_peel, width = 240, 256
+    rows_np = np.zeros(width, np.int64)
+    rows_np[:n_peel] = np.sort(rng.choice(dg.n_rows, n_peel, replace=False))
+    rows = torch.as_tensor(rows_np, dtype=torch.int32, device=dev)
+    valid = (torch.arange(width, device=dev) < n_peel).float()
+    a_peel = a[rows.long()] * valid[:, None]
+    measure("butterfly_update[peel]",
+            lambda: bfly.butterfly_update(a, a_peel, valid, ids, rows),
+            lambda: bfly.butterfly_update_plain(a, a_peel, valid, ids, rows),
+            lambda: torch.matmul(a, a_peel.T),
+            2.0 * n_a * width * n_v,
+            4.0 * (n_a * n_v + width * n_v + 2 * width + 2 * n_a), reps=50)
+    # kernel 2: a (16, 1024, 1024) FD stack against 128 gathered rows
+    g_n, mm, cc, w = 16, 1024, 1024, 128
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    a3 = (torch.rand(g_n, mm, cc, generator=gen) < 0.02).float().to(dev)
+    rows3 = torch.stack([torch.randperm(mm, generator=gen)[:w]
+                         for _ in range(g_n)]).to(dev)
+    valid3 = (torch.arange(w)[None, :]
+              < torch.randint(1, w + 1, (g_n, 1), generator=gen)).float().to(dev)
+    b3 = torch.take_along_dim(a3, rows3[:, :, None], dim=1) * valid3[:, :, None]
+    ids3 = torch.arange(mm, dtype=torch.int32, device=dev).expand(
+        g_n, mm).contiguous()
+    rows3 = rows3.to(torch.int32).contiguous()
+    measure("butterfly_update_batched",
+            lambda: bfly.butterfly_update_batched(a3, b3, valid3, ids3, rows3),
+            lambda: bfly.butterfly_update_batched_plain(a3, b3, valid3, ids3,
+                                                        rows3),
+            lambda: torch.bmm(a3, b3.transpose(1, 2)),
+            2.0 * g_n * mm * w * cc,
+            4.0 * (g_n * mm * cc + g_n * w * cc + 2 * g_n * w + 2 * g_n * mm),
+            reps=50)
+    # kernel 3: a (16, 1024, 1024) staircase stack with its real extents
+    row_cut = torch.randint(0, cc + 1, (g_n, mm, 1), generator=gen)
+    st = ((torch.rand(g_n, mm, cc, generator=gen) < 0.05)
+          & (torch.arange(cc)[None, None, :] < row_cut)).float().to(dev)
+    kmax = bsp.tile_extents(bsp.row_extents_device(st, bk), bi).to(
+        torch.int32).contiguous()
+    pair_k = torch.minimum(kmax[:, :, None], kmax[:, None, :]).long() * bk
+    ops3 = 2.0 * bi * bj * float(pair_k.clamp(max=cc).sum())
+    measure("b2_stack",
+            lambda: bsp.b2_stack(st, kmax, kmax, blocks=cfg_full.kernel_blocks),
+            lambda: bsp.b2_stack_plain(st, kmax, kmax,
+                                       blocks=cfg_full.kernel_blocks),
+            lambda: torch.bmm(st, st.transpose(1, 2)),
+            ops3, 4.0 * (g_n * mm * cc + g_n * mm * mm + 2 * kmax.numel()),
+            reps=20)
+    del a3, b3, st
+
+    # ---- 4. small end to end ------------------------------------------ #
+    small = {"fig1": paper_fig1_graph(),
+             "powerlaw": powerlaw_bipartite(200, 120, 1500, seed=5),
+             "vhub": vhub_graph(BipartiteGraph)}
+    for gname, g in small.items():
+        for side in "UV":
+            want = bup_oracle(g if side == "U" else g.transposed())[0]
+            for mode in ("b2", "kernel"):
+                theta, st_ = tip_decompose(
+                    g, ReceiptConfig(fd_update_mode=mode), side=side,
+                    device=dev)
+                if not np.array_equal(theta, want):
+                    raise AssertionError(
+                        f"small e2e {gname} side={side} mode={mode}: "
+                        "theta differs from bup_oracle")
+            log(f"small e2e {gname} side={side}: theta == bup_oracle "
+                "(b2, kernel)")
+
+    # ---- 5. full size: the main path ---------------------------------- #
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    theta, stats = tip_decompose(g_full, cfg_full, side="U", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    want, max_support = exact_theta(g_full)
+    oracle_s = time.perf_counter() - t0
+    if max_support >= EXACT_LIMIT:
+        raise AssertionError(
+            f"max butterfly support {max_support} is past the f32 integer "
+            "regime (2^24)")
+    if not np.array_equal(theta, want):
+        bad = int((theta != want).sum())
+        raise AssertionError(f"full size: theta differs from the exact "
+                             f"oracle on {bad} vertices")
+    log(f"full size: theta == exact oracle ({g_full.n_u} vertices, max "
+        f"support {max_support}, max theta {int(theta.max())}; oracle "
+        f"{oracle_s:.1f} s on the host)")
+    log(f"full size: wall {wall:.3f} s | time_count {stats.time_count:.3f} "
+        f"time_cd {stats.time_cd:.3f} time_fd {stats.time_fd:.3f} s")
+    log(f"full size: rho_cd {stats.rho_cd} rho_fd {stats.rho_fd} "
+        f"num_subsets {stats.num_subsets} wedges_pvbcnt "
+        f"{stats.wedges_pvbcnt} wedges_cd {stats.wedges_cd} wedges_fd "
+        f"{stats.wedges_fd} huc_recounts {stats.huc_recounts} "
+        f"elided_sweeps {stats.elided_sweeps} dgm_compactions "
+        f"{stats.dgm_compactions} fd_groups {stats.fd_groups} "
+        f"host_round_trips {stats.host_round_trips}")
+    log(f"full size: launches {launches} | max_memory_allocated "
+        f"{peak} bytes")
+    where_the_time_goes(torch, lambda: tip_decompose(g_full, cfg_full,
+                                                     side="U", device=dev))
+
+    # ---- 6. kernel list ------------------------------------------------ #
+    table = [
+        ("butterfly_update", "butterfly_update[count]",
+         "src/repro_torch/kernels/csrc/butterfly.cu",
+         "src/repro/kernels/butterfly.py:125"),
+        ("butterfly_update_batched", "butterfly_update_batched",
+         "src/repro_torch/kernels/csrc/butterfly.cu",
+         "src/repro/kernels/butterfly.py:225"),
+        ("b2_stack", "b2_stack",
+         "src/repro_torch/kernels/csrc/b2_stack.cu",
+         "src/repro/kernels/butterfly_sparse.py:420"),
+    ]
+    kernels = []
+    for kname, key, source, replaces in table:
+        r = results[key]
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=launches[kname], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+            product_only_ms=r["product_only_ms"]))
+    kernels.append(dict(kernels[0], name="butterfly_update[peel]",
+                        **{k: results["butterfly_update[peel]"][k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "product_only_ms")}))
+    log(json.dumps({"kernels": kernels}))
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{idle}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

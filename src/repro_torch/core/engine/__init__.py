@@ -1,0 +1,107 @@
+"""RECEIPT peel engine package (port of ``repro.core.engine``).
+
+* `peel_loop.py` — the sweep core (vertex axis), ``ReceiptConfig``,
+  ``RunStats``
+* `cd.py`        — RECEIPT CD (Alg. 3), range-peel mode, subset dispatch
+* `fd.py`        — RECEIPT FD (Alg. 4), batched level-peel mode
+
+``tip_decompose`` below is the top-level entry point (CD then FD, with the
+degree-sort relabeling and the side="V" transpose).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..graph import BipartiteGraph
+from .cd import cd_checkpoint_state, find_hi_np, receipt_cd
+from .fd import build_fd_tasks, build_level_stack, receipt_fd
+from .peel_loop import (
+    DeviceGraph,
+    ReceiptConfig,
+    RunStats,
+    batched_level_loop,
+    bucket,
+    device_peel_loop,
+    host_sweep,
+)
+
+__all__ = [
+    "ReceiptConfig",
+    "RunStats",
+    "tip_decompose",
+    "receipt_cd",
+    "receipt_fd",
+    "cd_checkpoint_state",
+    "find_hi_np",
+    "build_fd_tasks",
+    "build_level_stack",
+    "DeviceGraph",
+    "device_peel_loop",
+    "batched_level_loop",
+    "host_sweep",
+    "bucket",
+]
+
+
+def _resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for another.  Raises when the card is asked for and there is none —
+    nothing carries on silently on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch runs on the card unless the "
+            "caller passes device='cpu'")
+    return dev
+
+
+def tip_decompose(
+    g: BipartiteGraph, cfg: Optional[ReceiptConfig] = None,
+    *, side: str = "U", device=None,
+) -> Tuple[np.ndarray, RunStats]:
+    """Full RECEIPT tip decomposition of one side of ``g``.
+
+    side="V" peels the other vertex set, by transposing the bipartite
+    graph (exact by symmetry).  ``device=None`` runs on the card.
+
+    Returns (theta int64[n_side], RunStats).
+    """
+    cfg = cfg or ReceiptConfig()
+    dev = _resolve_device(device)
+    if side == "V":
+        g = g.transposed()
+    elif side != "U":
+        raise ValueError(f"side must be 'U' or 'V', got {side!r}")
+    if cfg.representation == "tiled":
+        raise NotImplementedError(
+            "representation='tiled' is not ported yet (ROADMAP.md, queue "
+            "1: the tiled slice)")
+    stats = RunStats()
+    if cfg.degree_sort:
+        # relabel for tile density; map results back at the end
+        du = g.degrees_u()
+        perm_u = np.argsort(-du, kind="stable")
+        dv = g.degrees_v()
+        perm_v = np.argsort(-dv, kind="stable")
+        inv_u = np.empty_like(perm_u)
+        inv_u[perm_u] = np.arange(g.n_u)
+        inv_v = np.empty_like(perm_v)
+        inv_v[perm_v] = np.arange(g.n_v)
+        g_work = BipartiteGraph.from_edges(
+            g.n_u, g.n_v, inv_u[g.edges_u], inv_v[g.edges_v]
+        )
+    else:
+        perm_u = np.arange(g.n_u)
+        g_work = g
+
+    subset_id, init_support, bounds, _ = receipt_cd(g_work, cfg, stats,
+                                                    device=dev)
+    theta_work = receipt_fd(g_work, subset_id, init_support, bounds, cfg,
+                            stats, device=dev)
+
+    theta = np.zeros(g.n_u, np.int64)
+    theta[perm_u] = np.round(theta_work).astype(np.int64)
+    return theta, stats
