@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py          # needs one CUDA card; about 2 minutes
+    python3 chip_smoke.py          # needs one CUDA card; about 3 minutes
 
 Phases (any failure exits nonzero; no phase is caught and ignored):
 
 1. card: name, and name + power limit as ``nvidia-smi`` reports them;
-2. build: every kernel of the main path, from ``src/repro_torch/kernels/
+2. build: every kernel of the main paths, from ``src/repro_torch/kernels/
    csrc``, one ``nvcc`` per source, all at once;
-3. kernel vs plain, on the card, at the shapes the full-size run gives
+3. kernel vs plain, on the card, at the shapes the full-size runs give
    them: ``torch.equal`` to the plain PyTorch version (the f32 integer
-   regime makes them bit-identical), then each one's time (CUDA events,
-   warmed, over many launches), its bound, the plain version's time and
+   regime makes them bit-identical; the staircase kernels get their real
+   extents), then each one's time (CUDA events, warmed, over many
+   launches), its bound (operations and bytes over the live stripes only,
+   for the stripe-skipping kernels, whose skipped share is printed), the
+   plain version's time and
    the time of the bare matrix product (product only, not the same
    function);
-4. small end to end: three graphs, both sides, ``fd_update_mode`` "b2"
-   and "kernel", theta equal to ``bup_oracle``;
-5. full size: the main path — ``tip_decompose`` of
+4. small end to end: three graphs, both sides, backends "cuda" and
+   "cuda_sparse", both ``cd_dispatch`` values, ``fd_update_mode`` "b2" and
+   "kernel", theta equal to ``bup_oracle``;
+5. full size: two paths — ``tip_decompose`` of
    ``powerlaw_bipartite(6486, 12942, 96662, seed=0)`` (the published shape
-   of KONECT's Marvel character-comic network), side U, with
-   ``ReceiptConfig(num_partitions=150)`` (the paper's section 5.1 P).
-   Theta must equal an exact oracle (Alg. 2 on a scipy float64 B2), and
-   every kernel of the path must have launched; then two more runs of
-   the same path, under ``torch.profiler`` (device time by kernel, busy
-   share of the wall) and ``cProfile`` (host time by function);
+   of KONECT's Marvel character-comic network), side U, P = 150 (the
+   paper's section 5.1 setting), first with the dense backend and the
+   subset dispatch (``ReceiptConfig(num_partitions=150)``), then with the
+   staircase backend and the whole-graph dispatch
+   (``backend="cuda_sparse", cd_dispatch="graph"``).  Launch counts are
+   set to 0 just before each path and read just after it.  Theta must
+   equal one exact oracle (Alg. 2 on a scipy float64 B2) on both, and
+   every kernel must have launched on at least one path; then each path
+   twice more, under ``torch.profiler`` (device time by kernel, busy share
+   of the wall) and ``cProfile`` (host time by function);
 6. the kernel list as one JSON line, then the result line.
 
 It imports nothing of ``repro`` (the JAX package) or ``jax``.
@@ -212,19 +220,57 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log("  ptxas:", line.strip())
 
-    # ---- 3. kernel vs plain at the main path's shapes ------------------ #
+    # ---- 3. kernel vs plain at the main paths' shapes ----------------- #
     g_full = powerlaw_bipartite(FULL["n_u"], FULL["n_v"], FULL["m"],
                                 seed=FULL["seed"])
-    cfg_full = ReceiptConfig(num_partitions=FULL["partitions"])
-    bi, bj, bk = cfg_full.kernel_blocks
+    paths = {
+        "dense_subset": ReceiptConfig(num_partitions=FULL["partitions"]),
+        "sparse_graph": ReceiptConfig(num_partitions=FULL["partitions"],
+                                      backend="cuda_sparse",
+                                      cd_dispatch="graph"),
+    }
+    cfg_sparse = paths["sparse_graph"]
+    blocks = cfg_sparse.kernel_blocks
+    bi, bj, bk = blocks
     # the degree-descending relabel tip_decompose applies before CD, so
-    # phase 3 sees the main path's own matrix
+    # phase 3 sees the main paths' own matrix (and, from the sparse
+    # backend's DeviceGraph, its staircase extents)
     dg = DeviceGraph(g_full.relabel_by_degree(),
-                     np.arange(g_full.n_u), cfg_full, device=dev)
+                     np.arange(g_full.n_u), cfg_sparse, device=dev)
     log(f"full graph: {g_full.m} distinct edges, device matrix "
         f"{tuple(dg.a.shape)} after DGM ({dg.n_cols} live columns)")
     rng = np.random.default_rng(0)
     results = {}
+
+    def live_stripe_ops(kmax_a, kmax_b, n_v):
+        """Operations of the product over the live stripes only, summed
+        over (bi, bj) tile pairs, and the skipped share of the stripes."""
+        n_k = -(-n_v // bk)
+        pair = torch.minimum(kmax_a[..., :, None],
+                             kmax_b[..., None, :]).clamp(max=n_k).double()
+        live = float(pair.sum())
+        return 2.0 * bi * bj * bk * live, 1.0 - live / (pair.numel() * n_k)
+
+    def live_stripe_bytes(kmax_a, kmax_b, n_a, n_b, n_v, same=False):
+        """f32 bytes of the operands' live stripes, each read once: row
+        tile i of A is needed up to min(kmax_a[i], max_j kmax_b[j])
+        stripes, row tile j of B likewise.  With ``same`` (B is A, with the
+        same tiles) the one operand counts once, each tile to the farther
+        of its two reaches."""
+        n_k = -(-n_v // bk)
+        ka = kmax_a.long().clamp(max=n_k)
+        kb = kmax_b.long().clamp(max=n_k)
+        reach_a = torch.minimum(ka, kb.amax(dim=-1, keepdim=True))
+        reach_b = torch.minimum(kb, ka.amax(dim=-1, keepdim=True))
+
+        def tile_bytes(reach, n_rows, block):
+            tiles = torch.arange(reach.shape[-1], device=reach.device)
+            rows = (n_rows - tiles * block).clamp(max=block)
+            return 4.0 * float((rows * (reach * bk).clamp(max=n_v)).sum())
+
+        if same:
+            return tile_bytes(torch.maximum(reach_a, reach_b), n_a, bi)
+        return tile_bytes(reach_a, n_a, bi) + tile_bytes(reach_b, n_b, bj)
 
     def measure(key, kernel, plain, product, ops_, nbytes, reps):
         got = kernel()
@@ -269,6 +315,32 @@ def main() -> int:
             lambda: torch.matmul(a, a_peel.T),
             2.0 * n_a * width * n_v,
             4.0 * (n_a * n_v + width * n_v + 2 * width + 2 * n_a), reps=50)
+    # kernel 4, counting form at the full-size matrix, its real extents
+    kmax = dg.kmax
+    ops4, skip = live_stripe_ops(kmax, kmax, n_v)
+    log(f"butterfly_update_sparse[count]: {skip:.3f} of the stripes skipped")
+    measure("butterfly_update_sparse[count]",
+            lambda: bsp.butterfly_update_sparse(a, a, alive, ids, ids, kmax,
+                                                kmax, blocks=blocks),
+            lambda: bsp.butterfly_update_sparse_plain(
+                a, a, alive, ids, ids, kmax, kmax, blocks=blocks),
+            lambda: torch.matmul(a, a.T),
+            ops4, live_stripe_bytes(kmax, kmax, n_a, n_a, n_v, same=True)
+            + 4.0 * (3 * n_a + kmax.numel()), reps=10)
+    # kernel 4, a CD peel update: the same 256 gathered rows, B-side
+    # extents gathered from the per-row extents (padding rows 0)
+    kb_peel = bsp.gathered_tile_extents(dg.row_ext, rows, valid > 0, bj)
+    ops4p, skip = live_stripe_ops(kmax, kb_peel, n_v)
+    log(f"butterfly_update_sparse[peel]: {skip:.3f} of the stripes skipped")
+    measure("butterfly_update_sparse[peel]",
+            lambda: bsp.butterfly_update_sparse(a, a_peel, valid, ids, rows,
+                                                kmax, kb_peel, blocks=blocks),
+            lambda: bsp.butterfly_update_sparse_plain(
+                a, a_peel, valid, ids, rows, kmax, kb_peel, blocks=blocks),
+            lambda: torch.matmul(a, a_peel.T),
+            ops4p, live_stripe_bytes(kmax, kb_peel, n_a, width, n_v)
+            + 4.0 * (2 * width + 2 * n_a + kmax.numel() + kb_peel.numel()),
+            reps=50)
     # kernel 2: a (16, 1024, 1024) FD stack against 128 gathered rows
     g_n, mm, cc, w = 16, 1024, 1024, 128
     gen = torch.Generator(device="cpu").manual_seed(1)
@@ -289,22 +361,40 @@ def main() -> int:
             2.0 * g_n * mm * w * cc,
             4.0 * (g_n * mm * cc + g_n * w * cc + 2 * g_n * w + 2 * g_n * mm),
             reps=50)
-    # kernel 3: a (16, 1024, 1024) staircase stack with its real extents
-    row_cut = torch.randint(0, cc + 1, (g_n, mm, 1), generator=gen)
+    # kernel 3: a (16, 1024, 1024) staircase stack with its real extents;
+    # the row cuts fall down the rows, as in a degree-sorted subgraph
+    row_cut = torch.randint(0, cc + 1, (g_n, mm, 1), generator=gen).sort(
+        dim=1, descending=True).values
     st = ((torch.rand(g_n, mm, cc, generator=gen) < 0.05)
           & (torch.arange(cc)[None, None, :] < row_cut)).float().to(dev)
-    kmax = bsp.tile_extents(bsp.row_extents_device(st, bk), bi).to(
-        torch.int32).contiguous()
-    pair_k = torch.minimum(kmax[:, :, None], kmax[:, None, :]).long() * bk
-    ops3 = 2.0 * bi * bj * float(pair_k.clamp(max=cc).sum())
+    row_ext3 = bsp.row_extents_device(st, bk)
+    kmax3 = bsp.tile_extents(row_ext3, bi).to(torch.int32).contiguous()
+    ops3, skip = live_stripe_ops(kmax3, kmax3, cc)
+    log(f"b2_stack: {skip:.3f} of the stripes skipped")
     measure("b2_stack",
-            lambda: bsp.b2_stack(st, kmax, kmax, blocks=cfg_full.kernel_blocks),
-            lambda: bsp.b2_stack_plain(st, kmax, kmax,
-                                       blocks=cfg_full.kernel_blocks),
+            lambda: bsp.b2_stack(st, kmax3, kmax3, blocks=blocks),
+            lambda: bsp.b2_stack_plain(st, kmax3, kmax3, blocks=blocks),
             lambda: torch.bmm(st, st.transpose(1, 2)),
-            ops3, 4.0 * (g_n * mm * cc + g_n * mm * mm + 2 * kmax.numel()),
-            reps=20)
-    del a3, b3, st
+            ops3, live_stripe_bytes(kmax3, kmax3, mm, mm, cc, same=True)
+            + 4.0 * (g_n * mm * mm + 2 * kmax3.numel()), reps=20)
+    # kernel 5: the same staircase stack against 128 gathered rows per
+    # group, per-group extents gathered from the per-row extents
+    b5 = torch.take_along_dim(st, rows3.long()[:, :, None], dim=1) \
+        * valid3[:, :, None]
+    kb5 = bsp.batched_gathered_tile_extents(row_ext3, rows3, valid3 > 0, bj)
+    ops5, skip = live_stripe_ops(kmax3, kb5, cc)
+    log(f"butterfly_update_sparse_batched: {skip:.3f} of the stripes "
+        "skipped")
+    measure("butterfly_update_sparse_batched",
+            lambda: bsp.butterfly_update_sparse_batched(
+                st, b5, valid3, ids3, rows3, kmax3, kb5, blocks=blocks),
+            lambda: bsp.butterfly_update_sparse_batched_plain(
+                st, b5, valid3, ids3, rows3, kmax3, kb5, blocks=blocks),
+            lambda: torch.bmm(st, b5.transpose(1, 2)),
+            ops5, live_stripe_bytes(kmax3, kb5, mm, w, cc)
+            + 4.0 * (2 * g_n * w + 2 * g_n * mm + kmax3.numel()
+                     + kb5.numel()), reps=50)
+    del a3, b3, st, b5
 
     # ---- 4. small end to end ------------------------------------------ #
     small = {"fig1": paper_fig1_graph(),
@@ -313,27 +403,24 @@ def main() -> int:
     for gname, g in small.items():
         for side in "UV":
             want = bup_oracle(g if side == "U" else g.transposed())[0]
-            for mode in ("b2", "kernel"):
-                theta, st_ = tip_decompose(
-                    g, ReceiptConfig(fd_update_mode=mode), side=side,
-                    device=dev)
-                if not np.array_equal(theta, want):
-                    raise AssertionError(
-                        f"small e2e {gname} side={side} mode={mode}: "
-                        "theta differs from bup_oracle")
+            for backend in ("cuda", "cuda_sparse"):
+                for dispatch in ("subset", "graph"):
+                    for mode in ("b2", "kernel"):
+                        theta, _ = tip_decompose(
+                            g, ReceiptConfig(backend=backend,
+                                             cd_dispatch=dispatch,
+                                             fd_update_mode=mode),
+                            side=side, device=dev)
+                        if not np.array_equal(theta, want):
+                            raise AssertionError(
+                                f"small e2e {gname} side={side} "
+                                f"backend={backend} cd_dispatch={dispatch} "
+                                f"mode={mode}: theta differs from "
+                                "bup_oracle")
             log(f"small e2e {gname} side={side}: theta == bup_oracle "
-                "(b2, kernel)")
+                "(cuda, cuda_sparse) x (subset, graph) x (b2, kernel)")
 
-    # ---- 5. full size: the main path ---------------------------------- #
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    theta, stats = tip_decompose(g_full, cfg_full, side="U", device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    # ---- 5. full size: both paths ------------------------------------- #
     t0 = time.perf_counter()
     want, max_support = exact_theta(g_full)
     oracle_s = time.perf_counter() - t0
@@ -341,57 +428,81 @@ def main() -> int:
         raise AssertionError(
             f"max butterfly support {max_support} is past the f32 integer "
             "regime (2^24)")
-    if not np.array_equal(theta, want):
-        bad = int((theta != want).sum())
-        raise AssertionError(f"full size: theta differs from the exact "
-                             f"oracle on {bad} vertices")
-    log(f"full size: theta == exact oracle ({g_full.n_u} vertices, max "
-        f"support {max_support}, max theta {int(theta.max())}; oracle "
-        f"{oracle_s:.1f} s on the host)")
-    log(f"full size: wall {wall:.3f} s | time_count {stats.time_count:.3f} "
-        f"time_cd {stats.time_cd:.3f} time_fd {stats.time_fd:.3f} s")
-    log(f"full size: rho_cd {stats.rho_cd} rho_fd {stats.rho_fd} "
-        f"num_subsets {stats.num_subsets} wedges_pvbcnt "
-        f"{stats.wedges_pvbcnt} wedges_cd {stats.wedges_cd} wedges_fd "
-        f"{stats.wedges_fd} huc_recounts {stats.huc_recounts} "
-        f"elided_sweeps {stats.elided_sweeps} dgm_compactions "
-        f"{stats.dgm_compactions} fd_groups {stats.fd_groups} "
-        f"host_round_trips {stats.host_round_trips}")
-    log(f"full size: launches {launches} | max_memory_allocated "
-        f"{peak} bytes")
-    where_the_time_goes(torch, lambda: tip_decompose(g_full, cfg_full,
-                                                     side="U", device=dev))
+    log(f"full size: exact oracle {oracle_s:.1f} s on the host ({g_full.n_u} "
+        f"vertices, max support {max_support})")
+    launches = {}
+    for pname, cfg in paths.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        theta, stats = tip_decompose(g_full, cfg, side="U", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[pname] = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if not np.array_equal(theta, want):
+            bad = int((theta != want).sum())
+            raise AssertionError(f"full size {pname}: theta differs from the "
+                                 f"exact oracle on {bad} vertices")
+        log(f"full size {pname}: theta == exact oracle (max theta "
+            f"{int(theta.max())})")
+        log(f"full size {pname}: wall {wall:.3f} s | time_count "
+            f"{stats.time_count:.3f} time_cd {stats.time_cd:.3f} time_fd "
+            f"{stats.time_fd:.3f} s")
+        log(f"full size {pname}: rho_cd {stats.rho_cd} rho_fd {stats.rho_fd} "
+            f"num_subsets {stats.num_subsets} wedges_pvbcnt "
+            f"{stats.wedges_pvbcnt} wedges_cd {stats.wedges_cd} wedges_fd "
+            f"{stats.wedges_fd} huc_recounts {stats.huc_recounts} "
+            f"elided_sweeps {stats.elided_sweeps} dgm_compactions "
+            f"{stats.dgm_compactions} dgm_device_compactions "
+            f"{stats.dgm_device_compactions} fd_groups {stats.fd_groups} "
+            f"host_round_trips {stats.host_round_trips}")
+        log(f"full size {pname}: launches {launches[pname]} | "
+            f"max_memory_allocated {peak} bytes")
+        where_the_time_goes(torch, lambda: tip_decompose(
+            g_full, cfg, side="U", device=dev))
 
     # ---- 6. kernel list ------------------------------------------------ #
     table = [
         ("butterfly_update", "butterfly_update[count]",
-         "src/repro_torch/kernels/csrc/butterfly.cu",
+         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
+         "src/repro/kernels/butterfly.py:125"),
+        ("butterfly_update", "butterfly_update[peel]",
+         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
          "src/repro/kernels/butterfly.py:125"),
         ("butterfly_update_batched", "butterfly_update_batched",
-         "src/repro_torch/kernels/csrc/butterfly.cu",
+         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
          "src/repro/kernels/butterfly.py:225"),
         ("b2_stack", "b2_stack",
          "src/repro_torch/kernels/csrc/b2_stack.cu",
          "src/repro/kernels/butterfly_sparse.py:420"),
+        ("butterfly_update_sparse", "butterfly_update_sparse[count]",
+         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
+         "src/repro/kernels/butterfly_sparse.py:220"),
+        ("butterfly_update_sparse", "butterfly_update_sparse[peel]",
+         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
+         "src/repro/kernels/butterfly_sparse.py:220"),
+        ("butterfly_update_sparse_batched", "butterfly_update_sparse_batched",
+         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
+         "src/repro/kernels/butterfly_sparse.py:318"),
     ]
     kernels = []
     for kname, key, source, replaces in table:
         r = results[key]
+        by_path = {p_: launches[p_][kname] for p_ in paths}
         kernels.append(dict(
-            name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname], max_abs_err=r["max_abs_err"],
+            name=key.replace("[count]", ""), route="cuda", source=source,
+            replaces=replaces, launches=sum(by_path.values()),
+            launches_by_path=by_path, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
             product_only_ms=r["product_only_ms"]))
-    kernels.append(dict(kernels[0], name="butterfly_update[peel]",
-                        **{k: results["butterfly_update[peel]"][k] for k in (
-                            "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "product_only_ms")}))
     log(json.dumps({"kernels": kernels}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{idle}")
+        raise AssertionError(f"kernels never launched on either full-size "
+                             f"path: {idle}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

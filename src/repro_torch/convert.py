@@ -25,9 +25,11 @@ __all__ = ["graph_from_arrays", "config_from_fields", "stats_fields"]
 
 # the reference's backends and their counterparts here: the interpreter
 # and the jnp oracle run the kernels' plain versions; the compiled
-# Pallas kernels become the hand-written CUDA kernels
+# Pallas kernels become the hand-written CUDA kernels, the staircase ones
+# their stripe-skipping twins
 BACKEND_MAP = {None: None, "xla": "torch", "interpret": "torch",
-               "pallas": "cuda"}
+               "pallas": "cuda", "pallas_sparse": "cuda_sparse",
+               "interpret_sparse": "torch_sparse"}
 
 
 def graph_from_arrays(n_u: int, n_v: int, edges_u, edges_v) -> BipartiteGraph:
@@ -39,15 +41,12 @@ def config_from_fields(d: Dict[str, Any]) -> ReceiptConfig:
     """The port's config from a reference config's fields.
 
     ``d["dtype"]`` is a numpy dtype name (``"float32"``).  Backends map
-    ``xla``/``interpret`` -> ``torch`` and ``pallas`` -> ``cuda``; the
-    sparse backends are not ported yet and raise ``NotImplementedError``.
+    through ``BACKEND_MAP``: ``xla``/``interpret`` -> ``torch``,
+    ``pallas`` -> ``cuda``, ``pallas_sparse`` -> ``cuda_sparse`` and
+    ``interpret_sparse`` -> ``torch_sparse``.
     """
     d = dict(d)
     backend = d.get("backend")
-    if backend in ("pallas_sparse", "interpret_sparse"):
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (ROADMAP.md, queue 2 "
-            "items 4-5)")
     if backend not in BACKEND_MAP:
         raise ValueError(f"unknown reference backend {backend!r}")
     d["backend"] = BACKEND_MAP[backend]

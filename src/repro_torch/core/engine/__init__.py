@@ -2,7 +2,8 @@
 
 * `peel_loop.py` — the sweep core (vertex axis), ``ReceiptConfig``,
   ``RunStats``
-* `cd.py`        — RECEIPT CD (Alg. 3), range-peel mode, subset dispatch
+* `cd.py`        — RECEIPT CD (Alg. 3), range-peel mode, subset and
+  whole-graph dispatch
 * `fd.py`        — RECEIPT FD (Alg. 4), batched level-peel mode
 
 ``tip_decompose`` below is the top-level entry point (CD then FD, with the
@@ -24,6 +25,8 @@ from .peel_loop import (
     RunStats,
     batched_level_loop,
     bucket,
+    cd_graph_state0,
+    device_cd_graph_loop,
     device_peel_loop,
     host_sweep,
 )
@@ -40,6 +43,8 @@ __all__ = [
     "build_level_stack",
     "DeviceGraph",
     "device_peel_loop",
+    "device_cd_graph_loop",
+    "cd_graph_state0",
     "batched_level_loop",
     "host_sweep",
     "bucket",

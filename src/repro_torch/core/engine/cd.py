@@ -1,15 +1,20 @@
-"""CD — coarse-grained decomposition (the paper's Alg. 3), subset dispatch.
+"""CD — coarse-grained decomposition (the paper's Alg. 3).
 
 Port of ``repro.core.engine.cd``.  Partitions U into subsets with
 non-overlapping tip-number ranges by running the peel core
-(`engine/peel_loop.py`) in range-peel mode, one device loop per subset.
-Host-side pieces: adaptive range determination (findHi on the per-subset
-support snapshot), DGM re-induction at subset boundaries and
-checkpointing.  The reference's peel-buffer overflow replay has no
-counterpart: the port sizes each gather to its peel set.
+(`engine/peel_loop.py`) in range-peel mode.  Two dispatches:
 
-``cd_dispatch="graph"`` (the whole CD phase as one device loop) arrives
-later (ROADMAP.md, queue 1).
+* ``cd_dispatch="subset"``: one device loop per subset; host-side
+  adaptive range determination (findHi on the per-subset support
+  snapshot), DGM re-induction at subset boundaries and checkpointing.
+* ``cd_dispatch="graph"`` (``_receipt_cd_graph``): the whole CD phase in
+  ``device_cd_graph_loop``, with findHi, the FD init snapshot, subset
+  stamping and DGM (column compaction, staircase re-tightening, HUC bound
+  re-estimate) on the device; the ``DeviceGraph`` is built and uploaded
+  once.
+
+The reference's peel-buffer overflow replay has no counterpart in either:
+the port sizes each gather to its peel set.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from .peel_loop import (
     DeviceGraph,
     ReceiptConfig,
     RunStats,
+    cd_graph_state0,
+    device_cd_graph_loop,
     device_peel_loop,
     fetch,
     host_sweep,
@@ -35,6 +42,10 @@ from .peel_loop import (
 )
 
 __all__ = ["receipt_cd", "cd_checkpoint_state", "find_hi_np"]
+
+_GRAPH_CHECKPOINT_ERROR = (
+    "CD checkpointing captures subset-boundary state on the host; use "
+    "cd_dispatch='subset'")
 
 
 def find_hi_np(support: np.ndarray, w: np.ndarray, alive: np.ndarray,
@@ -105,20 +116,25 @@ def receipt_cd(
 
     checkpoint_cb(state): called with a ``cd_checkpoint_state`` dict at
     every subset boundary.  resume_state: continue an interrupted run
-    from such a state.
+    from such a state.  Both need ``cd_dispatch="subset"``.
     """
     if cfg.max_sweeps < 1:
         raise ValueError(
             f"max_sweeps must be >= 1 (got {cfg.max_sweeps}): the valve "
             "bounds one device-loop invocation; a sub-1 cap can make no "
             "progress and would break Theorem 1's range containment")
-    if cfg.cd_dispatch == "graph":
-        raise NotImplementedError(
-            "cd_dispatch='graph' is not ported yet (ROADMAP.md, queue 1: "
-            "find_hi_device, tighten_extents_device, device_cd_graph_loop)")
-    if cfg.cd_dispatch != "subset":
+    if cfg.cd_dispatch not in ("subset", "graph"):
         raise ValueError(f"unknown cd_dispatch {cfg.cd_dispatch!r}")
+    if cfg.cd_dispatch == "graph":
+        if not cfg.device_loop:
+            raise ValueError(
+                "cd_dispatch='graph' runs the whole CD phase on device "
+                "and requires device_loop=True")
+        if checkpoint_cb is not None or resume_state is not None:
+            raise ValueError(_GRAPH_CHECKPOINT_ERROR)
+        return _receipt_cd_graph(g, cfg, stats, device=device)
     backend = kops.resolve_backend(cfg.backend, device)
+    sparse = backend in kops.SPARSE_BACKENDS
     blocks = cfg.kernel_blocks
     n_u = g.n_u
     p_total = cfg.num_partitions
@@ -152,8 +168,9 @@ def receipt_cd(
         alive[: dg.n_rows] = True
         fault_point("kernel_launch", KernelBackendError,
                     dispatch="subset", backend=backend, phase="count")
-        support = support_all(dg.a, alive, dg.ids, backend=backend,
-                              blocks=blocks)
+        support = support_all(dg.a, alive, dg.ids,
+                              dg.kmax if sparse else None,
+                              backend=backend, blocks=blocks)
         support = torch.where(alive, support, _INF)
         dv = dg.dv0
         sup_np, alive_np = fetch(stats, support, alive)   # the blocking sync
@@ -204,7 +221,8 @@ def receipt_cd(
                                 device=device),
                     hi, lo, dg.c_rcnt, 0,
                     backend=backend, blocks=blocks, use_huc=cfg.use_huc,
-                    max_sweeps=cfg.max_sweeps, minmode=False, stats=stats,
+                    max_sweeps=cfg.max_sweeps, minmode=False,
+                    row_ext=dg.row_ext, kmax=dg.kmax, stats=stats,
                 )
                 stats.device_loop_calls += 1
                 peeled_np, alive_np, sup_np, d_wedges, d_covered = fetch(
@@ -276,6 +294,81 @@ def receipt_cd(
     stats.bounds = [float(b) for b in bounds]
     stats.time_cd = time.perf_counter() - t0
     # every vertex must be assigned
+    if not (subset_id >= 0).all():
+        raise RuntimeError("CD left unassigned vertices")
+    return subset_id, init_support, np.asarray(bounds), None
+
+
+def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
+                      stats: RunStats, *, device):
+    """Whole-graph CD (reference ``_receipt_cd_graph``): count, then every
+    subset in ``device_cd_graph_loop``, re-entered only on a
+    ``max_sweeps`` cap-exit, then one fetch of the subset ids, the FD init
+    vector and the bounds.
+
+    ``dgm_compactions`` stays 0 (the residual graph is compacted on the
+    card, counted in ``dgm_device_compactions``); ``host_round_trips``
+    counts the port's reads: one per sweep, one per HUC choice, and the
+    final fetch.
+    """
+    backend = kops.resolve_backend(cfg.backend, device)
+    blocks = cfg.kernel_blocks
+    n_u = g.n_u
+    p_total = cfg.num_partitions
+
+    t0 = time.perf_counter()
+    subset_id = np.full(n_u, -1, np.int64)
+    init_support = np.zeros(n_u, np.float64)
+    dg = DeviceGraph(g, np.arange(n_u), cfg, device=device)
+    stats.wedges_pvbcnt = g.counting_wedge_bound()
+
+    alive = torch.zeros(dg.rows_pad, dtype=torch.bool, device=device)
+    alive[: dg.n_rows] = True
+    fault_point("kernel_launch", KernelBackendError,
+                dispatch="graph", backend=backend, phase="count")
+    support = support_all(dg.a, alive, dg.ids, dg.kmax, backend=backend,
+                          blocks=blocks)
+    support = torch.where(alive, support, _INF)
+    # asynchronous: no blocking read between counting and the CD loop
+    stats.time_count = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    # degrade-style site of the reference (it undersizes the peel
+    # buffer); every gather here is sized to its peel set
+    fault_point("peel_buffer", dispatch="graph", backend=backend)
+    state = cd_graph_state0(dg, support, alive, p_total)
+    while True:
+        fault_point("kernel_launch", KernelBackendError,
+                    dispatch="graph", backend=backend)
+        state = device_cd_graph_loop(
+            dg.ids, state, backend=backend, blocks=blocks,
+            use_huc=cfg.use_huc, use_dgm=cfg.use_dgm,
+            max_iters=cfg.max_sweeps, p_total=p_total, stats=stats)
+        stats.device_loop_calls += 1
+        if state["done"]:
+            break
+        state["iters"] = 0                    # fresh invocation budget
+        if state["dgm"]:
+            fault_point("dgm_boundary", KernelBackendError,
+                        dispatch="graph", backend=backend,
+                        compactions=state["dgm"])
+
+    num_subsets = state["i"] + 1
+    subset_of, init_sup, bounds_dev, wedges = fetch(
+        stats, state["subset_of"][: dg.n_rows], state["init_sup"][: dg.n_rows],
+        state["bounds"], state["wedges"])
+    subset_id[dg.members] = subset_of.astype(np.int64)
+    init_support[dg.members] = init_sup
+    bounds = [0.0] + [float(b) for b in bounds_dev[1: num_subsets + 1]]
+    stats.rho_cd += state["rho"]
+    stats.wedges_cd += int(wedges)
+    stats.huc_recounts += state["hucs"]
+    stats.elided_sweeps += state["elided"]
+    stats.dgm_device_compactions += state["dgm"]
+    stats.sweeps_per_subset.extend(state["rho_sub"][:num_subsets])
+    stats.num_subsets = num_subsets
+    stats.bounds = bounds
+    stats.time_cd = time.perf_counter() - t0
     if not (subset_id >= 0).all():
         raise RuntimeError("CD left unassigned vertices")
     return subset_id, init_support, np.asarray(bounds), None

@@ -22,6 +22,9 @@ current-minimum support level of every still-live subset in the stack.
 ``fd_update_mode``: ``"auto"`` precomputes the (G, M, M) B2 stack (kernel
 3) when ``G*M*M <= fd_b2_cells`` and streams through kernel 2 otherwise;
 ``"b2"`` / ``"kernel"`` pin either side; both give bit-identical deltas.
+On the sparse backends kernel 5 takes kernel 2's place, fed per-group
+staircase extents that the launcher derives on the card from the uploaded
+stacks (equal to the reference's host ``batched_row_extents``).
 
 The legacy ``fd_mode="b2"/"matvec"`` engines and the mesh path arrive later
 (ROADMAP.md, queue 1).
@@ -36,6 +39,7 @@ import torch
 
 from ...api.errors import KernelBackendError
 from ...api.faults import fault_point
+from ...kernels import butterfly_sparse as ksparse
 from ...kernels import ops as kops
 from ..graph import BipartiteGraph, pad_to_multiple
 from ..scheduler import pack_by_shape
@@ -285,6 +289,8 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
     padded shape, and peel each group with the batched level loop —
     double-buffering host stack assembly against device work."""
     blocks = cfg.kernel_blocks
+    bi, bj, bk = blocks
+    sparse = backend in kops.SPARSE_BACKENDS
     row_align, col_align, _ = _aligns(cfg)
 
     tasks = pre_peel_tasks(tasks, init_support, theta, stats,
@@ -302,7 +308,8 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
     pending = None           # (built, device state) one group in flight
 
     def launch(built):
-        """Uploads and the first-level delta: asynchronous launches."""
+        """Uploads, the sparse backends' extents and the first-level delta:
+        asynchronous launches."""
         g_n, mm, w1 = built["a"].shape[0], built["mm"], built["w1"]
         fault_point("kernel_launch", KernelBackendError,
                     dispatch="fd_level", backend=backend,
@@ -323,19 +330,25 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
             g_n, mm)
         ids_l1 = (mm + torch.arange(w1, dtype=torch.int32, device=device)
                   ).expand(g_n, w1)
+        if sparse:
+            row_ext = ksparse.row_extents_device(a_dev, bk)
+            kma = ksparse.tile_extents(row_ext, bi)
+            kmb = ksparse.column_extents(a_l1, bj, bk)
+        else:
+            row_ext = kma = kmb = None
         delta1 = kops.butterfly_update_batched(
             a_dev, a_l1, valid1, ids_s, ids_l1, backend=backend,
-            blocks=blocks)
+            blocks=blocks, kmax_a=kma, kmax_b=kmb)
         cap1 = up(built["cap1"], cfg.dtype)
         sup1 = torch.maximum(sup_dev - delta1, cap1[:, None])
         return (a_dev, sup1, up(built["alive0"], torch.bool),
                 up(built["dv0"], torch.float32),
-                up(built["los"], torch.float32))
+                up(built["los"], torch.float32), row_ext)
 
     def drain(built, state):
         """Run the group's level loop to the end (re-entering on a
         ``max_sweeps`` cap-exit) and fetch theta once per invocation."""
-        a_dev, sup, alive, dv, lo_dev = state
+        a_dev, sup, alive, dv, lo_dev, row_ext = state
         th_acc = np.zeros(built["alive0"].shape, np.float64)
         prev_alive = built["alive0"]
         max_level_seen = 0
@@ -345,7 +358,8 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
                     a_dev, sup, alive, dv, lo_dev, backend=backend,
                     blocks=blocks, peel_width=built["peel_width"],
                     max_sweeps=cfg.max_sweeps,
-                    update_mode=built["update_mode"], stats=stats))
+                    update_mode=built["update_mode"], row_ext=row_ext,
+                    stats=stats))
             stats.device_loop_calls += 1
             th_h, alive_h, rho_h, wedges_h, max_lev_h = fetch(
                 stats, th, alive, rho, wedges, max_lev)

@@ -1,10 +1,17 @@
 """The peel core, vertex axis (port of ``repro.core.engine.peel_loop``).
 
-One sweep engine drives the peel schedules of this slice:
+One sweep engine drives the peel schedules:
 
 * **CD range-peel** (Alg. 3): peel everything with support < ``hi`` until
   the range drains; support updates cap at ``lo`` = theta(i).
-  ``device_peel_loop(minmode=False)`` — used by `engine/cd.py`.
+  ``device_peel_loop(minmode=False)`` — one invocation per subset, used by
+  the subset dispatch of `engine/cd.py`.
+* **whole-graph CD** (DESIGN.md section 2.3): ``device_cd_graph_loop`` runs
+  every subset of the CD phase over state that stays on the device; at
+  each subset boundary it compacts the residual graph on the card
+  (on-device DGM), re-tightens the staircase extents, re-estimates the HUC
+  bound and picks the next range with ``kernels.ops.find_hi_device`` —
+  used by the graph dispatch of `engine/cd.py`.
 * **min-peel** (ParB schedule): each sweep peels the current
   minimum-support set.  ``device_peel_loop(minmode=True)``.
 * **FD level-peel** (Alg. 4): peel the entire current-minimum support
@@ -12,25 +19,40 @@ One sweep engine drives the peel schedules of this slice:
   ``batched_level_loop`` — used by `engine/fd.py`.
 
 The reference runs these loops as ``lax.while_loop``s with ``lax.cond``
-branches; here they are Python loops over device tensors.  Each loop
-condition is read on the host once per sweep, and the HUC peel-vs-recount
-choice once more per non-terminal sweep.  Every such blocking transfer goes
-through ``fetch`` and counts in ``RunStats.host_round_trips`` (the port's
-own number, not the reference's).
+branches; here they are Python loops over device tensors.  Each sweep
+reads its peel-set and alive sizes on the host in one transfer (the loop
+test, the elision test and, in the graph loop, the "range drained?" test
+at once), and the HUC peel-vs-recount choice (decided on the device, as
+the reference's f32 comparison) in one more per non-terminal sweep.  A
+subset boundary of the graph loop makes no read of its own (no
+``.item()``, ``bool()`` or index by a 0-dim tensor).  Every such
+blocking transfer goes through ``fetch`` and counts in
+``RunStats.host_round_trips`` (the port's own number, not the reference's).
 
-Because the peel-set size is read anyway, the CD gather is sized to it
+Because the peel-set size is read anyway, every CD gather is sized to it
 (``bucket(n_peel, bj)``): the reference's fixed peel buffer, its overflow
-flag and the host replay of an overflowed sweep never arise here, and
-``RunStats.overflow_fallbacks`` stays 0.
+flag and the host replay of an overflowed sweep never arise here, so
+neither ``_MAX_OVERFLOW_REPLAYS`` nor the graph dispatch's replay view of
+the carried matrix (the reference's ``_GraphStateView``) has a
+counterpart, and ``RunStats.overflow_fallbacks`` stays 0.
 
 Support updates go through the kernel entry points of
-``repro_torch.kernels.ops`` — kernel 1 (``butterfly_update``) for the
-single-graph loop, kernel 2 (``butterfly_update_batched``) and kernel 3
-(``b2_stack``) for the batched loop.
+``repro_torch.kernels.ops`` — kernel 1 (``butterfly_update``; kernel 4 on
+the sparse backends, with the staircase extents ``row_ext``/``kmax``) for
+the single-graph loops, kernel 2 (kernel 5 on the sparse backends) and
+kernel 3 (``b2_stack``) for the batched loop.
 
 Exactness: supports, wedge counts and the f32 wedge/covered accumulators
 are integers below 2^24 and exact in float32 (DESIGN.md section 8), as in
-the reference.
+the reference.  PyTorch may run a float32 matrix product on the tensor
+cores with TF32 inputs (``torch.set_float32_matmul_precision("high")``),
+which hold integers exactly only up to 2048.  The engine's products of two
+0/1 operands (``dv``, column sums) are exact that way too, since the
+products accumulate in f32; the ones with a larger operand — the residual
+wedge counts ``w = a @ max(dv - 1, 0)`` (``residual_wedges``) and the B2
+row reductions of the FD level loop — are written as elementwise products
+and sums, so they stay full float32 whatever the global setting.  ``c_peel``
+and ``c_rcnt`` are elementwise already.
 """
 from __future__ import annotations
 
@@ -40,6 +62,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...kernels import butterfly_sparse as ksparse
 from ...kernels import ops as kops
 from ..graph import BipartiteGraph
 
@@ -50,11 +73,14 @@ __all__ = [
     "fetch",
     "DeviceGraph",
     "device_peel_loop",
+    "device_cd_graph_loop",
+    "cd_graph_state0",
     "batched_level_loop",
     "host_sweep",
     "support_all",
     "support_delta",
     "residual_dv",
+    "residual_wedges",
     "apply_delta",
     "level_threshold",
     "select_peel",
@@ -258,24 +284,43 @@ def _f32_scalar(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=_F32, device=device)
 
 
+def _masked_rows_sum(m, mask):
+    """``mask @ m`` over the row axis (second to last) as a masked sum:
+    full f32 for entries past 2048 (the B2 rows), whatever the global
+    TF32 setting."""
+    return (m * mask.to(m.dtype).unsqueeze(-1)).sum(dim=-2)
+
+
 # ---------------------------------------------------------------------- #
 # device primitives
 # ---------------------------------------------------------------------- #
-def support_all(a, alive, ids, *, backend, blocks):
-    """HUC recount / initial count: support of every row w.r.t. alive rows."""
+def support_all(a, alive, ids, kmax, *, backend, blocks):
+    """HUC recount / initial count: support of every row w.r.t. alive rows
+    (``kmax`` the row-tile extents on the sparse backends, else None)."""
     return kops.butterfly_update(a, a, alive.to(a.dtype), ids, ids,
-                                 backend=backend, blocks=blocks)
+                                 backend=backend, blocks=blocks,
+                                 kmax_a=kmax, kmax_b=kmax)
 
 
-def support_delta(a, a_peel, valid, ids, ids_peel, *, backend, blocks):
+def support_delta(a, a_peel, valid, ids, ids_peel, kmax_a, kmax_b, *,
+                  backend, blocks):
     """CD peel update: delta[u'] = sum_{u in S} C(W[u, u'], 2)."""
     return kops.butterfly_update(a, a_peel, valid.to(a.dtype), ids, ids_peel,
-                                 backend=backend, blocks=blocks)
+                                 backend=backend, blocks=blocks,
+                                 kmax_a=kmax_a, kmax_b=kmax_b)
 
 
 def residual_dv(a, alive):
-    """Residual V degrees of the alive rows."""
-    return a.T @ alive.to(a.dtype)
+    """Residual V degrees of the alive rows (a product of 0/1 operands:
+    exact in f32 and in TF32 alike)."""
+    return alive.to(a.dtype) @ a
+
+
+def residual_wedges(a, dv):
+    """Per-row residual wedge counts ``a @ max(dv - 1, 0)``, as an
+    elementwise product and a sum: ``dv`` may pass 2048, so a TF32 matrix
+    product would round it."""
+    return (a * torch.clamp(dv - 1.0, min=0.0).unsqueeze(-2)).sum(dim=-1)
 
 
 # ---------------------------------------------------------------------- #
@@ -330,54 +375,62 @@ def _gather_peel(a, peel, n_peel: int, width: int):
     return rows, valid, a_peel
 
 
-# ---------------------------------------------------------------------- #
-# one sweep of the single-graph loop
-# ---------------------------------------------------------------------- #
-def _sweep_once(a, ids, c_rcnt, hi_cur, cap, support, alive, dv, theta,
-                peeled, wedges, covered, *, backend, blocks, use_huc,
-                minmode, stats):
-    """One peel sweep of ``device_peel_loop`` (reference ``_sweep_once``,
-    vertex axis): peel selection at ``hi_cur``, terminal-sweep elision,
-    the gather sized to the peel set, the HUC peel-vs-recount choice and
-    the incremental residual-degree / wedge-counter updates.
-
-    ``c_rcnt`` is the HUC recount bound as a (host float, f32 tensor)
-    pair.  Returns None when the peel set is empty (the loop's exit test,
-    read in the same transfer as the sizes), else (support, alive, dv,
-    theta, peeled, wedges, covered, recounted, elided).
-    """
-    peel = select_peel(support, alive, hi_cur)
+def _peel_sizes(support, alive, hi, stats):
+    """A sweep's peel set and the one read it costs: (peel, n_peel,
+    n_alive), the two sizes fetched in a single transfer."""
+    peel = select_peel(support, alive, hi)
     n_peel, n_alive = (int(x) for x in fetch(stats, peel.sum(), alive.sum()))
-    if n_peel == 0:
-        return None
-    theta2 = record_theta(theta, peel, cap) if minmode else theta
+    return peel, n_peel, n_alive
+
+
+# ---------------------------------------------------------------------- #
+# one sweep of the single-graph loops
+# ---------------------------------------------------------------------- #
+def _sweep_once(a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv,
+                wedges, covered, peel, n_peel, n_alive, *, backend, blocks,
+                use_huc, stats):
+    """One non-empty peel sweep (reference ``_sweep_once``, vertex axis),
+    shared by ``device_peel_loop`` and ``device_cd_graph_loop``: the
+    terminal-sweep elision, the gather sized to the peel set, the HUC
+    peel-vs-recount choice and the incremental residual-degree / wedge
+    counter updates.  The caller has selected ``peel`` and read its sizes
+    (``_peel_sizes``), and records theta / the peeled set itself.
+
+    ``row_ext`` / ``kmax`` are the per-row and row-tile staircase extents
+    of ``a`` (read on the sparse backends only); ``c_rcnt`` is the HUC
+    recount bound as an f32 tensor.  Returns (support, alive, dv, wedges,
+    covered, recounted, elided).
+    """
+    sparse = backend in kops.SPARSE_BACKENDS
     if n_peel == n_alive:
         # terminal-sweep elision: a sweep that peels EVERY survivor needs
         # no update kernel; the full peel set's column sums are dv itself
-        c_peel = peel_cost(dv, dv)
-        return (support, alive & ~peel, torch.zeros_like(dv), theta2,
-                peeled | peel, wedges, covered + c_peel, False, True)
+        return (support, alive & ~peel, torch.zeros_like(dv), wedges,
+                covered + peel_cost(dv, dv), False, True)
 
     width = min(bucket(n_peel, blocks[1]), a.shape[0])
     rows, valid, a_peel = _gather_peel(a, peel, n_peel, width)
     # incremental residual degrees: peeled rows' column sums
-    colsum = valid.to(_F32) @ a_peel.to(_F32)
+    colsum = a_peel.sum(dim=0)
     c_peel = peel_cost(colsum, dv)
-    c_rcnt_host, c_rcnt_dev = c_rcnt
-    use_rec = use_huc and float(fetch(stats, c_peel)[0]) > c_rcnt_host
+    use_rec = use_huc and bool(fetch(stats, c_peel > c_rcnt)[0])
     if use_rec:
         alive2 = alive & ~peel
-        s2 = support_all(a, alive2, ids, backend=backend, blocks=blocks)
+        s2 = support_all(a, alive2, ids, kmax if sparse else None,
+                         backend=backend, blocks=blocks)
         support2 = torch.where(alive2, torch.maximum(s2, cap), _INF)
-        wedges = wedges + c_rcnt_dev
+        wedges = wedges + c_rcnt
     else:
-        delta = support_delta(a, a_peel, valid, ids, rows, backend=backend,
-                              blocks=blocks)
+        kb = (ksparse.gathered_tile_extents(row_ext, rows, valid, blocks[1])
+              if sparse else None)
+        delta = support_delta(a, a_peel, valid, ids, rows,
+                              kmax if sparse else None, kb,
+                              backend=backend, blocks=blocks)
         s2, alive2 = apply_delta(support, alive, peel, delta, cap)
         support2 = torch.where(alive2, s2, _INF)
         wedges = wedges + c_peel
-    return (support2, alive2, dv - colsum, theta2, peeled | peel, wedges,
-            covered + c_peel, use_rec, False)
+    return (support2, alive2, dv - colsum, wedges, covered + c_peel, use_rec,
+            False)
 
 
 # ---------------------------------------------------------------------- #
@@ -385,7 +438,7 @@ def _sweep_once(a, ids, c_rcnt, hi_cur, cap, support, alive, dv, theta,
 # ---------------------------------------------------------------------- #
 def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
                      sweeps0=0, *, backend, blocks, use_huc, max_sweeps,
-                     minmode, stats=None):
+                     minmode, row_ext=None, kmax=None, stats=None):
     """Run an entire peel-sweep loop over device tensors.
 
     * ``minmode=False`` (RECEIPT CD, Alg. 3): peel everything with
@@ -398,7 +451,9 @@ def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
 
     Residual V-degrees ``dv`` are maintained incrementally.  The
     ``max_sweeps`` valve bounds ONE invocation, never the schedule: the
-    callers re-enter on a cap-exit with peelable rows left.
+    callers re-enter on a cap-exit with peelable rows left.  ``row_ext`` /
+    ``kmax`` are ``a``'s staircase extents, required on the sparse
+    backends.
 
     Returns (support, alive, dv, theta, peeled, rho, wedges, hucs, elided,
     covered, sweeps, overflow) like the reference; ``wedges`` and
@@ -408,8 +463,7 @@ def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
     dev = support.device
     hi = _f32_scalar(hi, dev)
     lo = _f32_scalar(lo, dev)
-    c_rcnt_host = float(np.float32(c_rcnt))
-    c_rcnt = (c_rcnt_host, _f32_scalar(c_rcnt_host, dev))
+    c_rcnt = _f32_scalar(c_rcnt, dev)
     peeled = torch.zeros_like(alive)
     wedges = torch.zeros((), dtype=_F32, device=dev)
     covered = torch.zeros((), dtype=_F32, device=dev)
@@ -420,14 +474,16 @@ def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
             hi_cur, cap = level_threshold(support, alive, lo)
         else:
             hi_cur, cap = hi, lo
-        out = _sweep_once(
-            a, ids, c_rcnt, hi_cur, cap, support, alive, dv, theta, peeled,
-            wedges, covered, backend=backend, blocks=blocks,
-            use_huc=(use_huc and not minmode), minmode=minmode, stats=stats)
-        if out is None:
+        peel, n_peel, n_alive = _peel_sizes(support, alive, hi_cur, stats)
+        if n_peel == 0:
             break
-        (support, alive, dv, theta, peeled, wedges, covered, rec,
-         eli) = out
+        if minmode:
+            theta = record_theta(theta, peel, cap)
+        peeled = peeled | peel
+        support, alive, dv, wedges, covered, rec, eli = _sweep_once(
+            a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv, wedges,
+            covered, peel, n_peel, n_alive, backend=backend, blocks=blocks,
+            use_huc=(use_huc and not minmode), stats=stats)
         rho += 1
         hucs += int(rec)
         elided += int(eli)
@@ -437,11 +493,152 @@ def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
 
 
 # ---------------------------------------------------------------------- #
+# whole-graph CD loop (every subset, boundaries on the device)
+# ---------------------------------------------------------------------- #
+def cd_graph_state0(dg: "DeviceGraph", support, alive, p_total: int) -> dict:
+    """Initial state of ``device_cd_graph_loop`` (reference
+    ``cd_graph_state0``).
+
+    Tensors stay on the device; the loop's counters and control fields
+    (``i``, ``rho``, ``hucs``, ``elided``, ``dgm``, ``iters``, ``done``,
+    ``rho_sub``) are host values, because the host drives the loop anyway.
+    ``hi = -inf`` makes the first iteration a boundary, which opens subset
+    0 on the device.  The residual graph rides in the state (``a``, ``dv``,
+    ``row_ext``/``kmax``, ``c_rcnt``): the on-device DGM step rewrites
+    them.  ``_receipt_cd_graph`` re-enters with the returned state after a
+    ``max_iters`` cap-exit, resetting only ``iters``.
+    """
+    dev = support.device
+    rows_pad = dg.rows_pad
+    return dict(
+        a=dg.a, dv=dg.dv0, row_ext=dg.row_ext, kmax=dg.kmax,
+        c_rcnt=_f32_scalar(dg.c_rcnt, dev), dgm=0,
+        support=support, alive=alive,
+        subset_of=torch.full((rows_pad,), -1, dtype=torch.int32, device=dev),
+        init_sup=torch.zeros(rows_pad, dtype=_F32, device=dev),
+        bounds=torch.zeros(p_total + 1, dtype=_F32, device=dev),
+        rho_sub=[], i=-1,
+        hi=_f32_scalar(-_INF, dev), lo=_f32_scalar(0.0, dev),
+        scale=_f32_scalar(1.0, dev), tgt=_f32_scalar(0.0, dev),
+        covered=_f32_scalar(0.0, dev), rho_start=0,
+        rho=0, wedges=_f32_scalar(0.0, dev), hucs=0, elided=0,
+        iters=0, done=False,
+    )
+
+
+def _compact_residual(st: dict, blocks, sparse: bool) -> dict:
+    """On-device DGM (reference ``device_cd_graph_loop`` boundary): zero
+    the dead rows, gather the live columns (residual degree >= 2) into a
+    prefix with a stable sort (the degree-sort order kept inside it),
+    permute ``dv`` along, re-tighten the staircase extents and re-estimate
+    the HUC bound ``c_rcnt = sum_E min(du, dv)`` on the compacted graph.
+    Rows keep their places, so supports and subset stamps are untouched."""
+    a0 = st["a"] * st["alive"][:, None].to(st["a"].dtype)
+    live_col = st["dv"] >= 2.0
+    perm = torch.argsort((~live_col).to(torch.int8), stable=True)
+    a2 = a0[:, perm] * live_col[perm][None, :].to(a0.dtype)
+    dv = torch.where(live_col, st["dv"], 0.0)[perm]
+    if sparse:
+        row_ext, kmax = kops.tighten_extents_device(
+            a2, live_col.sum(), block_rows=blocks[0], block_k=blocks[2])
+    else:
+        row_ext, kmax = st["row_ext"], st["kmax"]
+    du = a2.sum(dim=1)
+    c_rcnt = (a2 * torch.minimum(du[:, None], dv[None, :])).sum()
+    return dict(st, a=a2, dv=dv, row_ext=row_ext, kmax=kmax, c_rcnt=c_rcnt)
+
+
+def _graph_boundary(st: dict, done: bool, *, blocks, sparse, use_dgm,
+                    p_total) -> dict:
+    """Close subset ``i`` (none on the first entry, i = -1) and, unless no
+    row is alive, open subset ``i + 1``: on-device DGM, the ``init_sup``
+    snapshot, fresh residual wedge counts ``w = a @ max(dv - 1, 0)`` and
+    the next ``hi`` from ``find_hi_device``.  No host read."""
+    i = st["i"]
+    st = dict(st, iters=st["iters"] + 1)
+    if i >= 0:
+        st["bounds"][i + 1] = st["hi"]
+        st["rho_sub"] = st["rho_sub"] + [st["rho"] - st["rho_start"]]
+        if i < p_total - 1:
+            st["scale"] = torch.where(
+                st["covered"] > 0,
+                torch.clamp(st["tgt"] / st["covered"], max=1.0), st["scale"])
+        st["lo"] = st["hi"]
+        if use_dgm:
+            st["dgm"] += 1
+    if done:
+        return dict(st, done=True)
+    if use_dgm:
+        st = _compact_residual(st, blocks, sparse)
+    i2 = i + 1
+    st["init_sup"] = torch.where(st["alive"], st["support"], st["init_sup"])
+    w = residual_wedges(st["a"], st["dv"])
+    if i2 >= p_total - 1:
+        # a fill on the device: a copy from the host would wait for it
+        tgt = torch.full((), _INF, dtype=_F32, device=w.device)
+    else:
+        rem = torch.where(st["alive"], w, 0.0).sum()
+        tgt = torch.clamp(rem / float(max(p_total - i2, 1)) * st["scale"],
+                          min=1.0)
+    return dict(
+        st, i=i2, tgt=tgt,
+        hi=kops.find_hi_device(st["support"], st["alive"], w, tgt),
+        covered=torch.zeros_like(st["covered"]), rho_start=st["rho"])
+
+
+def device_cd_graph_loop(ids, state: dict, *, backend, blocks, use_huc,
+                         use_dgm, max_iters, p_total, stats=None) -> dict:
+    """Run the whole CD phase — every subset — over device-resident state
+    (reference ``device_cd_graph_loop``, DESIGN.md section 2.3).
+
+    Each iteration is either a **sweep** (one ``_sweep_once`` at the
+    carried ``hi``/``lo``, the peeled rows stamped with the open subset)
+    or, when the sweep's size read finds the range drained, a **subset
+    boundary** (``_graph_boundary``) that runs entirely on the card: close
+    the subset (bound, sweep count, adaptive ``scale``), the on-device DGM
+    compaction (``use_dgm``), the ``init_sup`` snapshot, the fresh residual
+    wedge counts and ``find_hi_device``.  The same read says whether any
+    row is alive, which ends the loop after the closing boundary.
+
+    ``max_iters`` bounds one invocation (sweeps and boundaries); the caller
+    re-enters with the returned state.  The column permutation of the
+    compaction lives in the carried ``a`` (and ``dv``/``row_ext``/``kmax``),
+    so everything after a boundary reads the carried matrix, never the
+    construction-time ``DeviceGraph.a``.  Bounds may differ from the
+    subset dispatch (fresh residual wedge counts, f32 findHi prefix sums,
+    DGM at every boundary); tip numbers cannot (Theorem 1 holds for any
+    bounds).
+    """
+    sparse = backend in kops.SPARSE_BACKENDS
+    st = dict(state)
+    while not st["done"] and st["iters"] < max_iters:
+        peel, n_peel, n_alive = _peel_sizes(st["support"], st["alive"],
+                                            st["hi"], stats)
+        if n_peel == 0:
+            st = _graph_boundary(st, n_alive == 0, blocks=blocks,
+                                 sparse=sparse, use_dgm=use_dgm,
+                                 p_total=p_total)
+            continue
+        support, alive, dv, wedges, covered, rec, eli = _sweep_once(
+            st["a"], ids, st["row_ext"], st["kmax"], st["c_rcnt"], st["lo"],
+            st["support"], st["alive"], st["dv"], st["wedges"],
+            st["covered"], peel, n_peel, n_alive, backend=backend,
+            blocks=blocks, use_huc=use_huc, stats=stats)
+        st = dict(
+            st, support=support, alive=alive, dv=dv, wedges=wedges,
+            covered=covered, rho=st["rho"] + 1,
+            hucs=st["hucs"] + int(rec), elided=st["elided"] + int(eli),
+            subset_of=torch.where(peel, st["i"], st["subset_of"]),
+            iters=st["iters"] + 1)
+    return st
+
+
+# ---------------------------------------------------------------------- #
 # batched level-peel loop (FD: a stack of independent subsets)
 # ---------------------------------------------------------------------- #
 def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
                        peel_width, max_sweeps, update_mode="kernel",
-                       stats=None):
+                       row_ext=None, stats=None):
     """Peel a stack of G independent subsets by whole support levels.
 
     Each sweep peels, in EVERY still-live group, the entire
@@ -453,17 +650,19 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
     alive:   (G, M)     bool (False on padding rows)
     dv:      (G, C)     residual V-degrees of each induced subgraph
     lo:      (G,)       per-subset theta lower bounds (CD range floors)
+    row_ext: (G, M)     int32 per-row staircase extents (sparse backends)
 
     The peel level is gathered into a fixed (G, ``peel_width``, C) buffer.
     A sweep where ANY group's level exceeds the buffer uses the mask form
     (B = A, s = peel mask) instead: same output, no gather.  The loop test
     and the largest level are read in one transfer per sweep.
 
-    ``update_mode``: ``"kernel"`` streams every sweep through kernel 2;
-    ``"b2"`` computes the (G, M, M) shared-butterfly stack ONCE with
-    kernel 3 (whose CUDA version masks ragged edges, so unlike the
-    reference no block-alignment test routes around it) and reduces its
-    gathered rows per sweep.  Both give bit-identical deltas.
+    ``update_mode``: ``"kernel"`` streams every sweep through kernel 2
+    (kernel 5 on the sparse backends, with per-group extents); ``"b2"``
+    computes the (G, M, M) shared-butterfly stack ONCE with kernel 3
+    (whose CUDA version masks ragged edges, so unlike the reference no
+    block-alignment test routes around it) and reduces its gathered rows
+    per sweep.  Both give bit-identical deltas.
 
     Returns (support, alive, dv, theta, rho, wedges, max_level, sweeps)
     as the reference does: ``theta`` (G, M), per-group ``rho`` (int32),
@@ -471,9 +670,15 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
     """
     g_n, mm, _cc = a.shape
     dev = a.device
+    sparse = backend in kops.SPARSE_BACKENDS
     lo = _f32_scalar(lo, dev)
     ids = torch.arange(mm, dtype=torch.int32, device=dev).expand(
         g_n, mm).contiguous()
+    if sparse:
+        kmax_a = ksparse.tile_extents(row_ext, blocks[0])
+        kmax_mask = ksparse.tile_extents(row_ext, blocks[1])
+    else:
+        kmax_a = kmax_mask = None
     if update_mode == "b2":
         b2 = kops.b2_stack(a.to(_F32), backend=backend, blocks=blocks)
     elif update_mode != "kernel":
@@ -482,13 +687,13 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
     def full_mask_update(peel):
         """Full-width update: B = A, s = peel mask (no gather)."""
         if update_mode == "b2":
-            delta = torch.einsum("gm,gmn->gn", peel.to(_F32), b2)
+            delta = _masked_rows_sum(b2, peel)
         else:
             delta = kops.butterfly_update_batched(
                 a, a, peel.to(a.dtype), ids, ids, backend=backend,
-                blocks=blocks)
-        colsum = torch.einsum("gm,gmc->gc", peel.to(_F32), a.to(_F32))
-        return delta, colsum
+                blocks=blocks, kmax_a=kmax_a, kmax_b=kmax_mask)
+        return delta, torch.einsum("gm,gmc->gc", peel.to(_F32),
+                                   a.to(_F32))
 
     def gathered_update(peel, n_peel):
         """Gathered update: the peel level compacted to the fixed
@@ -503,13 +708,15 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
                   * valid[:, :, None].to(a.dtype))
         if update_mode == "b2":
             b2_rows = torch.take_along_dim(b2, rows[:, :, None], dim=1)
-            delta = torch.einsum("gw,gwm->gm", valid.to(_F32), b2_rows)
+            delta = _masked_rows_sum(b2_rows, valid)
         else:
+            kb = (ksparse.batched_gathered_tile_extents(row_ext, rows, valid,
+                                                        blocks[1])
+                  if sparse else None)
             delta = kops.butterfly_update_batched(
-                a, a_peel, valid, ids, rows, backend=backend, blocks=blocks)
-        colsum = torch.einsum("gw,gwc->gc", valid.to(_F32),
-                              a_peel.to(_F32))
-        return delta, colsum
+                a, a_peel, valid, ids, rows, backend=backend, blocks=blocks,
+                kmax_a=kmax_a, kmax_b=kb)
+        return delta, a_peel.to(_F32).sum(dim=1)
 
     theta = torch.zeros((g_n, mm), dtype=_F32, device=dev)
     rho = torch.zeros(g_n, dtype=torch.int32, device=dev)
@@ -550,14 +757,22 @@ class DeviceGraph:
     cols are the compacted V vertices with residual degree >= 2.  Alongside
     the biadjacency it carries what the sweep loop needs: the initial
     residual V-degree vector (``dv0``), the static per-row wedge counts
-    (host ``w_np`` for findHi) and the HUC recount bound ``c_rcnt``.  The
-    reference also carries staircase extents (``row_ext``/``kmax``) for
-    its sparse backends; they return here with the sparse backend.
+    (host ``w_np`` for findHi) and the HUC recount bound ``c_rcnt``.  On
+    the sparse backends it also carries the staircase extents, computed on
+    the device from the uploaded matrix: ``row_ext`` per row and ``kmax``
+    per ``bi``-row tile (None on the dense backends, which never read
+    them).
     """
 
     def __init__(self, g: BipartiteGraph, members: np.ndarray,
                  cfg: ReceiptConfig, *, device):
         bi, bj, bk = cfg.kernel_blocks
+        sparse = kops.resolve_backend(cfg.backend, device) in \
+            kops.SPARSE_BACKENDS
+        if sparse and bi != bj:
+            raise ValueError("sparse backends require square row tiles "
+                             f"(bi == bj), got kernel_blocks "
+                             f"{cfg.kernel_blocks!r}")
         # induce on the live rows, dropping V columns that cannot form a
         # wedge (residual degree < 2) — the DGM column compaction
         sub, _ = g.induced_on_u(members, min_degree_v=2)
@@ -587,6 +802,11 @@ class DeviceGraph:
         # Chiba-Nishizeki recount bound of this residual graph (HUC C_rcnt)
         du = np.bincount(eu, minlength=self.rows_pad)
         self.c_rcnt = float(np.minimum(du[eu], dvk[ev]).sum())
+        if sparse:
+            self.row_ext = ksparse.row_extents_device(self.a, bk)
+            self.kmax = ksparse.tile_extents(self.row_ext, bi)
+        else:
+            self.row_ext = self.kmax = None
 
 
 # ---------------------------------------------------------------------- #
@@ -600,11 +820,12 @@ def host_sweep(dg, cfg: ReceiptConfig, stats: RunStats,
     Returns (support, alive, info) where info is None when nothing was
     peelable, else a dict with keys ``peel_np`` (host peel mask),
     ``n_peel`` and ``c_peel``.  The per-row wedge cost is recomputed from
-    two dense contractions (the reference's ``sweep_info``).
+    the residual degrees (the reference's ``sweep_info``).
     """
+    sparse = backend in kops.SPARSE_BACKENDS
     peel = select_peel(support, alive, hi)
     dv = residual_dv(dg.a, alive)
-    wcur = dg.a @ torch.clamp(dv - 1.0, min=0.0)
+    wcur = residual_wedges(dg.a, dv)
     c_peel_t = torch.where(peel, wcur, 0.0).sum()
     n_peel, c_peel, n_alive = fetch(stats, peel.sum(), c_peel_t, alive.sum())
     n_peel, c_peel = int(n_peel), float(c_peel)
@@ -620,15 +841,20 @@ def host_sweep(dg, cfg: ReceiptConfig, stats: RunStats,
     elif allow_huc and cfg.use_huc and c_peel > dg.c_rcnt:
         # HUC: recount survivors instead of propagating peel updates
         alive = alive & ~peel
-        support = support_all(dg.a, alive, dg.ids, backend=backend,
-                              blocks=blocks)
+        support = support_all(dg.a, alive, dg.ids,
+                              dg.kmax if sparse else None,
+                              backend=backend, blocks=blocks)
         support = torch.where(alive, torch.maximum(support, lo_t), _INF)
         stats.huc_recounts += 1
         stats.wedges_cd += int(dg.c_rcnt)
     else:
         width = min(bucket(n_peel, blocks[1]), dg.rows_pad)
         rows, valid, a_peel = _gather_peel(dg.a, peel, n_peel, width)
+        kb = (ksparse.gathered_tile_extents(dg.row_ext, rows, valid,
+                                            blocks[1])
+              if sparse else None)
         delta = support_delta(dg.a, a_peel, valid, dg.ids, rows,
+                              dg.kmax if sparse else None, kb,
                               backend=backend, blocks=blocks)
         support, alive = apply_delta(support, alive, peel, delta, lo_t)
         support = torch.where(alive, support, _INF)

@@ -19,6 +19,8 @@ from .engine import (
     batched_level_loop,
     bucket,
     cd_checkpoint_state,
+    cd_graph_state0,
+    device_cd_graph_loop,
     device_peel_loop,
     find_hi_np,
     host_sweep,
@@ -36,6 +38,8 @@ __all__ = [
     "cd_checkpoint_state",
     "DeviceGraph",
     "device_peel_loop",
+    "device_cd_graph_loop",
+    "cd_graph_state0",
     "batched_level_loop",
     "host_sweep",
     "bucket",

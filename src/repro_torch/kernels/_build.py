@@ -4,8 +4,9 @@ Each source has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library, loaded with ``ctypes``.  The build
 happens at first use, reads only the sources in this package and writes to
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``).  A library's file name carries a hash of its source, so an
-edited source is rebuilt and a current one is reused.  ``build_all`` starts
+``.gitignore``).  A library's file name carries a hash of its source and
+of the shared headers (``csrc/*.cuh``), so an edited source is rebuilt and
+a current one is reused.  ``build_all`` starts
 one ``nvcc`` per source at once and waits for all of them.
 
 Nothing here runs at import time, and there is no fallback: a failed build
@@ -25,7 +26,7 @@ __all__ = ["SOURCES", "build_dir", "nvcc_command", "build_all", "library",
            "ptr", "stream_of", "check_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("butterfly", "b2_stack")
+SOURCES = ("butterfly_sparse", "b2_stack")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 
@@ -45,8 +46,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return build_dir() / f"lib{name}-{digest[:12]}.so"
+    """The library of one source, named by a hash of the source and of
+    the shared headers it may include."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def nvcc_command(name: str, nvcc: str, out: Path) -> List[str]:
@@ -113,13 +118,11 @@ def library(name: str) -> ctypes.CDLL:
     with ``argtypes``/``restype`` declared for every entry point."""
     lib = ctypes.CDLL(str(build_all()[name]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "butterfly":
-        lib.butterfly_update_f32.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
-        lib.butterfly_update_f32.restype = i32
-        lib.butterfly_update_batched_f32.argtypes = (
-            [ptr] * 6 + [i32] * 4 + [ptr])
-        lib.butterfly_update_batched_f32.restype = i32
-    elif name == "b2_stack":
+    if name == "b2_stack":
         lib.b2_stack_f32.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
         lib.b2_stack_f32.restype = i32
+    elif name == "butterfly_sparse":
+        lib.butterfly_update_sparse_f32.argtypes = (
+            [ptr] * 8 + [i32] * 9 + [ptr])
+        lib.butterfly_update_sparse_f32.restype = i32
     return lib

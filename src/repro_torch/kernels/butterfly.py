@@ -13,15 +13,19 @@ section 2.1):
 ``ids_a`` / ``ids_b`` carry the row ids of each side so self-pairs (u, u)
 are excluded even when B holds gathered copies of A rows.
 
-Two kernels, both in ``csrc/butterfly.cu`` (which notes the Pallas kernels
-they replace, what bounds them on the H100 and how they are built):
+Two kernels, both launches of the one wedge-update body of
+``csrc/butterfly_sparse.cu`` with no stripe extents (the source notes the
+Pallas kernels it replaces, what bounds it on the H100 and how it is
+built):
 
 * ``butterfly_update``         kernel 1, one graph, global ids;
 * ``butterfly_update_batched`` kernel 2, a (G, ...) stack, local ids.
 
 Each wrapper takes its plain version (beside it) for CPU tensors and
 launches its kernel for CUDA tensors, counting the launch in ``LAUNCHES``.
-There is no fallback from one to the other.
+There is no fallback from one to the other.  ``_launch`` is that body's
+one launch, shared with the stripe-skipping kernels 4 and 5
+(``butterfly_sparse``).
 """
 from __future__ import annotations
 
@@ -85,23 +89,43 @@ def _check(a, b, s, ids_a, ids_b, *, batched: bool):
             f"ids_b{tuple(ids_b.shape)}")
 
 
+def _launch(counts, key, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
+            blocks=(1, 1, 1)):
+    """Launch the wedge-update kernel of ``csrc/butterfly_sparse.cu`` on
+    CUDA operands (2-D: one graph; 3-D: the group is gridDim.z) and count
+    it in ``counts[key]``.  Without extents every stripe is read (kernels
+    1 and 2); with ``kmax_a``/``kmax_b`` of ``blocks`` row tiles the K loop
+    stops at the covering tiles' extents (kernels 4 and 5)."""
+    if a.device.type != "cuda":
+        raise ValueError(f"no butterfly kernel for device {a.device}")
+    batched = a.dim() == 3
+    _check(a, b, s, ids_a, ids_b, batched=batched)
+    skip = kmax_a is not None
+    if skip != (kmax_b is not None):
+        raise ValueError("kmax_a and kmax_b come together")
+    bi, bj, bk = (int(x) for x in blocks)
+    g_n = a.shape[0] if batched else 1
+    n_a, n_v = a.shape[-2:]
+    n_b = b.shape[-2]
+    out = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+    if g_n and n_a and n_b and n_v:
+        lib = _build.library("butterfly_sparse")
+        check_launch(lib.butterfly_update_sparse_f32(
+            ptr(a), ptr(b), ptr(s), ptr(ids_a), ptr(ids_b),
+            ptr(kmax_a) if skip else None, ptr(kmax_b) if skip else None,
+            ptr(out), g_n, n_a, n_b, n_v,
+            kmax_a.shape[-1] if skip else 0, kmax_b.shape[-1] if skip else 0,
+            bi, bj, bk, stream_of(a)), key)
+        counts[key] += 1
+    return out
+
+
 def butterfly_update(a, b, s, ids_a, ids_b):
     """Kernel 1.  a (n_a, n_v) f32 0/1, b (n_b, n_v), s (n_b,) f32,
     ids_a (n_a,) / ids_b (n_b,) int32; returns out (n_a,) f32."""
     if a.device.type == "cpu":
         return butterfly_update_plain(a, b, s, ids_a, ids_b)
-    if a.device.type != "cuda":
-        raise ValueError(f"no butterfly kernel for device {a.device}")
-    _check(a, b, s, ids_a, ids_b, batched=False)
-    (n_a, n_v), n_b = a.shape, b.shape[0]
-    out = torch.zeros(n_a, dtype=torch.float32, device=a.device)
-    if n_a and n_b and n_v:
-        lib = _build.library("butterfly")
-        check_launch(lib.butterfly_update_f32(
-            ptr(a), ptr(b), ptr(s), ptr(ids_a), ptr(ids_b), ptr(out),
-            n_a, n_b, n_v, stream_of(a)), "butterfly_update")
-        LAUNCHES["butterfly_update"] += 1
-    return out
+    return _launch(LAUNCHES, "butterfly_update", a, b, s, ids_a, ids_b)
 
 
 def butterfly_update_batched(a, b, s, ids_a, ids_b):
@@ -109,15 +133,5 @@ def butterfly_update_batched(a, b, s, ids_a, ids_b):
     ids_a (G, n_a) / ids_b (G, n_b) int32 local ids; returns (G, n_a)."""
     if a.device.type == "cpu":
         return butterfly_update_batched_plain(a, b, s, ids_a, ids_b)
-    if a.device.type != "cuda":
-        raise ValueError(f"no butterfly kernel for device {a.device}")
-    _check(a, b, s, ids_a, ids_b, batched=True)
-    (g_n, n_a, n_v), n_b = a.shape, b.shape[1]
-    out = torch.zeros((g_n, n_a), dtype=torch.float32, device=a.device)
-    if g_n and n_a and n_b and n_v:
-        lib = _build.library("butterfly")
-        check_launch(lib.butterfly_update_batched_f32(
-            ptr(a), ptr(b), ptr(s), ptr(ids_a), ptr(ids_b), ptr(out),
-            g_n, n_a, n_b, n_v, stream_of(a)), "butterfly_update_batched")
-        LAUNCHES["butterfly_update_batched"] += 1
-    return out
+    return _launch(LAUNCHES, "butterfly_update_batched", a, b, s, ids_a,
+                   ids_b)

@@ -1,22 +1,28 @@
-"""Staircase extents and the pairwise-butterfly stack kernel.
+"""Staircase extents and the stripe-skipping kernels.
 
 After degree-descending relabeling, a power-law biadjacency's nonzeros sit
 at low column indices, so each row (and each row tile) has a column extent
 past which it is all zero.  A wedge tile ``W_ij = A_i B_j^T`` gets nothing
 from K-stripes beyond ``min(kmax_a[i], kmax_b[j])``, and the kernels skip
-them.  This module holds the extent helpers the dense slice needs
-(``row_extents``, ``batched_row_extents``, ``row_extents_device``) and the
-``b2_stack`` kernel (kernel 3, ``csrc/b2_stack.cu``), which computes
+them.  This module holds the extent helpers (``row_extents``,
+``batched_row_extents``, ``row_extents_device``, ``tile_extents``,
+``column_extents`` and the gathered-row forms ``gathered_tile_extents`` /
+``batched_gathered_tile_extents``) and three kernels:
 
-    out[g, x, y] = C((A_g A_g^T)[x, y], 2) * [x != y]
+* ``butterfly_update_sparse``  kernel 4 (``csrc/butterfly_sparse.cu``):
+  ``out[i] = sum_{j: ids_b[j] != ids_a[i]} s[j] * C((A B^T)[i, j], 2)``
+  with the stripe skip, one graph, global ids;
+* ``butterfly_update_sparse_batched``  kernel 5 (same source): the same
+  over a (G, ...) stack, local ids, one staircase per group member;
+* ``b2_stack``  kernel 3 (``csrc/b2_stack.cu``):
+  ``out[g, x, y] = C((A_g A_g^T)[x, y], 2) * [x != y]`` with the skip, the
+  ``fd_update_mode="b2"`` precompute.
 
-with that stripe skip — the ``fd_update_mode="b2"`` precompute.  The
-wrapper takes its plain version for CPU tensors and launches the kernel
-for CUDA tensors, counting the launch in ``LAUNCHES``.
-
-The staircase update kernels (``butterfly_update_pallas_sparse`` and its
-batched twin) and the gathered-extent helpers arrive with the sparse
-slice.
+Each wrapper takes its plain version (beside it) for CPU tensors and
+launches its kernel for CUDA tensors, counting the launch in ``LAUNCHES``.
+The plain versions of kernels 4 and 5 honour the extents stripe by stripe,
+as the Pallas grid does, so they are the same function as the Pallas
+kernels for ANY extents, even ones too tight to be exact.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from . import butterfly as _bfly
 from ._build import check_launch, ptr, stream_of
 
 __all__ = [
@@ -33,11 +40,20 @@ __all__ = [
     "batched_row_extents",
     "row_extents_device",
     "tile_extents",
+    "column_extents",
+    "gathered_tile_extents",
+    "batched_gathered_tile_extents",
+    "butterfly_update_sparse",
+    "butterfly_update_sparse_plain",
+    "butterfly_update_sparse_batched",
+    "butterfly_update_sparse_batched_plain",
     "b2_stack",
     "b2_stack_plain",
 ]
 
-LAUNCHES = {"b2_stack": 0}
+# launches of each kernel (plain calls are not counted)
+LAUNCHES = {"butterfly_update_sparse": 0,
+            "butterfly_update_sparse_batched": 0, "b2_stack": 0}
 
 
 def row_extents(a: np.ndarray, block_k: int) -> np.ndarray:
@@ -86,6 +102,120 @@ def tile_extents(ext: torch.Tensor, block_rows: int) -> torch.Tensor:
     if n_t * block_rows != rows:
         ext = F.pad(ext, (0, n_t * block_rows - rows))
     return ext.reshape(*ext.shape[:-1], n_t, block_rows).amax(dim=-1)
+
+
+def column_extents(a: torch.Tensor, block_rows: int,
+                   block_k: int) -> torch.Tensor:
+    """kmax[i] = index of the last nonzero k-stripe in row tile i, + 1:
+    the tile max of ``row_extents_device`` (reference ``column_extents``,
+    here a tensor function on ``a``'s device)."""
+    return tile_extents(row_extents_device(a, block_k), block_rows)
+
+
+def gathered_tile_extents(row_ext, rows, valid, block_rows: int):
+    """Tile extents of a gathered row matrix ``B = A[rows]``: per-row
+    extents ``row_ext`` (n_rows,) of A read at ``rows`` (n_b,), padding
+    rows (``valid`` False, whose gathered content is zeroed) extent 0, then
+    the max over each tile of ``block_rows``; returns int32."""
+    ext = torch.where(valid.to(torch.bool), row_ext[rows.long()], 0)
+    return tile_extents(ext, block_rows).to(torch.int32)
+
+
+def batched_gathered_tile_extents(row_ext, rows, valid, block_rows: int):
+    """Per-group form of ``gathered_tile_extents``: row_ext (G, M), rows
+    and valid (G, W) local row ids and padding mask; returns (G, W/block)
+    int32, one staircase per group member."""
+    ext = torch.where(valid.to(torch.bool),
+                      torch.take_along_dim(row_ext, rows.long(), dim=1), 0)
+    return tile_extents(ext, block_rows).to(torch.int32)
+
+
+def _live_wedges(a, b, kmax_a, kmax_b, blocks):
+    """W = A B^T over (..., n, n_v) operands, where stripe k of the tile
+    pair (i, j) adds only while k < min(kmax_a[i], kmax_b[j]) — the
+    Pallas grid's skip, stripe by stripe."""
+    bi, bj, bk = blocks
+    n_a, n_v = a.shape[-2:]
+    n_b = b.shape[-2]
+    per_a = kmax_a.repeat_interleave(bi, dim=-1)[..., :n_a]
+    per_b = kmax_b.repeat_interleave(bj, dim=-1)[..., :n_b]
+    lim = torch.minimum(per_a[..., :, None], per_b[..., None, :])
+    w = torch.zeros((*a.shape[:-1], n_b), dtype=a.dtype, device=a.device)
+    for k in range(-(-n_v // bk)):
+        cols = slice(k * bk, (k + 1) * bk)
+        part = a[..., cols] @ b[..., cols].transpose(-1, -2)
+        w += torch.where(lim > k, part, 0.0)
+    return w
+
+
+def butterfly_update_sparse_plain(a, b, s, ids_a, ids_b, kmax_a, kmax_b, *,
+                                  blocks):
+    """Plain version of kernel 4 (materializes the (n_a, n_b) wedge
+    matrix, stripe by stripe)."""
+    w = _live_wedges(a, b, kmax_a, kmax_b, blocks)
+    b2 = w * (w - 1.0) * 0.5
+    not_self = ids_a[:, None] != ids_b[None, :]
+    return (b2 * not_self * s[None, :]).sum(dim=-1)
+
+
+def butterfly_update_sparse_batched_plain(a, b, s, ids_a, ids_b, kmax_a,
+                                          kmax_b, *, blocks):
+    """Plain version of kernel 5."""
+    w = _live_wedges(a, b, kmax_a, kmax_b, blocks)
+    b2 = w * (w - 1.0) * 0.5
+    not_self = ids_a[:, :, None] != ids_b[:, None, :]
+    return (b2 * not_self * s[:, None, :]).sum(dim=-1)
+
+
+def _check_extents(a, b, kmax_a, kmax_b, blocks):
+    bi, bj, _bk = blocks
+    lead = tuple(a.shape[:-2])
+    n_a, n_b = a.shape[-2], b.shape[-2]
+    for name, t, shape in (("kmax_a", kmax_a, (*lead, -(-n_a // bi))),
+                           ("kmax_b", kmax_b, (*lead, -(-n_b // bj)))):
+        if t.device != a.device:
+            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_sparse(key, a, b, s, ids_a, ids_b, kmax_a, kmax_b, blocks):
+    """Kernels 4 and 5: the wedge-update launch with stripe extents."""
+    if a.device.type != "cuda":
+        raise ValueError(f"no butterfly kernel for device {a.device}")
+    _check_extents(a, b, kmax_a, kmax_b, blocks)
+    return _bfly._launch(LAUNCHES, key, a, b, s, ids_a, ids_b, kmax_a,
+                         kmax_b, blocks)
+
+
+def butterfly_update_sparse(a, b, s, ids_a, ids_b, kmax_a, kmax_b, *,
+                            blocks):
+    """Kernel 4.  a (n_a, n_v) f32 0/1, b (n_b, n_v), s (n_b,) f32,
+    ids_a (n_a,) / ids_b (n_b,) int32, kmax_a (ceil(n_a/bi),) and
+    kmax_b (ceil(n_b/bj),) int32 stripe extents of ``blocks = (bi, bj,
+    bk)`` row tiles; returns out (n_a,) f32."""
+    if a.device.type == "cpu":
+        return butterfly_update_sparse_plain(a, b, s, ids_a, ids_b, kmax_a,
+                                             kmax_b, blocks=blocks)
+    return _launch_sparse("butterfly_update_sparse", a, b, s, ids_a, ids_b,
+                          kmax_a, kmax_b, blocks)
+
+
+def butterfly_update_sparse_batched(a, b, s, ids_a, ids_b, kmax_a, kmax_b,
+                                    *, blocks):
+    """Kernel 5.  a (G, n_a, n_v), b (G, n_b, n_v), s (G, n_b), local ids
+    (G, n_a) / (G, n_b) int32, per-group extents (G, ceil(n_a/bi)) and
+    (G, ceil(n_b/bj)) int32; returns (G, n_a) f32."""
+    if a.device.type == "cpu":
+        return butterfly_update_sparse_batched_plain(
+            a, b, s, ids_a, ids_b, kmax_a, kmax_b, blocks=blocks)
+    return _launch_sparse("butterfly_update_sparse_batched", a, b, s, ids_a,
+                          ids_b, kmax_a, kmax_b, blocks)
 
 
 def b2_stack_plain(a, kmax_a, kmax_b, *, blocks):

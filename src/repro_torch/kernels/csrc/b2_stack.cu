@@ -9,7 +9,8 @@
 //
 // Design.  One 256-thread block computes a 64 x 64 tile of W = A_g A_g^T in
 // registers (4 x 4 per thread) from 16-column K-stripes staged through
-// shared memory, with f32 FMA, and writes C(W, 2) with the diagonal zeroed.
+// shared memory, with f32 FMA (wedge_tile.cuh, shared with the other
+// butterfly kernels), and writes C(W, 2) with the diagonal zeroed.
 // The Pallas kernel skips K-stripe k of tile (i, j) when
 // k >= min(kmax_a[g, i], kmax_b[g, j]); here each block reads the extents of
 // the reference tiles (bi rows on the A side, bj rows on the B side, bk
@@ -18,7 +19,7 @@
 // zero in every row of the block (the extents are upper bounds), so the
 // skip is exact.
 //
-// Exactness.  As in butterfly.cu: 0/1 operands, integer wedge counts below
+// Exactness.  As in butterfly_sparse.cu: 0/1 operands, integer wedge counts below
 // 2^24, and C(W, 2) evaluated in the reference's operation order, so every
 // entry is bit-identical to the reference while it is below 2^24.
 //
@@ -33,23 +34,11 @@
 // int32, out (G, m, m) f32, all contiguous.  The launch goes on the
 // caller's stream, allocates nothing and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wedge_tile.cuh"
 
 namespace {
 
-constexpr int TI = 64;
-constexpr int TJ = 64;
-constexpr int TK = 16;
-constexpr int THREADS = 256;
-
-// largest extent over the reference tiles of `block` rows covering
-// [r0, r1) of one group's extent vector
-__device__ int covering_extent(const int* kmax, int r0, int r1, int block) {
-  int k = 0;
-  for (int t = r0 / block; t <= (r1 - 1) / block; ++t) k = max(k, kmax[t]);
-  return k;
-}
+using namespace wedge;
 
 __global__ void __launch_bounds__(THREADS)
 b2_stack_kernel(const float* __restrict__ a, const int* __restrict__ kmax_a,
@@ -63,51 +52,16 @@ b2_stack_kernel(const float* __restrict__ a, const int* __restrict__ kmax_a,
 
   const int x0 = blockIdx.x * TI;
   const int y0 = blockIdx.y * TJ;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
 
   // per-block K bound from the stripe extents
   const int ka = covering_extent(kmax_a, x0, min(x0 + TI, m), bi);
   const int kb = covering_extent(kmax_b, y0, min(y0 + TJ, m), bj);
   const int k_end = (int)min((int64_t)min(ka, kb) * bk, (int64_t)n_v);
 
-  __shared__ float As[TK][TI + 1];
-  __shared__ float Bs[TK][TJ + 1];
-
   float acc[4][4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[p][q] = 0.0f;
-
-  for (int k0 = 0; k0 < k_end; k0 += TK) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int e = tid + THREADS * r;
-      const int row = e / TK;
-      const int kk = e % TK;
-      const int k = k0 + kk;
-      const int rx = x0 + row;
-      const int ry = y0 + row;
-      As[kk][row] = (rx < m && k < k_end) ? a[(int64_t)rx * n_v + k] : 0.0f;
-      Bs[kk][row] = (ry < m && k < k_end) ? a[(int64_t)ry * n_v + k] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) av[p] = As[kk][ty + 16 * p];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bv[q] = Bs[kk][tx + 16 * q];
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] += av[p] * bv[q];
-    }
-    __syncthreads();
-  }
+  tile_product(a, a, m, m, n_v, x0, y0, k_end, acc);
 
 #pragma unroll
   for (int p = 0; p < 4; ++p) {

@@ -1,14 +1,17 @@
-"""The port's main path (count -> CD -> FD) against the reference engine.
+"""The port's main paths (count -> CD -> FD) against the reference engine.
 
 Each case is built once with numpy and handed to both packages through
 ``repro_torch.convert``.  On the CPU the port runs its kernels' plain
-versions, the reference runs its ``xla`` backend, both with kernel blocks
-(8, 8, 8).  Theta must be bit-identical to the reference and to
-``bup_oracle``; the paper's counters must be equal.  ``host_round_trips``,
-``device_loop_calls`` and ``overflow_fallbacks`` are the port's own
-numbers and are not compared (the port sizes every CD gather to its peel
-set, so it never overflows).
+versions (``torch``, and ``torch_sparse`` for the staircase kernels), the
+reference runs its ``xla`` backend (the stripe skip is exact, so theta and
+every counter are backend-independent), both with kernel blocks (8, 8, 8).
+Theta must be bit-identical to the reference and to ``bup_oracle``; the
+paper's counters must be equal, under both CD dispatches.
+``host_round_trips``, ``device_loop_calls`` and ``overflow_fallbacks`` are
+the port's own numbers and are not compared (the port sizes every CD
+gather to its peel set, so it never overflows).
 """
+import functools
 import dataclasses
 import re
 import subprocess
@@ -32,6 +35,7 @@ from repro.core.engine.peel_loop import RunStats as JRunStats
 from repro.core.engine.peel_loop import batched_level_loop as j_level_loop
 from repro.core.engine.peel_loop import device_peel_loop as j_peel_loop
 from repro.core.peeling import bup_oracle
+from repro.kernels.butterfly_sparse import batched_row_extents as j_bre
 from repro.kernels.ops import butterfly_support as j_butterfly_support
 from repro_torch.api import faults as tfaults
 from repro_torch.api.errors import KernelBackendError
@@ -49,12 +53,19 @@ CPU = torch.device("cpu")
 COUNTERS = ("rho_cd", "rho_fd", "wedges_cd", "wedges_fd", "wedges_pvbcnt",
             "huc_recounts", "elided_sweeps", "num_subsets", "bounds",
             "subset_sizes", "subset_wedges_fd", "dgm_compactions")
+GRAPH_COUNTERS = ("rho_cd", "wedges_cd", "huc_recounts", "elided_sweeps",
+                  "num_subsets", "sweeps_per_subset", "bounds",
+                  "dgm_compactions", "dgm_device_compactions")
 
 
-def _configs(**kw):
+def _configs(backend="torch", **kw):
+    """The reference's config (backend ``xla``) and the port's, with the
+    port's ``backend`` (``torch`` or ``torch_sparse``)."""
     jcfg = JConfig(backend="xla", kernel_blocks=BLOCKS, **kw)
     fields = dataclasses.asdict(jcfg)
     fields["dtype"] = np.dtype(fields["dtype"]).name
+    fields["backend"] = {"torch": "xla", "torch_sparse": "interpret_sparse"}[
+        backend]
     return jcfg, config_from_fields(fields)
 
 
@@ -62,12 +73,21 @@ def _port_graph(g):
     return graph_from_arrays(g.n_u, g.n_v, g.edges_u, g.edges_v)
 
 
-def _run_both(g, side="U", **kw):
-    jcfg, tcfg = _configs(**kw)
-    j_theta, j_stats = j_tip_decompose(g, jcfg, side=side)
+@functools.lru_cache(maxsize=None)
+def _reference(case, side, kw):
+    """The reference's run of one case, once per (case, side, variant):
+    both port backends are held against the same run."""
+    jcfg, _ = _configs(**dict(kw))
+    return j_tip_decompose(GRAPH_CASES[case](), jcfg, side=side)
+
+
+def _run_both(case, side="U", backend="torch", **kw):
+    g = GRAPH_CASES[case]()
+    j_theta, j_stats = _reference(case, side, tuple(sorted(kw.items())))
+    _, tcfg = _configs(backend, **kw)
     t_theta, t_stats = treceipt.tip_decompose(_port_graph(g), tcfg,
                                               side=side, device=CPU)
-    return j_theta, j_stats, t_theta, t_stats
+    return g, side, j_theta, j_stats, t_theta, t_stats
 
 
 def _assert_same(g, side, j_theta, j_stats, t_theta, t_stats):
@@ -84,8 +104,7 @@ def _assert_same(g, side, j_theta, j_stats, t_theta, t_stats):
 @pytest.mark.parametrize("side", ["U", "V"])
 @pytest.mark.parametrize("case", sorted(GRAPH_CASES))
 def test_slice_matches_reference_and_oracle(case, side):
-    g = GRAPH_CASES[case]()
-    _assert_same(g, side, *_run_both(g, side))
+    _assert_same(*_run_both(case, side))
 
 
 @pytest.mark.parametrize("variant", [
@@ -94,30 +113,49 @@ def test_slice_matches_reference_and_oracle(case, side):
 ])
 @pytest.mark.parametrize("case", ["powerlaw", "vhub"])
 def test_slice_variants_match(case, variant):
-    g = GRAPH_CASES[case]()
-    _assert_same(g, "U", *_run_both(g, "U", **variant))
+    _assert_same(*_run_both(case, "U", **variant))
+
+
+@pytest.mark.parametrize("side", ["U", "V"])
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_sparse_backend_matches_reference_and_oracle(case, side):
+    """``torch_sparse``: the plain staircase kernels, with the extents the
+    engine derives at every stage, give the reference's theta and
+    counters."""
+    _assert_same(*_run_both(case, side, backend="torch_sparse"))
+
+
+def test_sparse_backend_fd_kernel_mode_matches():
+    """FD groups streaming through kernel 5 (``fd_update_mode="kernel"``),
+    with the first-level delta and every sweep on per-group extents."""
+    _assert_same(*_run_both("powerlaw", "U", backend="torch_sparse",
+                            fd_update_mode="kernel"))
 
 
 def test_huc_and_elision_fire_on_vhub():
     """The counters compared above are not all zero: HUC recounts and
     terminal-sweep elision both happen on the V-hub graph."""
-    g = GRAPH_CASES["vhub"]()
-    *_, t_stats = _run_both(g, "U", num_partitions=4)
+    *_, t_stats = _run_both("vhub", "U", num_partitions=4)
     assert t_stats.huc_recounts > 0 and t_stats.elided_sweeps > 0
     assert t_stats.overflow_fallbacks == 0
 
 
 def test_host_sweep_engine_matches():
     """device_loop=False: every sweep through host_sweep."""
-    g = GRAPH_CASES["er_dense"]()
-    _assert_same(g, "U", *_run_both(g, "U", device_loop=False))
+    _assert_same(*_run_both("er_dense", "U", device_loop=False))
+
+
+def test_host_sweep_engine_matches_on_sparse_backend():
+    """host_sweep with the construction-time staircase extents."""
+    _assert_same(*_run_both("er_dense", "U", backend="torch_sparse",
+                            device_loop=False))
 
 
 def test_cap_exits_reenter_exactly():
     """max_sweeps=1 caps every loop invocation; CD and FD re-enter."""
-    g = GRAPH_CASES["er_dense"]()
-    j_theta, j_stats, t_theta, t_stats = _run_both(g, "U", max_sweeps=1)
-    _assert_same(g, "U", j_theta, j_stats, t_theta, t_stats)
+    run = _run_both("er_dense", "U", max_sweeps=1)
+    _assert_same(*run)
+    t_stats = run[-1]
     assert t_stats.device_loop_calls > t_stats.num_subsets
 
 
@@ -243,6 +281,183 @@ def test_find_hi_and_pre_peel_match():
 
 
 # ---------------------------------------------------------------------- #
+# whole-graph CD dispatch
+# ---------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=None)
+def _reference_graph_cd(case, kw=()):
+    """The reference's graph dispatch, once per (case, variant)."""
+    g = GRAPH_CASES[case]()
+    jcfg, _ = _configs(cd_dispatch="graph", **dict(kw))
+    stats = JRunStats()
+    out = j_receipt_cd(g, jcfg, stats)
+    return out, stats
+
+
+def _assert_graph_cd_same(case, backend, kw=()):
+    g = GRAPH_CASES[case]()
+    (j_sub, j_init, j_bounds, _), j_stats = _reference_graph_cd(case, kw)
+    _, tcfg = _configs(backend, cd_dispatch="graph", **dict(kw))
+    t_stats = tpl.RunStats()
+    t_sub, t_init, t_bounds, _ = tcd.receipt_cd(_port_graph(g), tcfg, t_stats,
+                                               device=CPU)
+    np.testing.assert_array_equal(t_sub, j_sub)
+    np.testing.assert_array_equal(t_init, j_init)
+    np.testing.assert_array_equal(t_bounds, np.asarray(j_bounds))
+    for key in GRAPH_COUNTERS:
+        assert getattr(t_stats, key) == getattr(j_stats, key), key
+    return t_stats
+
+
+GRAPH_DISPATCH_CASES = ["fig1", "powerlaw", "vhub", "er_dense", "empty_edges",
+                        "star"]
+
+
+@pytest.mark.parametrize("backend", ["torch", "torch_sparse"])
+@pytest.mark.parametrize("case", GRAPH_DISPATCH_CASES)
+def test_graph_dispatch_matches_reference(case, backend):
+    """``receipt_cd``'s subset ids, FD init supports and bounds, and the
+    CD counters, against the reference's graph dispatch; then the whole
+    path's theta against ``bup_oracle`` on both sides."""
+    t_stats = _assert_graph_cd_same(case, backend)
+    assert t_stats.dgm_compactions == 0
+    g = GRAPH_CASES[case]()
+    _, tcfg = _configs(backend, cd_dispatch="graph")
+    for side in "UV":
+        theta, _ = treceipt.tip_decompose(_port_graph(g), tcfg, side=side,
+                                          device=CPU)
+        np.testing.assert_array_equal(
+            theta, bup_oracle(g if side == "U" else g.transposed())[0])
+
+
+def test_graph_dispatch_compacts_and_recounts_on_device():
+    """The counters compared above are not all zero: on the V-hub graph the
+    graph loop compacts at boundaries and HUC recounts fire."""
+    t_stats = _assert_graph_cd_same("vhub", "torch_sparse",
+                                    (("num_partitions", 4),))
+    assert t_stats.dgm_device_compactions > 0
+    assert t_stats.huc_recounts > 0 and t_stats.elided_sweeps > 0
+
+
+@pytest.mark.parametrize("kw", [(("use_dgm", False),), (("max_sweeps", 1),),
+                                (("use_huc", False),)])
+def test_graph_dispatch_variants_match(kw):
+    """DGM off (no compaction, the whole-graph HUC bound), and
+    ``max_sweeps=1``: every invocation stops after one iteration and the
+    CD dispatch re-enters with the returned state."""
+    t_stats = _assert_graph_cd_same("powerlaw", "torch_sparse", kw)
+    if dict(kw).get("use_dgm") is False:
+        assert t_stats.dgm_device_compactions == 0
+    if dict(kw).get("max_sweeps") == 1:
+        assert t_stats.device_loop_calls > t_stats.rho_cd
+
+
+class _NoHostReads(torch.utils._python_dispatch.TorchDispatchMode):
+    """Raise on every op that reads a tensor's value on the host
+    (``.item()``, ``bool()``, an index by a 0-dim tensor: all of them end
+    in ``aten::_local_scalar_dense``)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func._schema.name == "aten::_local_scalar_dense":
+            raise AssertionError(f"host read in a graph boundary: {func}")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("backend", ["torch", "torch_sparse"])
+def test_graph_boundary_reads_nothing_on_the_host(backend, monkeypatch):
+    """Every subset boundary of the graph loop (DGM, extents, ``w``,
+    ``find_hi_device``) runs with no blocking read of its own: each read
+    goes through ``fetch`` and counts in ``host_round_trips``."""
+    boundary = tpl._graph_boundary
+    calls = []
+
+    def watched(*args, **kwargs):
+        calls.append(1)
+        with _NoHostReads():
+            return boundary(*args, **kwargs)
+
+    monkeypatch.setattr(tpl, "_graph_boundary", watched)
+    t_stats = _assert_graph_cd_same("vhub", backend, (("num_partitions", 4),))
+    assert len(calls) > 2 and t_stats.dgm_device_compactions > 0
+
+
+def test_graph_dispatch_rejects_host_boundary_features():
+    g = _port_graph(GRAPH_CASES["fig1"]())
+    cfg = tpl.ReceiptConfig(cd_dispatch="graph", kernel_blocks=BLOCKS)
+    with pytest.raises(ValueError, match="cd_dispatch='subset'"):
+        tcd.receipt_cd(g, cfg, tpl.RunStats(), device=CPU,
+                       checkpoint_cb=lambda st: None)
+    with pytest.raises(ValueError, match="cd_dispatch='subset'"):
+        tcd.receipt_cd(g, cfg, tpl.RunStats(), device=CPU, resume_state={})
+    cfg.device_loop = False          # past the config's own check
+    with pytest.raises(ValueError, match="device_loop=True"):
+        tcd.receipt_cd(g, cfg, tpl.RunStats(), device=CPU)
+    with pytest.raises(ValueError, match="square row tiles"):
+        tpl.DeviceGraph(g, np.arange(g.n_u), tpl.ReceiptConfig(
+            backend="torch_sparse", kernel_blocks=(8, 16, 8)), device=CPU)
+
+
+@pytest.mark.parametrize("spec", ["kernel_launch:dispatch=graph@1",
+                                  "kernel_launch:dispatch=graph@2",
+                                  "dgm_boundary:dispatch=graph@1"])
+def test_graph_fault_sites_fire(spec):
+    """Counting, the loop invocation and (after a cap-exit with device
+    compactions done) the DGM boundary, with the reference's context."""
+    g = _port_graph(GRAPH_CASES["powerlaw"]())
+    cfg = tpl.ReceiptConfig(cd_dispatch="graph", kernel_blocks=BLOCKS,
+                            backend="torch_sparse", max_sweeps=4)
+    with tfaults.inject(spec):
+        with pytest.raises(KernelBackendError, match="graph"):
+            treceipt.tip_decompose(g, cfg, device=CPU)
+
+
+def test_graph_peel_buffer_site_is_exact():
+    g = _port_graph(GRAPH_CASES["powerlaw"]())
+    cfg = tpl.ReceiptConfig(cd_dispatch="graph", kernel_blocks=BLOCKS)
+    with tfaults.inject("peel_buffer:dispatch=graph") as inj:
+        theta, _ = treceipt.tip_decompose(g, cfg, device=CPU)
+    assert inj.report()[0]["fired"] == 1
+    np.testing.assert_array_equal(theta, tpeeling.bup_oracle(g)[0])
+
+
+@pytest.mark.parametrize("peel_width", [8, 16])
+def test_sparse_level_loop_matches_interpret(peel_width):
+    """The sparse FD group: ``batched_level_loop(update_mode="kernel")``
+    with per-row extents against the reference's loop on
+    ``interpret_sparse`` (the Pallas staircase body under the
+    interpreter), gathered and mask-form updates."""
+    rng = np.random.default_rng(21)
+    g_n, mm, cc = 2, 16, 24
+    cut = rng.integers(0, cc + 1, size=(g_n, mm, 1))
+    a = ((rng.random((g_n, mm, cc)) < 0.4)
+         * (np.arange(cc)[None, None, :] < cut)).astype(np.float32)
+    nmem = np.array([16, 9])
+    alive = np.arange(mm)[None, :] < nmem[:, None]
+    a *= alive[:, :, None]
+    w = np.einsum("gic,gjc->gij", a, a)
+    b2 = w * (w - 1) / 2
+    for k in range(g_n):
+        np.fill_diagonal(b2[k], 0)
+    sup = np.where(alive, b2.sum(axis=2), np.inf).astype(np.float32)
+    dv = a.sum(axis=1)
+    lo = np.array([0.0, 2.0], np.float32)
+    row_ext = j_bre(a, BLOCKS[2])
+    want = j_level_loop(
+        jnp.asarray(a), jnp.asarray(row_ext), jnp.asarray(sup),
+        jnp.asarray(alive), jnp.asarray(dv), jnp.asarray(lo),
+        backend="interpret_sparse", blocks=BLOCKS, peel_width=peel_width,
+        max_sweeps=1000, update_mode="kernel")
+    got = tpl.batched_level_loop(
+        torch.from_numpy(a), torch.from_numpy(sup), torch.from_numpy(alive),
+        torch.from_numpy(dv), torch.from_numpy(lo), backend="torch_sparse",
+        blocks=BLOCKS, peel_width=peel_width, max_sweeps=1000,
+        update_mode="kernel", row_ext=torch.from_numpy(row_ext))
+    for k in range(7):
+        np.testing.assert_array_equal(np.asarray(got[k]),
+                                      np.asarray(want[k]))
+    assert got[7] == int(want[7])
+
+
+# ---------------------------------------------------------------------- #
 # config, conversion, not-yet-ported paths
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("bad", [
@@ -273,16 +488,16 @@ def test_config_fields_and_backend_mapping():
         fields["dtype"] = np.dtype(fields["dtype"]).name
         tcfg = config_from_fields(fields)
         assert tcfg.backend == tb and tcfg.dtype == torch.float32
-    fields = dataclasses.asdict(JConfig(backend="interpret_sparse"))
-    fields["dtype"] = "float32"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_from_fields(fields)
+    for jb, tb in [("pallas_sparse", "cuda_sparse"),
+                   ("interpret_sparse", "torch_sparse")]:
+        fields = dataclasses.asdict(JConfig(backend=jb))
+        fields["dtype"] = "float32"
+        assert config_from_fields(fields).backend == tb
     with pytest.raises(ValueError, match="did you mean 'cuda'"):
         tpl.ReceiptConfig(backend="cudaa")
 
 
-@pytest.mark.parametrize("kw", [dict(cd_dispatch="graph"),
-                                dict(fd_mode="b2"), dict(fd_mode="matvec"),
+@pytest.mark.parametrize("kw", [dict(fd_mode="b2"), dict(fd_mode="matvec"),
                                 dict(representation="tiled")])
 def test_not_ported_paths_raise(kw):
     g = _port_graph(GRAPH_CASES["fig1"]())

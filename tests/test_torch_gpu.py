@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the main path against the exact oracle.
+the main paths (dense and staircase backends, both CD dispatches) against
+the exact oracle.
 
 Every test here is marked ``gpu`` and skips without a card (the kernels
 have no CPU mode).  The file imports nothing of JAX, so it also runs where
@@ -14,8 +15,9 @@ import torch
 from conftest import make_vhub_graph
 from repro_torch.convert import graph_from_arrays
 from repro_torch.core import peeling
-from repro_torch.core.engine import ReceiptConfig
-from repro_torch.core.graph import paper_fig1_graph, powerlaw_bipartite
+from repro_torch.core.engine import ReceiptConfig, peel_loop
+from repro_torch.core.graph import (paper_fig1_graph, powerlaw_bipartite,
+                                    random_bipartite)
 from repro_torch.core.receipt import tip_decompose
 from repro_torch.kernels import butterfly as bfly
 from repro_torch.kernels import butterfly_sparse as bsp
@@ -60,6 +62,138 @@ def test_kernels_equal_plain(card, n_a, n_b, n_v):
         assert torch.equal(ops.b2_stack(st, blocks=blocks),
                            bsp.b2_stack_plain(st, None, None, blocks=blocks))
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(32, 32, 64), (128, 128, 512)])
+@pytest.mark.parametrize("n_a,n_b,n_v", [(128, 64, 256), (300, 257, 1000)])
+def test_sparse_kernels_equal_plain(card, n_a, n_b, n_v, blocks):
+    """Kernels 4 and 5 on staircase operands with their real extents
+    (upper bounds, so the skip is exact), ragged shapes on purpose."""
+    bi, bj, bk = blocks
+    gen = torch.Generator().manual_seed(n_v + bk)
+    cut = torch.randint(0, n_v + 1, (3, n_a, 1), generator=gen)
+    a3 = (_adj(gen, 3, n_a, n_v) * (torch.arange(n_v) < cut)).to(card)
+    rows3 = torch.randint(0, n_a, (3, n_b), generator=gen).to(card)
+    valid3 = (torch.arange(n_b)[None, :]
+              < torch.tensor([[n_b], [n_b // 2], [1]])).float().to(card)
+    b3 = torch.take_along_dim(a3, rows3[:, :, None], dim=1) * valid3[..., None]
+    ids3 = torch.arange(n_a, dtype=torch.int32, device=card).expand(
+        3, n_a).contiguous()
+    rows3 = rows3.to(torch.int32)
+    row_ext = bsp.row_extents_device(a3, bk)
+    ka = bsp.tile_extents(row_ext, bi).to(torch.int32).contiguous()
+    kb = bsp.batched_gathered_tile_extents(row_ext, rows3, valid3, bj)
+    args = (a3, b3, valid3, ids3, rows3, ka, kb)
+    assert torch.equal(bsp.butterfly_update_sparse_batched(*args, blocks=blocks),
+                       bsp.butterfly_update_sparse_batched_plain(
+                           *args, blocks=blocks))
+    args1 = (a3[0], b3[0], valid3[0], ids3[0], rows3[0], ka[0].contiguous(),
+             kb[0].contiguous())
+    assert torch.equal(bsp.butterfly_update_sparse(*args1, blocks=blocks),
+                       bsp.butterfly_update_sparse_plain(*args1,
+                                                         blocks=blocks))
+    assert torch.equal(bsp.butterfly_update_sparse(*args1, blocks=blocks),
+                       bfly.butterfly_update_plain(*args1[:5]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dispatch", ["subset", "graph"])
+def test_sparse_backend_on_card_matches_oracle(card, dispatch):
+    ops.reset_launch_counts()
+    for g in (paper_fig1_graph(), powerlaw_bipartite(200, 120, 1500, seed=5)):
+        for mode in ("b2", "kernel"):
+            theta, _ = tip_decompose(g, ReceiptConfig(
+                backend="cuda_sparse", cd_dispatch=dispatch,
+                fd_update_mode=mode))
+            np.testing.assert_array_equal(theta, peeling.bup_oracle(g)[0])
+    counts = ops.launch_counts()
+    assert counts["butterfly_update_sparse"] > 0
+    assert counts["butterfly_update_sparse_batched"] > 0
+    assert counts["butterfly_update"] == counts["butterfly_update_batched"] == 0
+
+
+@pytest.mark.gpu
+def test_graph_boundary_never_waits_for_the_card(card, monkeypatch):
+    """A subset boundary of the graph loop (DGM, extents, ``w``,
+    ``find_hi_device``) makes no synchronizing call on the card — no read
+    to the host, no blocking copy from it: CUDA's sync debug mode raises
+    on any."""
+    boundary = peel_loop._graph_boundary
+    calls = []
+
+    def watched(*args, **kwargs):
+        calls.append(1)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return boundary(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(peel_loop, "_graph_boundary", watched)
+    vhub = make_vhub_graph(seed=6)
+    g = graph_from_arrays(vhub.n_u, vhub.n_v, vhub.edges_u, vhub.edges_v)
+    theta, stats = tip_decompose(g, ReceiptConfig(
+        backend="cuda_sparse", cd_dispatch="graph", num_partitions=4))
+    np.testing.assert_array_equal(theta, peeling.bup_oracle(g)[0])
+    assert len(calls) > 2 and stats.dgm_device_compactions > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "cuda_sparse"])
+def test_exact_under_tf32_matmul_precision(card, backend):
+    """The engine's own products stay full f32 when the caller lets
+    PyTorch use TF32 for float32 matrix products: on the V-hub graph, and
+    on a dense graph whose pairwise butterfly counts C(W, 2) reach 3003,
+    past the integers TF32 holds exactly (2048)."""
+    vhub = make_vhub_graph(seed=6)
+    graphs = (graph_from_arrays(vhub.n_u, vhub.n_v, vhub.edges_u,
+                                vhub.edges_v),
+              random_bipartite(200, 150, 0.6, seed=1))
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        for g in graphs:
+            want = peeling.bup_oracle(g)[0]
+            for dispatch in ("subset", "graph"):
+                theta, _ = tip_decompose(g, ReceiptConfig(
+                    backend=backend, cd_dispatch=dispatch, num_partitions=4))
+                np.testing.assert_array_equal(theta, want)
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+@pytest.mark.gpu
+def test_wide_operand_products_exact_under_tf32(card):
+    """TF32 holds integers exactly only up to 2048.  Under
+    ``set_float32_matmul_precision("high")`` the engine's products with a
+    wider operand — the residual wedge counts ``a @ max(dv - 1, 0)`` and
+    the B2 row reductions of the FD level loop — still equal their f64
+    values, on operands past 2048 whose sums stay below 2^24.  The
+    residual degrees (a product of 0/1 operands) are exact either way."""
+    gen = torch.Generator().manual_seed(12)
+    a = _adj(gen, 512, 1024, density=0.5).to(card)
+    dv = torch.randint(2050, 4097, (1024,), generator=gen).float().to(card)
+    alive = (torch.rand(512, generator=gen) < 0.5).to(card)
+    b2 = torch.randint(2049, 1 << 15, (4, 256, 256),
+                       generator=gen).float().to(card)
+    mask = (torch.rand(4, 256, generator=gen) < 0.5).to(card)
+    # the wide operands hold odd integers past 2048, which TF32 rounds
+    assert bool(((dv - 1.0) % 2 == 1).any()) and bool((dv - 1.0 > 2048).all())
+    assert bool(((b2 % 2 == 1) & (b2 > 2048)).any())
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        w = peel_loop.residual_wedges(a, dv)
+        b2_sum = peel_loop._masked_rows_sum(b2, mask)
+        dv_alive = peel_loop.residual_dv(a, alive)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert torch.equal(w.double(), a.double() @ (dv.double() - 1.0))
+    assert torch.equal(b2_sum.double(), torch.einsum(
+        "gm,gmn->gn", mask.double(), b2.double()))
+    assert torch.equal(dv_alive.double(), alive.double() @ a.double())
 
 
 @pytest.mark.gpu
