@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py          # needs one CUDA card; about 3 minutes
+    python3 chip_smoke.py          # needs one CUDA card; 3 to 6 minutes
 
 Phases (any failure exits nonzero; no phase is caught and ignored):
 
@@ -11,28 +11,39 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
 3. kernel vs plain, on the card, at the shapes the full-size runs give
    them: ``torch.equal`` to the plain PyTorch version (the f32 integer
    regime makes them bit-identical; the staircase kernels get their real
-   extents), then each one's time (CUDA events, warmed, over many
-   launches), its bound (operations and bytes over the live stripes only,
-   for the stripe-skipping kernels, whose skipped share is printed), the
-   plain version's time and
-   the time of the bare matrix product (product only, not the same
-   function);
+   extents, the tiled kernel the tiled path's own slot list), then each
+   one's time (CUDA events, warmed, over many launches), its bound
+   (operations and bytes over the live stripes only, for the
+   stripe-skipping kernels, whose skipped share is printed, and over the
+   live tile pairs the mask needs for the tiled kernel), the plain
+   version's time and the time of the bare matrix product (product only,
+   not the same function); and the times of the tiled path's tile-list
+   passes (the in-place regather, the liveness, the column sums);
 4. small end to end: three graphs, both sides, backends "cuda" and
    "cuda_sparse", both ``cd_dispatch`` values, ``fd_update_mode`` "b2" and
-   "kernel", theta equal to ``bup_oracle``;
-5. full size: two paths — ``tip_decompose`` of
+   "kernel", and the tiled representation, ``fd_mode`` "b2" and "matvec"
+   and the ParB baseline, theta equal to ``bup_oracle``;
+5. full size: four paths on
    ``powerlaw_bipartite(6486, 12942, 96662, seed=0)`` (the published shape
-   of KONECT's Marvel character-comic network), side U, P = 150 (the
-   paper's section 5.1 setting), first with the dense backend and the
-   subset dispatch (``ReceiptConfig(num_partitions=150)``), then with the
-   staircase backend and the whole-graph dispatch
-   (``backend="cuda_sparse", cd_dispatch="graph"``).  Launch counts are
-   set to 0 just before each path and read just after it.  Theta must
-   equal one exact oracle (Alg. 2 on a scipy float64 B2) on both, and
-   every kernel must have launched on at least one path; then each path
-   twice more, under ``torch.profiler`` (device time by kernel, busy share
-   of the wall) and ``cProfile`` (host time by function);
-6. the kernel list as one JSON line, then the result line.
+   of KONECT's Marvel character-comic network), side U: ``tip_decompose``
+   with P = 150 (the paper's section 5.1 setting) on the dense backend and
+   the subset dispatch (``ReceiptConfig(num_partitions=150)``), on the
+   staircase backend and the whole-graph dispatch (``backend=
+   "cuda_sparse", cd_dispatch="graph"``) and on the tiled representation
+   (``representation="tiled"``), then ``parb_tip_decompose`` (the ParB
+   baseline).  Launch counts are set to 0 just before each path and read
+   just after it.  Theta must equal one exact oracle (Alg. 2 on a scipy
+   float64 B2) on every path, the tiled path's sweeps must equal ParB's
+   rounds, and every kernel must have launched on at least one path; then
+   each path but ParB twice more, under ``torch.profiler`` (device time by
+   kernel, busy share of the wall) and ``cProfile`` (host time by
+   function);
+6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
+   wall (second run) of the staircase + graph path against the tiled path
+   on the sp_mid and sp_large graphs of the reference's benchmark ladder
+   and on the full-size graph, both exact; recorded only, nothing routes
+   by it;
+7. the kernel list as one JSON line, then the result line.
 
 It imports nothing of ``repro`` (the JAX package) or ``jax``.
 """
@@ -189,12 +200,14 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core.engine import DeviceGraph, ReceiptConfig
+    from repro_torch.core.engine.tiled import build_tiled
     from repro_torch.core.graph import (BipartiteGraph, paper_fig1_graph,
                                         powerlaw_bipartite)
     from repro_torch.core.peeling import bup_oracle
-    from repro_torch.core.receipt import tip_decompose
+    from repro_torch.core.receipt import parb_tip_decompose, tip_decompose
     from repro_torch.kernels import _build, butterfly as bfly
     from repro_torch.kernels import butterfly_sparse as bsp
+    from repro_torch.kernels import butterfly_tiled as btl
     from repro_torch.kernels import ops
 
     # the plain versions' float32 products stay full float32
@@ -228,6 +241,9 @@ def main() -> int:
         "sparse_graph": ReceiptConfig(num_partitions=FULL["partitions"],
                                       backend="cuda_sparse",
                                       cd_dispatch="graph"),
+        "tiled": ReceiptConfig(num_partitions=FULL["partitions"],
+                               representation="tiled"),
+        "parb": ReceiptConfig(),
     }
     cfg_sparse = paths["sparse_graph"]
     blocks = cfg_sparse.kernel_blocks
@@ -396,6 +412,99 @@ def main() -> int:
                      + kb5.numel()), reps=50)
     del a3, b3, st, b5
 
+    # kernel 6 at the tiled path's own slot list: the degree-sorted graph
+    # after the host DGM pre-compaction, in (max(bi, bj), bk) tiles; the
+    # count form, then two peel forms (1 row, the median peel set, and 16
+    # rows, the widest of the plain version's gathered path)
+    sub = g_full.relabel_by_degree().induced_on_u(
+        np.arange(g_full.n_u), min_degree_v=2)[0]
+    tg = build_tiled(sub, paths["tiled"])
+
+    def up(x):
+        return torch.from_numpy(x).to(dev)
+
+    td = up(tg.tile_data)
+    tl = (up(tg.srow), up(tg.scol), up(tg.sptr), up(tg.pos))
+    live6 = btl.slot_liveness(td)
+    tbi, tbk = tg.block_rows, tg.block_k
+    n_rt6, n_ct6 = tg.n_row_tiles, tg.n_col_tiles
+    log(f"tiled slot list: {n_rt6} x {n_ct6} bands of {tbi} x {tbk}, "
+        f"{tg.n_slots} slots ({int(live6.sum())} live), occupancy "
+        f"{tg.fill_ratio():.4f}, payload {tg.tile_data.nbytes} bytes "
+        f"(padded dense matrix {tg.dense_bytes()} bytes)")
+
+    live_b = live6.bool()
+    scol6 = tl[1].long()
+    # live slots per column band, and which rows of each slot hold a nonzero
+    col_live = torch.zeros(n_ct6, device=dev).index_add_(
+        0, scol6, live_b.float())
+    row_nz = (td != 0).any(dim=2)                         # (n_slots, bi)
+
+    def tiled_work(s6):
+        """Operations and bytes the mask form needs for this ``s``, counted
+        per row y with s mass, and the share of the (band, slot) pairs of
+        the Pallas grid the kernel skips.  Row y meets the other rows only
+        in the column bands c where y itself holds a nonzero, in its live
+        tile pos[band(y), c]; there it needs 2 bi bk operations for each
+        live slot of column band c.  The live slots of those column bands
+        (y's own tiles among them) are read once, as are s, out and the
+        index arrays."""
+        ys = torch.nonzero(s6).squeeze(1)
+        p = tl[3].long()[ys // tbi].clamp(min=0)          # (n_y, n_ct)
+        has = ((tl[3].long()[ys // tbi] >= 0) & live_b[p]
+               & row_nz[p, (ys % tbi)[:, None]])
+        ops_ = 2.0 * tbi * tbk * float((has.float() @ col_live).sum())
+        n_tiles = int((live_b & has.any(dim=0)[scol6]).sum())
+        nbytes = (4.0 * tbi * tbk * n_tiles + 4.0 * 2 * tg.rows_pad
+                  + 4.0 * (3 * tg.n_slots + n_rt6 + 1 + n_rt6 * n_ct6))
+        partner = tl[3].long()[:, scol6]                  # (n_rt, n_slots)
+        ok = ((partner >= 0) & live_b[None, :]
+              & live_b[partner.clamp(min=0)])
+        band_mass = (s6.reshape(n_rt6, tbi) != 0).any(dim=1)
+        skip = 1.0 - float((ok & band_mass[:, None]).sum()) / (
+            n_rt6 * tg.n_slots)
+        return ops_, nbytes, skip, n_tiles, int(has.sum())
+
+    dense6 = up(tg.dense())
+    rng6 = np.random.default_rng(6)
+    forms6 = {"count": np.arange(sub.n_u),
+              "peel1": rng6.choice(sub.n_u, 1, replace=False),
+              "peel16": rng6.choice(sub.n_u, 16, replace=False)}
+    for form, rows6 in forms6.items():
+        s6 = torch.zeros(tg.rows_pad, device=dev)
+        s6[torch.as_tensor(rows6, device=dev)] = 1.0
+        ops6, bytes6, skip, n_tiles, n_meet = tiled_work(s6)
+        key = f"butterfly_update_tiled[{form}]"
+        log(f"{key}: {skip:.4f} of the (band, slot) pairs skipped by the "
+            f"kernel; the bound counts {n_meet} (row, column band) meetings "
+            f"over {n_tiles} of {int(live_b.sum())} live tiles")
+        b6 = dense6 if form == "count" else dense6[
+            torch.as_tensor(rows6, device=dev)]
+        measure(key,
+                lambda s6=s6: btl.butterfly_update_tiled(td, *tl, live6, s6),
+                lambda s6=s6, n=len(rows6): btl.butterfly_update_tiled_plain(
+                    td, *tl, live6, s6, n_srows=n),
+                lambda b6=b6: torch.matmul(dense6, b6.T),
+                ops6, bytes6, reps=5 if form == "count" else 50)
+    # the tiled path's tile-list passes at this size, per call
+    keep_cols = (btl.colsum_tiled(td, tl[1], n_ct6) >= 2.0).float()
+    alive6 = (torch.arange(tg.rows_pad, device=dev) < sub.n_u).float()
+    peel1 = torch.zeros(tg.rows_pad, device=dev)
+    peel1[int(forms6["peel1"][0])] = 1.0
+    td_copy = td.clone()
+    passes = {
+        "regather_tiles (in place, with liveness)": (lambda: btl.regather_tiles(
+            td_copy, tl[0], tl[1], alive6, keep_cols), 20),
+        "slot_liveness": (lambda: btl.slot_liveness(td), 20),
+        "masked_colsum_tiled (1 row)": (
+            lambda: btl.masked_colsum_tiled(td, tl[0], tl[1], tl[3], peel1),
+            50),
+    }
+    for pname, (fn, reps) in passes.items():
+        log(f"tile pass {pname}: {time_ms(torch, fn, reps):.4f} ms "
+            f"({tg.tile_data.nbytes} payload bytes)")
+    del td, td_copy, dense6, live6, row_nz
+
     # ---- 4. small end to end ------------------------------------------ #
     small = {"fig1": paper_fig1_graph(),
              "powerlaw": powerlaw_bipartite(200, 120, 1500, seed=5),
@@ -417,8 +526,26 @@ def main() -> int:
                                 f"backend={backend} cd_dispatch={dispatch} "
                                 f"mode={mode}: theta differs from "
                                 "bup_oracle")
+            g_side = g if side == "U" else g.transposed()
+            more = [(f"tiled backend={b}", lambda b=b: tip_decompose(
+                        g, ReceiptConfig(backend=b, representation="tiled"),
+                        side=side, device=dev)) for b in ("cuda",
+                                                           "cuda_sparse")]
+            more += [(f"fd_mode={m}", lambda m=m: tip_decompose(
+                         g, ReceiptConfig(fd_mode=m), side=side, device=dev))
+                     for m in ("b2", "matvec")]
+            more += [(f"parb backend={b}", lambda b=b: parb_tip_decompose(
+                         g_side, ReceiptConfig(backend=b), device=dev))
+                     for b in ("cuda", "cuda_sparse")]
+            for what, run in more:
+                if not np.array_equal(run()[0], want):
+                    raise AssertionError(
+                        f"small e2e {gname} side={side} {what}: theta "
+                        "differs from bup_oracle")
             log(f"small e2e {gname} side={side}: theta == bup_oracle "
-                "(cuda, cuda_sparse) x (subset, graph) x (b2, kernel)")
+                "(cuda, cuda_sparse) x (subset, graph) x (b2, kernel); "
+                "tiled (cuda, cuda_sparse); fd_mode b2, matvec; parb (cuda, "
+                "cuda_sparse)")
 
     # ---- 5. full size: both paths ------------------------------------- #
     t0 = time.perf_counter()
@@ -430,13 +557,19 @@ def main() -> int:
             "regime (2^24)")
     log(f"full size: exact oracle {oracle_s:.1f} s on the host ({g_full.n_u} "
         f"vertices, max support {max_support})")
-    launches = {}
+    launches, full_stats, full_walls = {}, {}, {}
+
+    def run_path(pname, g, cfg):
+        if pname == "parb":
+            return parb_tip_decompose(g, cfg, device=dev)
+        return tip_decompose(g, cfg, side="U", device=dev)
+
     for pname, cfg in paths.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        theta, stats = tip_decompose(g_full, cfg, side="U", device=dev)
+        theta, stats = run_path(pname, g_full, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[pname] = ops.launch_counts()
@@ -460,10 +593,52 @@ def main() -> int:
             f"host_round_trips {stats.host_round_trips}")
         log(f"full size {pname}: launches {launches[pname]} | "
             f"max_memory_allocated {peak} bytes")
-        where_the_time_goes(torch, lambda: tip_decompose(
-            g_full, cfg, side="U", device=dev))
+        full_stats[pname] = stats
+        full_walls[pname] = wall
+        if pname != "parb":
+            where_the_time_goes(torch, lambda: run_path(pname, g_full, cfg))
+    rho_tiled = full_stats["tiled"].rho_fd
+    rho_parb = full_stats["parb"].rho_cd
+    if rho_tiled != rho_parb:
+        raise AssertionError(f"tiled rho_fd {rho_tiled} != ParB rho_cd "
+                             f"{rho_parb}: the two run the same schedule")
+    log(f"full size: tiled rho_fd {rho_tiled} == parb rho_cd {rho_parb}")
 
-    # ---- 6. kernel list ------------------------------------------------ #
+    # ---- 6. crossover: staircase + graph against tiled ---------------- #
+    # the full-size graph's walls are phase 5's timed runs: the kernels and
+    # the allocator are warm by then (phases 3-4), and a second run there
+    # measured no faster (PERF.md)
+    ladder = {"sp_mid": powerlaw_bipartite(4096, 4096, 24000, seed=14),
+              "sp_large": powerlaw_bipartite(8192, 8192, 32000, seed=15),
+              "full": g_full}
+    for gname, g in ladder.items():
+        sub = g.relabel_by_degree().induced_on_u(np.arange(g.n_u),
+                                                 min_degree_v=2)[0]
+        tgx = build_tiled(sub, paths["tiled"])
+        walls = {}
+        if gname == "full":
+            walls = {p_: full_walls[p_] for p_ in ("sparse_graph", "tiled")}
+        else:
+            want_x = exact_theta(g)[0]
+            for pname in ("sparse_graph", "tiled"):
+                for _ in range(2):       # the second run is the warm one
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    theta, _ = run_path(pname, g, paths[pname])
+                    torch.cuda.synchronize()
+                    walls[pname] = time.perf_counter() - t0
+                if not np.array_equal(theta, want_x):
+                    raise AssertionError(f"crossover {gname} {pname}: theta "
+                                         "differs from the exact oracle")
+        log(f"crossover {gname}: {g.n_u} x {g.n_v}, {g.m} edges; tiles "
+            f"{tgx.n_row_tiles} x {tgx.n_col_tiles} of {tgx.block_rows} x "
+            f"{tgx.block_k}, {tgx.n_slots} slots, occupancy "
+            f"{tgx.fill_ratio():.4f}; warm wall sparse_graph "
+            f"{walls['sparse_graph']:.4f} s, tiled {walls['tiled']:.4f} s "
+            f"(tiled/sparse_graph {walls['tiled'] / walls['sparse_graph']:.3f});"
+            " both exact")
+
+    # ---- 7. kernel list ------------------------------------------------ #
     table = [
         ("butterfly_update", "butterfly_update[count]",
          "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
@@ -486,7 +661,10 @@ def main() -> int:
         ("butterfly_update_sparse_batched", "butterfly_update_sparse_batched",
          "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
          "src/repro/kernels/butterfly_sparse.py:318"),
-    ]
+    ] + [("butterfly_update_tiled", f"butterfly_update_tiled[{form}]",
+          "src/repro_torch/kernels/csrc/butterfly_tiled.cu",
+          "src/repro/kernels/butterfly_tiled.py:259")
+         for form in ("count", "peel1", "peel16")]
     kernels = []
     for kname, key, source, replaces in table:
         r = results[key]
@@ -501,7 +679,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
-        raise AssertionError(f"kernels never launched on either full-size "
+        raise AssertionError(f"kernels never launched on any full-size "
                              f"path: {idle}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

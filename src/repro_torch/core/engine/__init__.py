@@ -4,19 +4,24 @@
   ``RunStats``
 * `cd.py`        — RECEIPT CD (Alg. 3), range-peel mode, subset and
   whole-graph dispatch
-* `fd.py`        — RECEIPT FD (Alg. 4), batched level-peel mode
+* `fd.py`        — RECEIPT FD (Alg. 4), batched level-peel mode, and the
+  legacy sequential ``fd_mode="b2"`` / ``"matvec"`` engines
+* `tiled.py`     — the whole-graph level peel over the nonzero-tile list
+  (``representation="tiled"``)
+* `baselines.py` — the ParButterfly min-peel baseline
 
-``tip_decompose`` below is the top-level entry point (CD then FD, with the
-degree-sort relabeling and the side="V" transpose).
+``tip_decompose`` below is the top-level entry point (CD then FD, or the
+tiled engine, with the degree-sort relabeling and the side="V"
+transpose).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..graph import BipartiteGraph
+from .baselines import parb_tip_decompose
 from .cd import cd_checkpoint_state, find_hi_np, receipt_cd
 from .fd import build_fd_tasks, build_level_stack, receipt_fd
 from .peel_loop import (
@@ -29,7 +34,9 @@ from .peel_loop import (
     device_cd_graph_loop,
     device_peel_loop,
     host_sweep,
+    resolve_device,
 )
+from .tiled import build_tiled, receipt_tiled, tiled_blocks
 
 __all__ = [
     "ReceiptConfig",
@@ -37,6 +44,10 @@ __all__ = [
     "tip_decompose",
     "receipt_cd",
     "receipt_fd",
+    "receipt_tiled",
+    "tiled_blocks",
+    "build_tiled",
+    "parb_tip_decompose",
     "cd_checkpoint_state",
     "find_hi_np",
     "build_fd_tasks",
@@ -51,18 +62,6 @@ __all__ = [
 ]
 
 
-def _resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for another.  Raises when the card is asked for and there is none —
-    nothing carries on silently on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: repro_torch runs on the card unless the "
-            "caller passes device='cpu'")
-    return dev
-
-
 def tip_decompose(
     g: BipartiteGraph, cfg: Optional[ReceiptConfig] = None,
     *, side: str = "U", device=None,
@@ -75,15 +74,11 @@ def tip_decompose(
     Returns (theta int64[n_side], RunStats).
     """
     cfg = cfg or ReceiptConfig()
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     if side == "V":
         g = g.transposed()
     elif side != "U":
         raise ValueError(f"side must be 'U' or 'V', got {side!r}")
-    if cfg.representation == "tiled":
-        raise NotImplementedError(
-            "representation='tiled' is not ported yet (ROADMAP.md, queue "
-            "1: the tiled slice)")
     stats = RunStats()
     if cfg.degree_sort:
         # relabel for tile density; map results back at the end
@@ -102,10 +97,16 @@ def tip_decompose(
         perm_u = np.arange(g.n_u)
         g_work = g
 
-    subset_id, init_support, bounds, _ = receipt_cd(g_work, cfg, stats,
-                                                    device=dev)
-    theta_work = receipt_fd(g_work, subset_id, init_support, bounds, cfg,
-                            stats, device=dev)
+    if cfg.representation == "tiled":
+        # blocked-sparse whole-graph level peel: the same theta (tip
+        # numbers are canonical across exact schedules) without the dense
+        # biadjacency.  "auto" stays dense until the Planner is ported.
+        theta_work = receipt_tiled(g_work, cfg, stats, device=dev)
+    else:
+        subset_id, init_support, bounds, _ = receipt_cd(g_work, cfg, stats,
+                                                        device=dev)
+        theta_work = receipt_fd(g_work, subset_id, init_support, bounds,
+                                cfg, stats, device=dev)
 
     theta = np.zeros(g.n_u, np.int64)
     theta[perm_u] = np.round(theta_work).astype(np.int64)

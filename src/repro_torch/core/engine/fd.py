@@ -26,8 +26,14 @@ On the sparse backends kernel 5 takes kernel 2's place, fed per-group
 staircase extents that the launcher derives on the card from the uploaded
 stacks (equal to the reference's host ``batched_row_extents``).
 
-The legacy ``fd_mode="b2"/"matvec"`` engines and the mesh path arrive later
-(ROADMAP.md, queue 1).
+``fd_mode="b2"`` / ``"matvec"`` are the legacy sequential engines (the
+paper's one-vertex-per-step peel, kept as comparators): every member of a
+shape group is peeled one vertex per step, batched over the group as the
+reference's ``vmap``, on the device with no read per step.  ``"b2"`` takes
+its B2 rows from the kernel-3 stack (which masks ragged edges itself, so
+unlike the reference no alignment test sends the stack to a plain
+version), ``"matvec"`` recomputes one B2 row per step.  The mesh path
+arrives with the distributed slice (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from ...kernels import ops as kops
 from ..graph import BipartiteGraph, pad_to_multiple
 from ..scheduler import pack_by_shape
 from .peel_loop import (
+    _INF,
     ReceiptConfig,
     RunStats,
     batched_level_loop,
@@ -53,6 +60,63 @@ from .peel_loop import (
 
 __all__ = ["receipt_fd", "build_fd_tasks", "pre_peel_tasks",
            "build_level_stack"]
+
+
+# ---------------------------------------------------------------------- #
+# legacy sequential peels (fd_mode="b2" / "matvec"; the PR-1 comparators)
+# ---------------------------------------------------------------------- #
+def _sequential_peel(sup0, n_members, lo, b2_row):
+    """Exact sequential bottom-up peel of a (G, M) stack, one vertex of
+    every group per step (the reference's ``fori_loop`` under ``vmap``).
+
+    ``sup0`` (G, M) FD-initialized supports (+inf on padding), ``n_members``
+    (G,) int, ``lo`` (G,) theta lower bounds; ``b2_row(u)`` returns the
+    (G, M) rows of pairwise shared butterflies of the vertices ``u`` (G,)
+    with a zero at ``u``.  Step t peels, in each group with t < n_members,
+    the alive vertex of least support (the first on ties).  Returns theta
+    (G, M).
+    """
+    g_n, mm = sup0.shape
+    dev = sup0.device
+    cols = torch.arange(mm, device=dev)
+    sup = sup0
+    alive = cols[None, :] < n_members[:, None]
+    theta = torch.zeros_like(sup0)
+    for t in range(mm):
+        masked = torch.where(alive, sup, _INF)
+        u = torch.argmin(masked, dim=1)                          # (G,)
+        th = torch.maximum(masked.gather(1, u[:, None]), lo[:, None])
+        at_u = (cols[None, :] == u[:, None]) & (t < n_members)[:, None]
+        theta = torch.where(at_u, th, theta)
+        new_sup = torch.maximum(sup - b2_row(u), th)
+        sup = torch.where((t < n_members)[:, None] & alive, new_sup, sup)
+        alive = alive & ~at_u
+    return theta
+
+
+def _fd_peel_b2(b2, sup0, n_members, lo):
+    """Sequential peel of a group with precomputed B2 rows (B2 mode).
+
+    b2: (G, M, M) pairwise shared butterflies (zero diagonal, zero on
+    padding)."""
+    return _sequential_peel(
+        sup0, n_members, lo,
+        lambda u: b2.gather(1, u[:, None, None].expand(-1, 1, b2.shape[2]))
+        [:, 0])
+
+
+def _fd_peel_matvec(a_sub, sup0, n_members, lo):
+    """Sequential peel recomputing one B2 row per step (matvec mode):
+    a_sub (G, M, C) induced biadjacencies; avoids the (G, M, M) stack."""
+    cols = torch.arange(a_sub.shape[1], device=a_sub.device)
+
+    def b2_row(u):
+        a_u = a_sub.gather(1, u[:, None, None].expand(-1, 1, a_sub.shape[2]))
+        w = torch.bmm(a_sub, a_u.transpose(1, 2))[:, :, 0]      # (G, M)
+        b2 = w * (w - 1.0) * 0.5
+        return torch.where(cols[None, :] == u[:, None], 0.0, b2)
+
+    return _sequential_peel(sup0, n_members, lo, b2_row)
 
 
 # ---------------------------------------------------------------------- #
@@ -265,10 +329,8 @@ def receipt_fd(
     device,
 ) -> np.ndarray:
     """Exact tip numbers by independent peeling of induced subgraphs."""
-    if cfg.fd_mode != "level":
-        raise NotImplementedError(
-            f"fd_mode={cfg.fd_mode!r} (the legacy sequential FD engines) is "
-            "not ported yet (ROADMAP.md, queue 1)")
+    if cfg.fd_mode not in ("level", "b2", "matvec"):
+        raise ValueError(f"unknown fd_mode {cfg.fd_mode!r}")
     if cfg.max_sweeps < 1:
         raise ValueError(
             f"max_sweeps must be >= 1 (got {cfg.max_sweeps}): the valve "
@@ -277,9 +339,64 @@ def receipt_fd(
     theta = np.zeros(g.n_u, np.float64)
     backend = kops.resolve_backend(cfg.backend, device)
     tasks = build_fd_tasks(g, subset_id, bounds, stats)
-    theta = _run_level_groups(tasks, init_support, cfg, backend, stats,
-                              theta, device=device)
+    if cfg.fd_mode == "level":
+        theta = _run_level_groups(tasks, init_support, cfg, backend, stats,
+                                  theta, device=device)
+    else:
+        stats.wedges_fd += int(sum(t["wedges"] for t in tasks))
+        groups = pack_by_shape(
+            tasks,
+            size_of=lambda t: (len(t["members"]), max(t["sub"].n_v, 1)),
+            weight_of=lambda t: t["wedges"],
+            bucket=lambda n: bucket(n, 8),
+        )
+        stats.fd_groups = len(groups)
+        theta = _run_legacy_groups(groups, init_support, cfg, backend, stats,
+                                   theta, device=device)
     stats.time_fd = time.perf_counter() - t0
+    return theta
+
+
+def _run_legacy_groups(groups, init_support, cfg, backend, stats, theta, *,
+                       device):
+    """The legacy engines: one sequential peel per shape group, one
+    fetch of its theta."""
+    padded = used = 0
+    for group in groups:
+        mm = max(bucket(max(len(t["members"]) for t in group), 8), 8)
+        cc = max(bucket(max(t["sub"].n_v for t in group), 8), 8)
+        n_g = len(group)
+        sup0 = np.full((n_g, mm), np.inf, np.float64)
+        nmem = np.zeros(n_g, np.int64)
+        los = np.zeros(n_g, np.float64)
+        a_stack = np.zeros((n_g, mm, cc), np.float32)
+        for k, t in enumerate(group):
+            mems = t["members"]
+            nmem[k] = len(mems)
+            los[k] = t["lo"]
+            sup0[k, : len(mems)] = init_support[mems]
+            s = t["sub"]
+            a_stack[k, s.edges_u, s.edges_v] = 1.0
+        padded += n_g * mm * cc
+        used += int(sum(len(t["members"]) * max(t["sub"].n_v, 1)
+                        for t in group))
+
+        a_dev = torch.as_tensor(a_stack).to(device=device, dtype=cfg.dtype)
+        sup_dev = torch.as_tensor(sup0).to(device=device, dtype=cfg.dtype)
+        nm_dev = torch.as_tensor(nmem).to(device)
+        lo_dev = torch.as_tensor(los).to(device=device, dtype=cfg.dtype)
+        if cfg.fd_mode == "b2":
+            b2 = kops.b2_stack(a_dev.to(torch.float32), backend=backend,
+                               blocks=cfg.kernel_blocks).to(cfg.dtype)
+            th = _fd_peel_b2(b2, sup_dev, nm_dev, lo_dev)
+        else:
+            th = _fd_peel_matvec(a_dev, sup_dev, nm_dev, lo_dev)
+        th_np = fetch(stats, th)[0]
+        stats.rho_fd += int(nmem.sum())       # one sync round per peel step
+        for k, t in enumerate(group):
+            theta[t["members"]] = th_np[k, : nmem[k]]
+
+    stats.fd_padding_waste = 1.0 - used / padded if padded else 0.0
     return theta
 
 

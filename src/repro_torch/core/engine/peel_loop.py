@@ -71,6 +71,7 @@ __all__ = [
     "RunStats",
     "bucket",
     "fetch",
+    "resolve_device",
     "DeviceGraph",
     "device_peel_loop",
     "device_cd_graph_loop",
@@ -262,6 +263,18 @@ def bucket(n: int, block: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for another.  Raises when the card is asked for and there is none —
+    nothing carries on silently on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch runs on the card unless the "
+            "caller passes device='cpu'")
+    return dev
 
 
 def fetch(stats: Optional[RunStats], *tensors) -> List[np.ndarray]:

@@ -1,5 +1,5 @@
 """Bipartite graph substrate for RECEIPT (the port's copy of
-``repro.core.graph``; ``TiledGraph`` arrives with the tiled slice).
+``repro.core.graph``).
 
 A bipartite graph G(W = (U, V), E).  Tip decomposition peels the U side;
 V is never deleted.  The substrate provides:
@@ -7,7 +7,8 @@ V is never deleted.  The substrate provides:
   * an edge-list / dual-CSR container (host, numpy) with degree-descending
     relabeling (the Wang et al. cache trick -> tile density),
   * dense biadjacency views (0/1 matrices) padded to tile multiples for the
-    blocked butterfly kernels,
+    blocked butterfly kernels, and the blocked-sparse ``TiledGraph`` (only
+    the nonzero tiles, in CSR-of-tiles order) for the tiled kernel,
   * exact per-vertex wedge counts  w[u] = sum_{v in N_u} (d_v - 1)
     (the paper's workload proxy, used by adaptive range determination,
     HUC cost models and the benchmark wedge counters),
@@ -28,6 +29,7 @@ from ..api.errors import GraphValidationError
 
 __all__ = [
     "BipartiteGraph",
+    "TiledGraph",
     "random_bipartite",
     "powerlaw_bipartite",
     "paper_fig1_graph",
@@ -287,6 +289,175 @@ class BipartiteGraph:
             len(members), len(v_used), u_map[eu], v_map_inv[ev]
         )
         return sub, v_used.astype(np.int32)
+
+
+# ---------------------------------------------------------------------- #
+# blocked-sparse (tiled CSR) representation
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class TiledGraph:
+    """Blocked-sparse biadjacency: only the NONZERO ``[block_rows x
+    block_k]`` tiles of the padded dense matrix, in CSR-of-tiles order.
+
+    The dense representation costs ``rows_pad * cols_pad`` cells no
+    matter how sparse the graph is; real bipartite graphs (power-law
+    KONECT regimes) have ``m << n_u * n_v``, so after degree-descending
+    relabeling the nonzero tiles are a small fraction of the grid.  This
+    container stores exactly those tiles plus the index structure the
+    tiled kernel (kernel 6, ``kernels/butterfly_tiled``) walks:
+
+    ``tile_data``  float32[n_slots, block_rows, block_k] tile payloads.
+    ``srow``       int32[n_slots] row-tile id per slot (non-decreasing).
+    ``scol``       int32[n_slots] column-tile id per slot (sorted within
+                   a row-tile).
+    ``sptr``       int32[n_row_tiles + 1] CSR pointers over slots.
+    ``pos``        int32[n_row_tiles, n_col_tiles] reverse map: the slot
+                   holding tile (i, k), or -1 when that tile is zero.
+
+    Every row-tile owns at least one slot (an explicit zero tile at
+    column-tile 0 when the row band is empty) so a kernel iterating the
+    slot list initializes and flushes every output block.  Tile ids are
+    over the PADDED shape — ``rows_pad = pad_to_multiple(n_u,
+    block_rows)``, ``cols_pad = pad_to_multiple(n_v, block_k)`` — so a
+    ``TiledGraph`` and ``BipartiteGraph.dense(pad_u=block_rows,
+    pad_v=block_k)`` describe bit-identical matrices.
+    """
+
+    n_u: int
+    n_v: int
+    block_rows: int
+    block_k: int
+    tile_data: np.ndarray
+    srow: np.ndarray
+    scol: np.ndarray
+    sptr: np.ndarray
+    pos: np.ndarray
+
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def from_graph(g: "BipartiteGraph", *, block_rows: int,
+                   block_k: int, rows_pad: Optional[int] = None,
+                   cols_pad: Optional[int] = None,
+                   pad_slots_to: Optional[int] = None) -> "TiledGraph":
+        """Build the tiled form of ``g`` from its edge list (CSR order).
+
+        ``rows_pad`` / ``cols_pad`` override the minimal padded shape
+        (must be block multiples covering the graph) and ``pad_slots_to``
+        appends inert filler slots to the LAST row band — all three are
+        the reference's executable-cache quantization hooks (its Planner
+        buckets them), kept so both packages build the same slot lists
+        from the same arguments.  Filler slots carry zero
+        tiles, are absent from ``pos`` (never gathered as B tiles) and
+        report dead in the slot liveness, so they change no result.
+        """
+        if block_rows < 1 or block_k < 1:
+            raise GraphValidationError(
+                f"tile blocks must be >= 1 (got block_rows={block_rows}, "
+                f"block_k={block_k})")
+        min_rows = pad_to_multiple(max(g.n_u, 1), block_rows)
+        min_cols = pad_to_multiple(max(g.n_v, 1), block_k)
+        rows_pad = min_rows if rows_pad is None else int(rows_pad)
+        cols_pad = min_cols if cols_pad is None else int(cols_pad)
+        if (rows_pad < min_rows or cols_pad < min_cols
+                or rows_pad % block_rows or cols_pad % block_k):
+            raise GraphValidationError(
+                f"padded shape ({rows_pad}, {cols_pad}) must be block "
+                f"multiples covering ({min_rows}, {min_cols})")
+        n_rt = rows_pad // block_rows
+        n_ct = cols_pad // block_k
+        eu, ev = g.edges_u, g.edges_v
+        rt = eu.astype(np.int64) // block_rows
+        ct = ev.astype(np.int64) // block_k
+        key = rt * n_ct + ct
+        occupied = np.unique(key)
+        # every row-tile gets >= 1 slot: empty bands carry an explicit
+        # zero tile at column-tile 0 so the kernel's per-band output
+        # lifecycle (zero at first slot, flush at last) always fires
+        have = np.zeros(n_rt, dtype=bool)
+        have[(occupied // n_ct).astype(np.int64)] = True
+        filler = np.where(~have)[0].astype(np.int64) * n_ct
+        keys = np.sort(np.concatenate([occupied, filler]))
+        n_real = int(keys.size)
+        n_slots = max(n_real, int(pad_slots_to or 0))
+        slot_of = np.searchsorted(keys, key)
+        tile_data = np.zeros((n_slots, block_rows, block_k), np.float32)
+        tile_data[slot_of, eu % block_rows, ev % block_k] = 1.0
+        srow = np.full(n_slots, n_rt - 1, dtype=np.int32)
+        srow[:n_real] = (keys // n_ct).astype(np.int32)
+        scol = np.zeros(n_slots, dtype=np.int32)
+        scol[:n_real] = (keys % n_ct).astype(np.int32)
+        sptr = np.zeros(n_rt + 1, dtype=np.int32)
+        np.add.at(sptr, srow + 1, 1)
+        np.cumsum(sptr, out=sptr)
+        pos = np.full((n_rt, n_ct), -1, dtype=np.int32)
+        pos[srow[:n_real], scol[:n_real]] = np.arange(n_real, dtype=np.int32)
+        return TiledGraph(
+            n_u=g.n_u, n_v=g.n_v, block_rows=block_rows, block_k=block_k,
+            tile_data=tile_data, srow=srow, scol=scol, sptr=sptr, pos=pos)
+
+    # ------------------------------------------------------------------ #
+    @property
+    def rows_pad(self) -> int:
+        return self.pos.shape[0] * self.block_rows
+
+    @property
+    def cols_pad(self) -> int:
+        return self.pos.shape[1] * self.block_k
+
+    @property
+    def n_row_tiles(self) -> int:
+        return self.pos.shape[0]
+
+    @property
+    def n_col_tiles(self) -> int:
+        return self.pos.shape[1]
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.srow.size)
+
+    @property
+    def m(self) -> int:
+        return int(self.tile_data.sum())
+
+    def fill_ratio(self) -> float:
+        """Fraction of the tile grid that is materialized (the cost-model
+        density input: dense work / tiled work ~ 1 / fill_ratio)."""
+        return self.n_slots / float(self.n_row_tiles * self.n_col_tiles)
+
+    def tiled_bytes(self) -> int:
+        """Device bytes of the representation itself (payload + maps)."""
+        return int(self.tile_data.nbytes + self.srow.nbytes
+                   + self.scol.nbytes + self.sptr.nbytes + self.pos.nbytes)
+
+    def dense_bytes(self) -> int:
+        """Bytes the padded dense biadjacency would cost (float32)."""
+        return 4 * self.rows_pad * self.cols_pad
+
+    # ------------------------------------------------------------------ #
+    def dense(self, dtype=np.float32) -> np.ndarray:
+        """Reassemble the padded dense biadjacency (tests / oracle)."""
+        a = np.zeros((self.rows_pad, self.cols_pad), dtype=dtype)
+        bi, bk = self.block_rows, self.block_k
+        for s in range(self.n_slots):
+            i, k = int(self.srow[s]), int(self.scol[s])
+            # accumulate: real slots are unique per (i, k); filler slots
+            # alias (n_rt-1, 0) with zero payloads and must stay inert
+            a[i * bi:(i + 1) * bi, k * bk:(k + 1) * bk] += self.tile_data[s]
+        return a
+
+    def to_csr_u(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Reconstruct ``BipartiteGraph.csr_u()`` from the tiles — the
+        round-trip surface the property suite checks."""
+        s, r, c = np.nonzero(self.tile_data)
+        u = self.srow[s].astype(np.int64) * self.block_rows + r
+        v = self.scol[s].astype(np.int64) * self.block_k + c
+        order = np.lexsort((v, u))
+        u, v = u[order], v[order]
+        indptr = np.zeros(self.n_u + 1, dtype=np.int64)
+        np.add.at(indptr, u + 1, 1)
+        np.cumsum(indptr, out=indptr)
+        return indptr, v.astype(np.int32)
 
 
 # ---------------------------------------------------------------------- #

@@ -24,6 +24,7 @@ from .engine import (
     device_peel_loop,
     find_hi_np,
     host_sweep,
+    parb_tip_decompose,
     receipt_cd,
     receipt_fd,
 )
@@ -35,6 +36,7 @@ __all__ = [
     "tip_decompose",
     "receipt_cd",
     "receipt_fd",
+    "parb_tip_decompose",
     "cd_checkpoint_state",
     "DeviceGraph",
     "device_peel_loop",

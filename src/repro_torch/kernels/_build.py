@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "build_dir", "nvcc_command", "build_all", "library",
            "ptr", "stream_of", "check_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("butterfly_sparse", "b2_stack")
+SOURCES = ("butterfly_sparse", "b2_stack", "butterfly_tiled")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 
@@ -125,4 +125,7 @@ def library(name: str) -> ctypes.CDLL:
         lib.butterfly_update_sparse_f32.argtypes = (
             [ptr] * 8 + [i32] * 9 + [ptr])
         lib.butterfly_update_sparse_f32.restype = i32
+    elif name == "butterfly_tiled":
+        lib.butterfly_update_tiled_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.butterfly_update_tiled_f32.restype = i32
     return lib

@@ -1,5 +1,7 @@
 // The 64 x 64 wedge tile shared by the butterfly kernels (sm_90a):
-// butterfly_sparse.cu (kernels 1, 2, 4 and 5) and b2_stack.cu (kernel 3).
+// butterfly_sparse.cu (kernels 1, 2, 4 and 5), b2_stack.cu (kernel 3) and
+// butterfly_tiled.cu (kernel 6, which sums the product over many tile
+// pairs with tile_product_add).
 //
 // One 256-thread block computes a 64 x 64 tile of W = A B^T in registers
 // (4 x 4 per thread) from 16-column K-stripes staged through shared memory,
@@ -34,23 +36,19 @@ __device__ __forceinline__ int covering_extent(const int* kmax, int r0, int r1,
   return k;
 }
 
-// acc[p][q] = sum_{k < k_end} A[i0 + ty + 16 p, k] * B[j0 + tx + 16 q, k].
+// acc[p][q] += sum_{k < k_end} A[i0 + ty + 16 p, k] * B[j0 + tx + 16 q, k].
 // Called by every thread of the block.
-__device__ __forceinline__ void tile_product(const float* __restrict__ a,
-                                             const float* __restrict__ b,
-                                             int n_a, int n_b, int n_v, int i0,
-                                             int j0, int k_end,
-                                             float (&acc)[4][4]) {
+__device__ __forceinline__ void tile_product_add(const float* __restrict__ a,
+                                                 const float* __restrict__ b,
+                                                 int n_a, int n_b, int n_v,
+                                                 int i0, int j0, int k_end,
+                                                 float (&acc)[4][4]) {
   // stripes stored k-major so the inner loop reads rows of the tile
   __shared__ float As[TK][TI + 1];
   __shared__ float Bs[TK][TJ + 1];
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[p][q] = 0.0f;
 
   for (int k0 = 0; k0 < k_end; k0 += TK) {
     // each of the 4 loads of a thread: element e = tid + 256 r of the
@@ -83,6 +81,43 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ a,
   }
 }
 
+// acc[p][q] = sum_{k < k_end} A[i0 + ty + 16 p, k] * B[j0 + tx + 16 q, k].
+__device__ __forceinline__ void tile_product(const float* __restrict__ a,
+                                             const float* __restrict__ b,
+                                             int n_a, int n_b, int n_v, int i0,
+                                             int j0, int k_end,
+                                             float (&acc)[4][4]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] = 0.0f;
+  tile_product_add(a, b, n_a, n_b, n_v, i0, j0, k_end, acc);
+}
+
+// Adds each row's partial sum part[p] (row i0 + ty + 16 p, summed over the
+// tile's columns tx + 16 q by the caller) into out with atomicAdd, after a
+// half-warp reduction over tx.  Rows past n_a and zero sums add nothing.
+__device__ __forceinline__ void add_row_partials(float (&part)[4],
+                                                 float* __restrict__ out,
+                                                 int n_a, int i0) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  // lanes tx = 0..15 of one half-warp share ty: reduce across them
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      part[p] += __shfl_xor_sync(0xffffffffu, part[p], off);
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int i = i0 + ty + 16 * p;
+      if (i < n_a && part[p] != 0.0f) atomicAdd(out + i, part[p]);
+    }
+  }
+}
+
 // The butterfly-update epilogue: C(W, 2) * s * not-self, reduced over the
 // tile's columns (half-warp shuffles) and added into out with atomicAdd.
 // The wrapper zeroes out before the launch.
@@ -109,20 +144,7 @@ __device__ __forceinline__ void update_epilogue(
       part[p] += b2 * not_self * s[j];
     }
   }
-  // lanes tx = 0..15 of one half-warp share ty: reduce across them
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      part[p] += __shfl_xor_sync(0xffffffffu, part[p], off);
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int i = i0 + ty + 16 * p;
-      if (i < n_a && part[p] != 0.0f) atomicAdd(out + i, part[p]);
-    }
-  }
+  add_row_partials(part, out, n_a, i0);
 }
 
 }  // namespace wedge

@@ -3,17 +3,23 @@
 ``butterfly_support(a, s)`` / ``butterfly_update(a, b, s, ids_a, ids_b)``
 are THE hot ops of the engine: per-vertex counting, CD batched peel
 updates and HUC recounts are all these ops with different masks/rows;
-``butterfly_update_batched`` and ``b2_stack`` carry the FD level peel.
+``butterfly_update_batched`` and ``b2_stack`` carry the FD level peel;
+``butterfly_update_tiled`` is the same update in mask form over the
+nonzero-tile list of the tiled representation.
 ``find_hi_device`` and ``tighten_extents_device`` are the whole-graph CD
 loop's on-device range choice and staircase refresh (plain tensor code).
 
 Backends:
     "cuda"          the hand-written sm_90a kernels (``kernels/csrc``), on
-                    CUDA tensors only: kernels 1-3
+                    CUDA tensors only: kernels 1-3, and kernel 6 for the
+                    tiled update
     "cuda_sparse"   the same with the staircase stripe skip: kernels 4-5
-                    for every update, kernel 3 for the B2 stack
+                    for every update, kernel 3 for the B2 stack, kernel 6
+                    for the tiled update (the tile list has no slot for a
+                    zero stripe, so it skips them already)
     "torch"         the kernels' plain PyTorch versions, on CPU tensors
-    "torch_sparse"  the plain versions of the stripe-skipping kernels
+    "torch_sparse"  the plain versions of the stripe-skipping kernels (and
+                    of kernel 6)
 
 ``None`` resolves from the tensors' device: CUDA tensors go to the dense
 hand kernels, CPU tensors to their plain versions.  A backend that does
@@ -36,6 +42,7 @@ import torch
 
 from . import butterfly as _bfly
 from . import butterfly_sparse as _sparse
+from . import butterfly_tiled as _tiled
 
 __all__ = [
     "DEFAULT_BLOCKS",
@@ -45,6 +52,7 @@ __all__ = [
     "butterfly_support",
     "butterfly_update_batched",
     "b2_stack",
+    "butterfly_update_tiled",
     "find_hi_device",
     "tighten_extents_device",
     "default_backend",
@@ -117,11 +125,11 @@ def fallback_chain(backend: Optional[str]) -> tuple:
 
 def launch_counts() -> dict:
     """Launches of each hand kernel since the last reset."""
-    return {**_bfly.LAUNCHES, **_sparse.LAUNCHES}
+    return {**_bfly.LAUNCHES, **_sparse.LAUNCHES, **_tiled.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_bfly.LAUNCHES, _sparse.LAUNCHES):
+    for counts in (_bfly.LAUNCHES, _sparse.LAUNCHES, _tiled.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -222,6 +230,23 @@ def butterfly_support(a, s, *, backend=None, blocks=DEFAULT_BLOCKS,
     ids = torch.arange(a.shape[0], dtype=torch.int32, device=a.device)
     return butterfly_update(a, a, s, ids, ids, backend=backend,
                             blocks=blocks, kmax_a=kmax, kmax_b=kmax)
+
+
+def butterfly_update_tiled(tile_data, srow, scol, sptr, pos, slot_live, s, *,
+                           backend=None):
+    """Mask-form butterfly update over a nonzero-tile list
+    (``core.graph.TiledGraph`` arrays):
+
+        out[x] = sum_{y != x} s[y] * C((A A^T)[x, y], 2)
+
+    Kernel 6 on ``"cuda"`` / ``"cuda_sparse"``, its plain version on
+    ``"torch"`` / ``"torch_sparse"``; ``None`` resolves from the tensors'
+    device.
+    """
+    resolve_backend(backend, tile_data.device)
+    return _tiled.butterfly_update_tiled(
+        _f32(tile_data), _i32(srow), _i32(scol), _i32(sptr), _i32(pos),
+        _i32(slot_live), _f32(s))
 
 
 # ---------------------------------------------------------------------- #

@@ -58,6 +58,17 @@ GRAPH_COUNTERS = ("rho_cd", "wedges_cd", "huc_recounts", "elided_sweeps",
                   "dgm_compactions", "dgm_device_compactions")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this module: its CPU tensors are small, and
+    the test workers' thread pools would otherwise oversubscribe the
+    cores (each pool spins while it waits)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(backend="torch", **kw):
     """The reference's config (backend ``xla``) and the port's, with the
     port's ``backend`` (``torch`` or ``torch_sparse``)."""
@@ -500,9 +511,13 @@ def test_config_fields_and_backend_mapping():
 @pytest.mark.parametrize("kw", [dict(fd_mode="b2"), dict(fd_mode="matvec"),
                                 dict(representation="tiled")])
 def test_not_ported_paths_raise(kw):
+    """The paths that raised NotImplementedError before the tiled slice was
+    ported now run: theta equal to ``bup_oracle`` (tests/test_torch_tiled.py
+    and tests/test_torch_baselines.py hold them against the reference)."""
     g = _port_graph(GRAPH_CASES["fig1"]())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treceipt.tip_decompose(g, tpl.ReceiptConfig(**kw), device=CPU)
+    theta, _ = treceipt.tip_decompose(
+        g, tpl.ReceiptConfig(kernel_blocks=BLOCKS, **kw), device=CPU)
+    np.testing.assert_array_equal(theta, tpeeling.bup_oracle(g)[0])
 
 
 def test_without_a_card_the_entry_point_raises():

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the main paths (dense and staircase backends, both CD dispatches) against
+the main paths (dense and staircase backends, both CD dispatches, the
+tiled representation, the legacy FD modes and the ParB baseline) against
 the exact oracle.
 
 Every test here is marked ``gpu`` and skips without a card (the kernels
@@ -16,11 +17,13 @@ from conftest import make_vhub_graph
 from repro_torch.convert import graph_from_arrays
 from repro_torch.core import peeling
 from repro_torch.core.engine import ReceiptConfig, peel_loop
-from repro_torch.core.graph import (paper_fig1_graph, powerlaw_bipartite,
-                                    random_bipartite)
-from repro_torch.core.receipt import tip_decompose
+from repro_torch.core.engine import tiled as engine_tiled
+from repro_torch.core.graph import (TiledGraph, paper_fig1_graph,
+                                    powerlaw_bipartite, random_bipartite)
+from repro_torch.core.receipt import parb_tip_decompose, tip_decompose
 from repro_torch.kernels import butterfly as bfly
 from repro_torch.kernels import butterfly_sparse as bsp
+from repro_torch.kernels import butterfly_tiled as btl
 from repro_torch.kernels import ops
 
 
@@ -210,3 +213,103 @@ def test_main_path_on_card_matches_oracle(card, mode):
     assert counts["butterfly_update"] > 0
     assert counts["butterfly_update_batched"] > 0
     assert (counts["b2_stack"] > 0) == (mode == "b2")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(8, 8), (64, 64), (128, 512)])
+def test_tiled_kernel_equals_plain(card, blocks):
+    """Kernel 6 against its plain version on a degree-sorted power-law
+    graph's slot list, with filler slots and, after a regather, dead
+    slots; masks: zero, one row, 16 rows (the plain version's gathered
+    path), sparse and all (its band-streaming path)."""
+    br, bk = blocks
+    g = powerlaw_bipartite(700, 1300, 9000, seed=3).relabel_by_degree()
+    tg = TiledGraph.from_graph(g, block_rows=br, block_k=bk)
+    tg = TiledGraph.from_graph(g, block_rows=br, block_k=bk,
+                               pad_slots_to=tg.n_slots + 7)
+    up = lambda x: torch.from_numpy(x).to(card)  # noqa: E731
+    td = up(tg.tile_data)
+    lists = (up(tg.srow), up(tg.scol), up(tg.sptr), up(tg.pos))
+    gen = torch.Generator().manual_seed(br + bk)
+    rows = (torch.rand(tg.rows_pad, generator=gen) < 0.6).float()
+    rows[br: 2 * br] = 0.0               # band 1 loses every row
+    rows = rows.to(card)
+    cols = (torch.rand(tg.cols_pad, generator=gen) < 0.6).float().to(card)
+    dead = btl.regather_tiles(td.clone(), lists[0], lists[1], rows, cols)
+    assert int(dead[1].sum()) < tg.n_slots - 7
+    n = tg.rows_pad
+    masks = {"zero": torch.zeros(n), "one": torch.zeros(n),
+             "w16": torch.zeros(n),
+             "sparse": (torch.rand(n, generator=gen) < 0.05).float(),
+             "all": (torch.arange(n) < g.n_u).float()}
+    masks["one"][n // 3] = 1.0
+    masks["w16"][torch.randperm(g.n_u, generator=gen)[:16]] = 1.0
+    ops.reset_launch_counts()
+    launched = 0
+    for tdata, live in ((td, btl.slot_liveness(td)), dead):
+        for name, s in masks.items():
+            s = s.to(card)
+            got = btl.butterfly_update_tiled(tdata, *lists, live, s)
+            want = btl.butterfly_update_tiled_plain(tdata, *lists, live, s)
+            assert torch.equal(got, want), name
+            launched += 1
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["butterfly_update_tiled"] == launched
+
+
+@pytest.mark.gpu
+def test_tiled_legacy_fd_and_parb_on_card_match_oracle(card):
+    """The tiled path (both backend names), ``fd_mode="b2"`` and
+    ``"matvec"`` and ParB (both backends) on the card: theta equal to
+    ``bup_oracle``, and kernel 6 launched by the tiled path."""
+    vhub = make_vhub_graph(seed=6)
+    for g in (paper_fig1_graph(), powerlaw_bipartite(200, 120, 1500, seed=5),
+              graph_from_arrays(vhub.n_u, vhub.n_v, vhub.edges_u,
+                                vhub.edges_v)):
+        want = peeling.bup_oracle(g)[0]
+        for backend in ("cuda", "cuda_sparse"):
+            ops.reset_launch_counts()
+            theta, _ = tip_decompose(g, ReceiptConfig(
+                backend=backend, representation="tiled",
+                tiled_compact_every=8))
+            np.testing.assert_array_equal(theta, want)
+            assert ops.launch_counts()["butterfly_update_tiled"] > 0
+            theta, _ = parb_tip_decompose(g, ReceiptConfig(backend=backend))
+            np.testing.assert_array_equal(theta, want)
+        for mode in ("b2", "matvec"):
+            theta, _ = tip_decompose(g, ReceiptConfig(fd_mode=mode))
+            np.testing.assert_array_equal(theta, want)
+
+
+@pytest.mark.gpu
+def test_tiled_sweep_reads_only_through_fetch(card, monkeypatch):
+    """A sweep of the tiled path makes no synchronizing call on the card
+    beyond its one counted ``fetch``: CUDA's sync debug mode raises on
+    any other, and is lifted only inside ``fetch``."""
+    sweep, fetch = engine_tiled._tiled_sweep, engine_tiled.fetch
+    sweeps = []
+
+    def lifted_fetch(*args, **kwargs):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return fetch(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def watched(*args, **kwargs):
+        sweeps.append(1)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return sweep(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(engine_tiled, "fetch", lifted_fetch)
+    monkeypatch.setattr(engine_tiled, "_tiled_sweep", watched)
+    g = powerlaw_bipartite(200, 120, 1500, seed=5)
+    theta, stats = tip_decompose(g, ReceiptConfig(
+        representation="tiled", tiled_compact_every=16))
+    np.testing.assert_array_equal(theta, peeling.bup_oracle(g)[0])
+    assert len(sweeps) > 16
+    assert stats.host_round_trips == len(sweeps) + stats.device_loop_calls

@@ -375,11 +375,18 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     tbs.butterfly_update_sparse_batched(a[None], a[None], torch.ones(1, 16),
                                         ids[None], ids[None], k[None],
                                         k[None], blocks=(8, 8, 8))
+    i32 = torch.int32
+    tops.butterfly_update_tiled(
+        a.reshape(2, 8, 16), torch.tensor([0, 1], dtype=i32),
+        torch.zeros(2, dtype=i32), torch.tensor([0, 1, 2], dtype=i32),
+        torch.tensor([[0], [1]], dtype=i32), torch.ones(2, dtype=i32),
+        torch.ones(16))
     assert tops.launch_counts() == {"butterfly_update": 0,
                                     "butterfly_update_batched": 0,
                                     "butterfly_update_sparse": 0,
                                     "butterfly_update_sparse_batched": 0,
-                                    "b2_stack": 0}
+                                    "b2_stack": 0,
+                                    "butterfly_update_tiled": 0}
 
 
 def test_wrapper_checks_reject_bad_inputs():
