@@ -14,11 +14,21 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    extents, the tiled kernel the tiled path's own slot list), then each
    one's time (CUDA events, warmed, over many launches), its bound
    (operations and bytes over the live stripes only, for the
-   stripe-skipping kernels, whose skipped share is printed, and over the
-   live tile pairs the mask needs for the tiled kernel), the plain
-   version's time and the time of the bare matrix product (product only,
-   not the same function); and the times of the tiled path's tile-list
-   passes (the in-place regather, the liveness, the column sums);
+   stripe-skipping count forms, whose skipped share is printed; over the
+   live columns of the rows with mass for the peel forms of kernels 1, 4
+   and 6, with the earlier bound printed beside it), the plain version's
+   time and the time of the bare matrix product (product only, not the
+   same function).  The redesigned peel bodies are also held and timed
+   against the count body they replaced, on the same operands: kernel 1
+   at a 256-row CD update and at ParB's own shape (its unsorted matrix,
+   128 gathered rows, one valid), kernel 4 at the CD update, kernel 6 at
+   every alive row (its count launch, which takes the peel body too) and
+   at 1, 16, 64 and 256 peeled rows.  Times are device time per call (a
+   CUDA graph of many calls, replayed between CUDA events); the new
+   bodies' eager time, host enqueue included, and their launches' device
+   times (profiler) are printed beside;
+   then the times of the tiled path's tile-list passes (the in-place
+   regather, the liveness, the column sums);
 4. small end to end: three graphs, both sides, backends "cuda" and
    "cuda_sparse", both ``cd_dispatch`` values, ``fd_update_mode`` "b2" and
    "kernel", and the tiled representation, ``fd_mode`` "b2" and "matvec"
@@ -34,9 +44,10 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    baseline).  Launch counts are set to 0 just before each path and read
    just after it.  Theta must equal one exact oracle (Alg. 2 on a scipy
    float64 B2) on every path, the tiled path's sweeps must equal ParB's
-   rounds, and every kernel must have launched on at least one path; then
-   each path but ParB twice more, under ``torch.profiler`` (device time by
-   kernel, busy share of the wall) and ``cProfile`` (host time by
+   rounds, every kernel must have launched on at least one path, and
+   each path's count and peel bodies on it (launches are counted per
+   body); then each path twice more, under ``torch.profiler`` (device
+   time by kernel, busy share of the wall) and ``cProfile`` (host time by
    function);
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
@@ -49,7 +60,10 @@ It imports nothing of ``repro`` (the JAX package) or ``jax``.
 """
 from __future__ import annotations
 
+import functools
+import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -67,19 +81,74 @@ def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up call."""
+@functools.cache
+def side_stream(torch):
+    """The one stream every timing graph is warmed up and captured on:
+    cuBLAS keeps a workspace for each stream it meets, allocated through
+    PyTorch's allocator and never released, so a new stream per capture
+    would leave one more workspace allocated each time."""
+    return torch.cuda.Stream()
+
+
+def time_ms(torch, fn, reps: int, eager: bool = False) -> float:
+    """Mean device time of ``fn`` per call: ``reps`` calls captured in one
+    CUDA graph and replayed between CUDA events, after warm-up calls, so
+    the host's enqueue of each call (ctypes, allocations, several
+    launches) is not in it.  ``eager``: the calls launched one by one
+    between the events instead, which includes the enqueue wherever the
+    host is slower than the card."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    if eager:
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+    side = side_stream(torch)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
+    del graph
+    gc.collect()             # the graph's memory pool goes with it
     return start.elapsed_time(stop) / reps
+
+
+def kernel_device_ms(torch, fn, calls: int = 5) -> dict:
+    """Device time per call of each CUDA kernel ``fn`` launches, by
+    kernel name, from ``torch.profiler`` over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            hit = re.search(r"\w+_kernel\w*", e.key)
+            name = hit.group(0) if hit else e.key[:40]
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
 
 
 def bound(ops: float, nbytes: float):
@@ -89,6 +158,73 @@ def bound(ops: float, nbytes: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def peel_live_work(torch, a, b, s, kmax_a=None, kmax_b=None, blocks=None):
+    """Operations and bytes the gathered peel form of kernels 1 and 4
+    needs, whatever implements it: W[i, j] is needed only for gathered
+    rows j with s[j] != 0 ("valid"), and only over the live columns, where
+    some valid row holds a nonzero (a column outside them adds 0 to every
+    W that s does not zero).  With extents, column c of the pair (i, j)
+    counts only below min(kmax_a[i / bi], kmax_b[j / bj]) * bk, as the
+    Pallas grid skips stripes.  Operations: 2 per (A row, valid row, live
+    column below the pair's bound); bytes: A's live columns below the
+    farthest bound of each A row tile, read once in f32, the valid rows
+    of B once (a row with s = 0 is never needed), s, the valid rows' ids,
+    A's ids and out (and the extents).  Returns (operations, bytes, live
+    columns)."""
+    n_a, n_v = a.shape
+    n_b = b.shape[0]
+    valid = s != 0
+    vrows = torch.nonzero(valid).squeeze(1)
+    live = (b[vrows] != 0).any(dim=0)
+    cum = torch.zeros(n_v + 1, dtype=torch.float64, device=a.device)
+    cum[1:] = torch.cumsum(live.double(), dim=0)
+    n_live = float(cum[-1])
+    if kmax_a is None:
+        ops = 2.0 * n_a * len(vrows) * n_live
+        a_cols = n_a * n_live
+        ext_bytes = 0.0
+    else:
+        bi, bj, bk = blocks
+        lim = (torch.minimum(kmax_a.long()[:, None],
+                             kmax_b.long()[vrows // bj][None, :]) * bk
+               ).clamp(max=n_v)                      # (A row tiles, valid)
+        tiles = torch.arange(kmax_a.numel(), device=a.device)
+        rows = (n_a - tiles * bi).clamp(max=bi).double()
+        ops = 2.0 * float((rows[:, None] * cum[lim]).sum())
+        reach = (lim.amax(dim=1) if len(vrows)
+                 else torch.zeros_like(tiles))
+        a_cols = float((rows * cum[reach]).sum())
+        ext_bytes = 4.0 * (kmax_a.numel() + kmax_b.numel())
+    n_valid = len(vrows)
+    nbytes = (4.0 * (a_cols + n_valid * n_v + n_b + n_valid + 2 * n_a)
+              + ext_bytes)
+    return ops, nbytes, n_live
+
+
+def tiled_peel_live_work(torch, td, scol, pos, live, s):
+    """Operations and bytes kernel 6's mask form needs for a peel mask s,
+    counted per column: row y with s mass meets the other rows only in
+    its own live partner tiles pos[band(y), c], and there only at the
+    columns where y holds a nonzero; each such column costs 2 bi
+    operations for every live slot of column band c.  Bytes: those
+    columns of the live slots of each column band (the columns where any
+    row with mass holds a nonzero), read once in f32, s, out and the
+    index arrays.  Returns (operations, bytes)."""
+    n_slots, bi, bk = td.shape
+    n_rt, n_ct = pos.shape
+    ys = torch.nonzero(s).squeeze(1)
+    p = pos.long()[ys // bi]                              # (n_y, n_ct)
+    ok = (p >= 0) & (live[p.clamp(min=0)] != 0)
+    nz = (td[p.clamp(min=0), (ys % bi)[:, None]] != 0) & ok[:, :, None]
+    col_live = torch.zeros(n_ct, dtype=torch.float64, device=td.device)
+    col_live.index_add_(0, scol.long(), (live != 0).double())
+    ops = 2.0 * bi * float((nz.sum(dim=2).double() * col_live).sum())
+    cols = nz.any(dim=0).sum(dim=1).double()                # (n_ct,)
+    nbytes = (4.0 * bi * float((cols * col_live).sum()) + 4.0 * 2 * n_rt * bi
+              + 4.0 * (3 * n_slots + n_rt + 1 + n_rt * n_ct))
+    return ops, nbytes
 
 
 def exact_theta(g):
@@ -288,7 +424,13 @@ def main() -> int:
             return tile_bytes(torch.maximum(reach_a, reach_b), n_a, bi)
         return tile_bytes(reach_a, n_a, bi) + tile_bytes(reach_b, n_b, bj)
 
-    def measure(key, kernel, plain, product, ops_, nbytes, reps):
+    def measure(key, kernel, plain, product, ops_, nbytes, reps, old=None,
+                old_bound=None):
+        """Hold ``kernel`` against ``plain`` (torch.equal) and time both and
+        ``product``; with ``old`` (the body a redesigned form replaced, on
+        the same operands) hold and time that too, in the same run, and
+        print ``old_bound`` (ops, bytes), the bound as an earlier PR
+        counted it, beside the bound."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -297,47 +439,110 @@ def main() -> int:
                 f"{key}: kernel differs from its plain version, max abs "
                 f"err {(got - want).abs().max().item()}")
         err = float((got - want).abs().max().item()) if got.numel() else 0.0
+        old_ms = None
+        if old is not None:
+            if not torch.equal(old(), want):
+                raise AssertionError(f"{key}: the old body differs from the "
+                                     "plain version")
+            old_ms = time_ms(torch, old, max(3, reps // 2))
         ms = time_ms(torch, kernel, reps)
         plain_ms = time_ms(torch, plain, max(3, reps // 4))
         prod_ms = time_ms(torch, product, reps)
         b_ms, b_by = bound(ops_, nbytes)
         results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by,
-                            product_only_ms=prod_ms)
-        log(f"{key}: torch.equal=True ms={ms:.4f} bound_ms={b_ms:.4f} "
-            f"({b_by}) plain_ms={plain_ms:.4f} matmul_ms(product only, not "
-            f"the same function)={prod_ms:.4f}")
+                            product_only_ms=prod_ms, old_body_ms=old_ms)
+        extra = ""
+        if old is not None:
+            eager_ms = time_ms(torch, kernel, reps, eager=True)
+            parts = kernel_device_ms(torch, kernel)
+            extra += (f" old_body_ms={old_ms:.4f} eager_ms(host enqueue "
+                      f"included)={eager_ms:.4f} launches: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+        if old_bound is not None:
+            ob_ms, ob_by = bound(*old_bound)
+            extra += f" earlier_bound_ms={ob_ms:.6f} ({ob_by})"
+        log(f"{key}: torch.equal=True ms={ms:.4f} bound_ms={b_ms:.6f} "
+            f"({b_by}){extra} plain_ms={plain_ms:.4f} matmul_ms(product "
+            f"only, not the same function)={prod_ms:.4f}")
 
-    # kernel 1, counting form at the full-size matrix
+    # kernel 1, counting form at the full-size matrix (the count body)
     a = dg.a
     n_a, n_v = a.shape
     alive = (torch.arange(n_a, device=dev) < dg.n_rows).float()
     ids = dg.ids
     measure("butterfly_update[count]",
-            lambda: bfly.butterfly_update(a, a, alive, ids, ids),
+            lambda: bfly.butterfly_update(a, a, alive, ids, ids,
+                                          body="count"),
             lambda: bfly.butterfly_update_plain(a, a, alive, ids, ids),
             lambda: torch.matmul(a, a.T),
             2.0 * n_a * n_a * n_v, 4.0 * (n_a * n_v + 3 * n_a), reps=10)
-    # kernel 1, a CD peel update: 256 gathered rows with global ids
+    # kernel 1, a CD peel update: 256 gathered rows with global ids (the
+    # peel body; the count body, which it replaced, on the same operands)
     n_peel, width = 240, 256
     rows_np = np.zeros(width, np.int64)
     rows_np[:n_peel] = np.sort(rng.choice(dg.n_rows, n_peel, replace=False))
     rows = torch.as_tensor(rows_np, dtype=torch.int32, device=dev)
     valid = (torch.arange(width, device=dev) < n_peel).float()
     a_peel = a[rows.long()] * valid[:, None]
+    ops1, bytes1, live1 = peel_live_work(torch, a, a_peel, valid)
+
+    def live_stripes(b, s):
+        """32-column stripes where a row of ``b`` with s mass holds a
+        nonzero (the stripes the peel body reads)."""
+        live = (b[s != 0] != 0).any(dim=0).to(torch.int8)
+        live = torch.nn.functional.pad(live, (0, (-live.numel()) % 32))
+        return int(live.reshape(-1, 32).any(dim=1).sum())
+
+    log(f"butterfly_update[peel]: {live1:.0f} of {n_v} columns live, in "
+        f"{live_stripes(a_peel, valid)} of {-(-n_v // 32)} stripes; "
+        f"yardstick: a clone of the matrix ({4 * a.numel()} bytes read, as "
+        f"many written) {time_ms(torch, lambda: a.clone(), 10):.4f} ms")
     measure("butterfly_update[peel]",
             lambda: bfly.butterfly_update(a, a_peel, valid, ids, rows),
             lambda: bfly.butterfly_update_plain(a, a_peel, valid, ids, rows),
-            lambda: torch.matmul(a, a_peel.T),
-            2.0 * n_a * width * n_v,
-            4.0 * (n_a * n_v + width * n_v + 2 * width + 2 * n_a), reps=50)
+            lambda: torch.matmul(a, a_peel.T), ops1, bytes1, reps=50,
+            old=lambda: bfly.butterfly_update(a, a_peel, valid, ids, rows,
+                                              body="count"),
+            old_bound=(2.0 * n_a * width * n_v,
+                       4.0 * (n_a * n_v + width * n_v + 2 * width
+                              + 2 * n_a)))
+    # kernel 1 at ParB's own shape: its unsorted matrix (after the DGM of
+    # its DeviceGraph), 128 gathered rows of which one is valid (ParB's
+    # median peel set)
+    dgp = DeviceGraph(g_full, np.arange(g_full.n_u), paths["parb"],
+                      device=dev)
+    ap = dgp.a
+    rows_p = torch.zeros(128, dtype=torch.int32, device=dev)
+    rows_p[0] = int(rng.integers(dgp.n_rows))
+    valid_p = (torch.arange(128, device=dev) < 1).float()
+    ap_peel = ap[rows_p.long()] * valid_p[:, None]
+    ids_p = dgp.ids
+    opsp, bytesp, livep = peel_live_work(torch, ap, ap_peel, valid_p)
+    n_ap, n_vp = ap.shape
+    log(f"butterfly_update[peel_parb]: matrix {tuple(ap.shape)}, "
+        f"{livep:.0f} of {n_vp} columns live, in "
+        f"{live_stripes(ap_peel, valid_p)} stripes")
+    measure("butterfly_update[peel_parb]",
+            lambda: bfly.butterfly_update(ap, ap_peel, valid_p, ids_p,
+                                          rows_p),
+            lambda: bfly.butterfly_update_plain(ap, ap_peel, valid_p, ids_p,
+                                                rows_p),
+            lambda: torch.matmul(ap, ap_peel.T), opsp, bytesp, reps=200,
+            old=lambda: bfly.butterfly_update(ap, ap_peel, valid_p, ids_p,
+                                              rows_p, body="count"),
+            old_bound=(2.0 * n_ap * 128 * n_vp,
+                       4.0 * (n_ap * n_vp + 128 * n_vp + 2 * 128
+                              + 2 * n_ap)))
+    del dgp, ap, ap_peel
     # kernel 4, counting form at the full-size matrix, its real extents
     kmax = dg.kmax
     ops4, skip = live_stripe_ops(kmax, kmax, n_v)
     log(f"butterfly_update_sparse[count]: {skip:.3f} of the stripes skipped")
     measure("butterfly_update_sparse[count]",
             lambda: bsp.butterfly_update_sparse(a, a, alive, ids, ids, kmax,
-                                                kmax, blocks=blocks),
+                                                kmax, blocks=blocks,
+                                                body="count"),
             lambda: bsp.butterfly_update_sparse_plain(
                 a, a, alive, ids, ids, kmax, kmax, blocks=blocks),
             lambda: torch.matmul(a, a.T),
@@ -347,16 +552,23 @@ def main() -> int:
     # extents gathered from the per-row extents (padding rows 0)
     kb_peel = bsp.gathered_tile_extents(dg.row_ext, rows, valid > 0, bj)
     ops4p, skip = live_stripe_ops(kmax, kb_peel, n_v)
-    log(f"butterfly_update_sparse[peel]: {skip:.3f} of the stripes skipped")
+    ops4l, bytes4l, live4 = peel_live_work(torch, a, a_peel, valid, kmax,
+                                           kb_peel, blocks)
+    log(f"butterfly_update_sparse[peel]: {skip:.3f} of the stripes skipped "
+        f"by the extents; {live4:.0f} of {n_v} columns live")
     measure("butterfly_update_sparse[peel]",
             lambda: bsp.butterfly_update_sparse(a, a_peel, valid, ids, rows,
                                                 kmax, kb_peel, blocks=blocks),
             lambda: bsp.butterfly_update_sparse_plain(
                 a, a_peel, valid, ids, rows, kmax, kb_peel, blocks=blocks),
-            lambda: torch.matmul(a, a_peel.T),
-            ops4p, live_stripe_bytes(kmax, kb_peel, n_a, width, n_v)
-            + 4.0 * (2 * width + 2 * n_a + kmax.numel() + kb_peel.numel()),
-            reps=50)
+            lambda: torch.matmul(a, a_peel.T), ops4l, bytes4l, reps=50,
+            old=lambda: bsp.butterfly_update_sparse(
+                a, a_peel, valid, ids, rows, kmax, kb_peel, blocks=blocks,
+                body="count"),
+            old_bound=(ops4p, live_stripe_bytes(kmax, kb_peel, n_a, width,
+                                                n_v)
+                       + 4.0 * (2 * width + 2 * n_a + kmax.numel()
+                                + kb_peel.numel())))
     # kernel 2: a (16, 1024, 1024) FD stack against 128 gathered rows
     g_n, mm, cc, w = 16, 1024, 1024, 128
     gen = torch.Generator(device="cpu").manual_seed(1)
@@ -413,9 +625,7 @@ def main() -> int:
     del a3, b3, st, b5
 
     # kernel 6 at the tiled path's own slot list: the degree-sorted graph
-    # after the host DGM pre-compaction, in (max(bi, bj), bk) tiles; the
-    # count form, then two peel forms (1 row, the median peel set, and 16
-    # rows, the widest of the plain version's gathered path)
+    # after the host DGM pre-compaction, in (max(bi, bj), bk) tiles
     sub = g_full.relabel_by_degree().induced_on_u(
         np.arange(g_full.n_u), min_degree_v=2)[0]
     tg = build_tiled(sub, paths["tiled"])
@@ -467,25 +677,37 @@ def main() -> int:
 
     dense6 = up(tg.dense())
     rng6 = np.random.default_rng(6)
-    forms6 = {"count": np.arange(sub.n_u),
-              "peel1": rng6.choice(sub.n_u, 1, replace=False),
-              "peel16": rng6.choice(sub.n_u, 16, replace=False)}
+    # the count launch's mask (s = every alive row), then peel sets of 1
+    # row (the median), 16, 64 and 256 rows: the peel body, the one the
+    # tiled path launches for all of them, against the count body on the
+    # same mask
+    forms6 = {"alive": np.arange(sub.n_u)}
+    for w6 in (1, 16, 64, 256):
+        forms6[f"peel{w6}"] = rng6.choice(sub.n_u, w6, replace=False)
     for form, rows6 in forms6.items():
         s6 = torch.zeros(tg.rows_pad, device=dev)
         s6[torch.as_tensor(rows6, device=dev)] = 1.0
         ops6, bytes6, skip, n_tiles, n_meet = tiled_work(s6)
         key = f"butterfly_update_tiled[{form}]"
         log(f"{key}: {skip:.4f} of the (band, slot) pairs skipped by the "
-            f"kernel; the bound counts {n_meet} (row, column band) meetings "
-            f"over {n_tiles} of {int(live_b.sum())} live tiles")
-        b6 = dense6 if form == "count" else dense6[
+            f"count body; the per-tile bound counts {n_meet} (row, column "
+            f"band) meetings over {n_tiles} of {int(live_b.sum())} live "
+            "tiles")
+        b6 = dense6 if form == "alive" else dense6[
             torch.as_tensor(rows6, device=dev)]
+        n6 = len(rows6)
+        ops6c, bytes6c = tiled_peel_live_work(torch, td, tl[1], tl[3], live6,
+                                              s6)
         measure(key,
-                lambda s6=s6: btl.butterfly_update_tiled(td, *tl, live6, s6),
-                lambda s6=s6, n=len(rows6): btl.butterfly_update_tiled_plain(
+                lambda s6=s6, n=n6: btl.butterfly_update_tiled(
+                    td, *tl, live6, s6, n_srows=n),
+                lambda s6=s6, n=n6: btl.butterfly_update_tiled_plain(
                     td, *tl, live6, s6, n_srows=n),
                 lambda b6=b6: torch.matmul(dense6, b6.T),
-                ops6, bytes6, reps=5 if form == "count" else 50)
+                ops6c, bytes6c, reps=5 if form == "alive" else 50,
+                old=lambda s6=s6: btl.butterfly_update_tiled(td, *tl, live6,
+                                                             s6, body="count"),
+                old_bound=(ops6, bytes6))
     # the tiled path's tile-list passes at this size, per call
     keep_cols = (btl.colsum_tiled(td, tl[1], n_ct6) >= 2.0).float()
     alive6 = (torch.arange(tg.rows_pad, device=dev) < sub.n_u).float()
@@ -548,6 +770,11 @@ def main() -> int:
                 "cuda_sparse)")
 
     # ---- 5. full size: both paths ------------------------------------- #
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"memory allocated before the full-size paths: "
+        f"{torch.cuda.memory_allocated()} bytes")
     t0 = time.perf_counter()
     want, max_support = exact_theta(g_full)
     oracle_s = time.perf_counter() - t0
@@ -595,8 +822,28 @@ def main() -> int:
             f"max_memory_allocated {peak} bytes")
         full_stats[pname] = stats
         full_walls[pname] = wall
-        if pname != "parb":
-            where_the_time_goes(torch, lambda: run_path(pname, g_full, cfg))
+        where_the_time_goes(torch, lambda: run_path(pname, g_full, cfg))
+    # each body ran where it should: the peel bodies on the peel updates,
+    # the count bodies on counting and HUC recounts
+    # (kernel 6 launches its peel body for its count launch too, and its
+    # count body, the yardstick of phase 3, nowhere)
+    must = {"dense_subset": ("butterfly_update[count]",
+                             "butterfly_update[peel]"),
+            "parb": ("butterfly_update[count]", "butterfly_update[peel]"),
+            "sparse_graph": ("butterfly_update_sparse[count]",
+                             "butterfly_update_sparse[peel]"),
+            "tiled": ("butterfly_update_tiled[peel]",)}
+    for pname, keys in must.items():
+        idle = [k for k in keys if launches[pname][k] <= 0]
+        if idle:
+            raise AssertionError(f"full size {pname}: {idle} never launched")
+        if launches[pname]["butterfly_update_tiled[count]"]:
+            raise AssertionError(f"full size {pname}: kernel 6's count body "
+                                 "launched")
+    log("full size: kernel-1 launches by body (count, peel): "
+        + ", ".join(f"{p_} ({launches[p_]['butterfly_update[count]']}, "
+                    f"{launches[p_]['butterfly_update[peel]']})"
+                    for p_ in paths))
     rho_tiled = full_stats["tiled"].rho_fd
     rho_parb = full_stats["parb"].rho_cd
     if rho_tiled != rho_parb:
@@ -639,43 +886,44 @@ def main() -> int:
             " both exact")
 
     # ---- 7. kernel list ------------------------------------------------ #
+    k1 = ("src/repro_torch/kernels/csrc/butterfly_sparse.cu",
+          "src/repro/kernels/butterfly.py:125")
+    k4 = ("src/repro_torch/kernels/csrc/butterfly_sparse.cu",
+          "src/repro/kernels/butterfly_sparse.py:220")
+    k6 = ("src/repro_torch/kernels/csrc/butterfly_tiled.cu",
+          "src/repro/kernels/butterfly_tiled.py:259")
+    # (launch key, phase-3 result, source, Pallas kernel replaced)
     table = [
-        ("butterfly_update", "butterfly_update[count]",
-         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
-         "src/repro/kernels/butterfly.py:125"),
-        ("butterfly_update", "butterfly_update[peel]",
-         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
-         "src/repro/kernels/butterfly.py:125"),
+        ("butterfly_update[count]", "butterfly_update[count]", *k1),
+        ("butterfly_update[peel]", "butterfly_update[peel]", *k1),
+        ("butterfly_update[peel]", "butterfly_update[peel_parb]", *k1),
         ("butterfly_update_batched", "butterfly_update_batched",
          "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
          "src/repro/kernels/butterfly.py:225"),
         ("b2_stack", "b2_stack",
          "src/repro_torch/kernels/csrc/b2_stack.cu",
          "src/repro/kernels/butterfly_sparse.py:420"),
-        ("butterfly_update_sparse", "butterfly_update_sparse[count]",
-         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
-         "src/repro/kernels/butterfly_sparse.py:220"),
-        ("butterfly_update_sparse", "butterfly_update_sparse[peel]",
-         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
-         "src/repro/kernels/butterfly_sparse.py:220"),
+        ("butterfly_update_sparse[count]", "butterfly_update_sparse[count]",
+         *k4),
+        ("butterfly_update_sparse[peel]", "butterfly_update_sparse[peel]",
+         *k4),
         ("butterfly_update_sparse_batched", "butterfly_update_sparse_batched",
          "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
          "src/repro/kernels/butterfly_sparse.py:318"),
-    ] + [("butterfly_update_tiled", f"butterfly_update_tiled[{form}]",
-          "src/repro_torch/kernels/csrc/butterfly_tiled.cu",
-          "src/repro/kernels/butterfly_tiled.py:259")
-         for form in ("count", "peel1", "peel16")]
+    ] + [("butterfly_update_tiled[peel]", f"butterfly_update_tiled[{form}]",
+          *k6) for form in forms6]
     kernels = []
     for kname, key, source, replaces in table:
         r = results[key]
         by_path = {p_: launches[p_][kname] for p_ in paths}
         kernels.append(dict(
-            name=key.replace("[count]", ""), route="cuda", source=source,
+            name=key, route="cuda", source=source,
             replaces=replaces, launches=sum(by_path.values()),
             launches_by_path=by_path, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
-            product_only_ms=r["product_only_ms"]))
+            product_only_ms=r["product_only_ms"],
+            old_body_ms=r["old_body_ms"]))
     log(json.dumps({"kernels": kernels}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

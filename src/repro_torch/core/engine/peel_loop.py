@@ -312,7 +312,7 @@ def support_all(a, alive, ids, kmax, *, backend, blocks):
     (``kmax`` the row-tile extents on the sparse backends, else None)."""
     return kops.butterfly_update(a, a, alive.to(a.dtype), ids, ids,
                                  backend=backend, blocks=blocks,
-                                 kmax_a=kmax, kmax_b=kmax)
+                                 kmax_a=kmax, kmax_b=kmax, body="count")
 
 
 def support_delta(a, a_peel, valid, ids, ids_peel, kmax_a, kmax_b, *,

@@ -90,11 +90,13 @@ def build_tiled(g: BipartiteGraph, cfg: ReceiptConfig) -> TiledGraph:
 
 
 def _tiled_update(td, lists, sl, s, n_s, backend):
-    """Kernel 6 on CUDA tensors; on CPU tensors its plain version, handed
+    """Kernel 6 on CUDA tensors, its plain version on CPU tensors, handed
     ``n_s``, the nonzero count of ``s`` the caller has already read, so
-    that it reads nothing of its own to pick its path."""
+    that neither reads anything of its own to size its scratch or pick its
+    path."""
     if td.device.type == "cuda":
-        return kops.butterfly_update_tiled(td, *lists, sl, s, backend=backend)
+        return kops.butterfly_update_tiled(td, *lists, sl, s, backend=backend,
+                                           n_srows=n_s)
     return ktiled.butterfly_update_tiled_plain(td, *lists, sl, s, n_srows=n_s)
 
 

@@ -117,7 +117,7 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source (built first if it is stale),
     with ``argtypes``/``restype`` declared for every entry point."""
     lib = ctypes.CDLL(str(build_all()[name]))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "b2_stack":
         lib.b2_stack_f32.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
         lib.b2_stack_f32.restype = i32
@@ -125,7 +125,13 @@ def library(name: str) -> ctypes.CDLL:
         lib.butterfly_update_sparse_f32.argtypes = (
             [ptr] * 8 + [i32] * 9 + [ptr])
         lib.butterfly_update_sparse_f32.restype = i32
+        lib.butterfly_update_peel_f32.argtypes = (
+            [ptr] * 8 + [i32] * 6 + [ptr, i64, ptr])
+        lib.butterfly_update_peel_f32.restype = i32
     elif name == "butterfly_tiled":
         lib.butterfly_update_tiled_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
         lib.butterfly_update_tiled_f32.restype = i32
+        lib.butterfly_update_tiled_peel_f32.argtypes = (
+            [ptr] * 7 + [i32] * 7 + [ptr, i64, ptr])
+        lib.butterfly_update_tiled_peel_f32.restype = i32
     return lib

@@ -13,18 +13,27 @@ section 2.1):
 ``ids_a`` / ``ids_b`` carry the row ids of each side so self-pairs (u, u)
 are excluded even when B holds gathered copies of A rows.
 
-Two kernels, both launches of the one wedge-update body of
-``csrc/butterfly_sparse.cu`` with no stripe extents (the source notes the
-Pallas kernels it replaces, what bounds it on the H100 and how it is
-built):
+Two kernels, both launches of ``csrc/butterfly_sparse.cu`` with no stripe
+extents (the source notes the Pallas kernels it replaces, what bounds it
+on the H100 and how it is built):
 
 * ``butterfly_update``         kernel 1, one graph, global ids;
 * ``butterfly_update_batched`` kernel 2, a (G, ...) stack, local ids.
 
+Kernel 1 (and kernel 4, ``butterfly_sparse``) has two bodies, and the
+caller names one (``body``): the peel body (int8 tensor cores over only
+the stripes the rows with ``s`` mass touch), the default, for the
+gathered peel updates; the count body for counting and HUC recounts,
+where ``b`` is ``a`` and every row may carry ``s`` mass
+(``ops.butterfly_support``, the engine's ``support_all``).  Both compute
+the same function for any inputs.  Each body counts its launches under
+its own key, ``"<kernel>[count]"`` and ``"<kernel>[peel]"``; kernel 2
+always takes the count body.
+
 Each wrapper takes its plain version (beside it) for CPU tensors and
 launches its kernel for CUDA tensors, counting the launch in ``LAUNCHES``.
-There is no fallback from one to the other.  ``_launch`` is that body's
-one launch, shared with the stripe-skipping kernels 4 and 5
+There is no fallback from one to the other.  ``_launch`` is the one
+launch of those bodies, shared with the stripe-skipping kernels 4 and 5
 (``butterfly_sparse``).
 """
 from __future__ import annotations
@@ -36,14 +45,34 @@ from ._build import check_launch, ptr, stream_of
 
 __all__ = [
     "LAUNCHES",
+    "BODIES",
+    "peel_scratch_bytes",
     "butterfly_update",
     "butterfly_update_plain",
     "butterfly_update_batched",
     "butterfly_update_batched_plain",
 ]
 
-# launches of each kernel (plain calls are not counted)
-LAUNCHES = {"butterfly_update": 0, "butterfly_update_batched": 0}
+BODIES = ("count", "peel")
+
+# launches of each kernel body (plain calls are not counted)
+LAUNCHES = {"butterfly_update[count]": 0, "butterfly_update[peel]": 0,
+            "butterfly_update_batched": 0}
+
+# the peel body's geometry (csrc/butterfly_sparse.cu: KS, PB)
+_STRIPE = 32
+_PEEL_CHUNK = 128
+
+
+def peel_scratch_bytes(n_b: int, n_v: int) -> int:
+    """Device scratch of the peel body (``peel_scratch_bytes`` of
+    ``csrc/butterfly_sparse.cu``): per chunk of 128 gathered rows, one
+    int32 flag per 32-column stripe (rounded up to 16 bytes), then the
+    chunk's rows as s8, 32 bytes per stripe."""
+    n_str = -(-n_v // _STRIPE)
+    n_chunks = -(-n_b // _PEEL_CHUNK)
+    flag_bytes = -(-4 * n_chunks * n_str // 16) * 16
+    return flag_bytes + n_chunks * _PEEL_CHUNK * n_str * _STRIPE
 
 
 def butterfly_update_plain(a, b, s, ids_a, ids_b):
@@ -89,13 +118,15 @@ def _check(a, b, s, ids_a, ids_b, *, batched: bool):
             f"ids_b{tuple(ids_b.shape)}")
 
 
-def _launch(counts, key, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
-            blocks=(1, 1, 1)):
-    """Launch the wedge-update kernel of ``csrc/butterfly_sparse.cu`` on
-    CUDA operands (2-D: one graph; 3-D: the group is gridDim.z) and count
-    it in ``counts[key]``.  Without extents every stripe is read (kernels
-    1 and 2); with ``kmax_a``/``kmax_b`` of ``blocks`` row tiles the K loop
-    stops at the covering tiles' extents (kernels 4 and 5)."""
+def _launch(counts, name, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
+            blocks=(1, 1, 1), body="count"):
+    """Launch a wedge-update body of ``csrc/butterfly_sparse.cu`` on CUDA
+    operands and count it in ``counts``.  3-D operands (a stack, the group
+    is gridDim.z) take the count body, counted under ``name``; 2-D ones
+    (one graph) the ``body`` named, counted under ``name[body]``.  Without
+    extents every stripe is read (kernels 1 and 2); with
+    ``kmax_a``/``kmax_b`` of ``blocks`` row tiles the K loop stops at the
+    covering tiles' extents (kernels 4 and 5)."""
     if a.device.type != "cuda":
         raise ValueError(f"no butterfly kernel for device {a.device}")
     batched = a.dim() == 3
@@ -103,29 +134,46 @@ def _launch(counts, key, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
     skip = kmax_a is not None
     if skip != (kmax_b is not None):
         raise ValueError("kmax_a and kmax_b come together")
+    if body not in BODIES or (batched and body != "count"):
+        raise ValueError(f"body {body!r}: one of {BODIES}, 'count' for a "
+                         "stack")
+    key = name if batched else f"{name}[{body}]"
     bi, bj, bk = (int(x) for x in blocks)
     g_n = a.shape[0] if batched else 1
     n_a, n_v = a.shape[-2:]
     n_b = b.shape[-2]
     out = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
-    if g_n and n_a and n_b and n_v:
-        lib = _build.library("butterfly_sparse")
+    if not (g_n and n_a and n_b and n_v):
+        return out
+    lib = _build.library("butterfly_sparse")
+    extents = ((ptr(kmax_a), ptr(kmax_b)) if skip else (None, None))
+    if body == "peel":
+        n_scratch = peel_scratch_bytes(n_b, n_v)
+        # freed on return: the caching allocator hands it out again only to
+        # work queued after the kernels on this stream
+        scratch = torch.empty(n_scratch, dtype=torch.uint8, device=a.device)
+        check_launch(lib.butterfly_update_peel_f32(
+            ptr(a), ptr(b), ptr(s), ptr(ids_a), ptr(ids_b), *extents,
+            ptr(out), n_a, n_b, n_v, bi, bj, bk, ptr(scratch), n_scratch,
+            stream_of(a)), key)
+    else:
         check_launch(lib.butterfly_update_sparse_f32(
-            ptr(a), ptr(b), ptr(s), ptr(ids_a), ptr(ids_b),
-            ptr(kmax_a) if skip else None, ptr(kmax_b) if skip else None,
+            ptr(a), ptr(b), ptr(s), ptr(ids_a), ptr(ids_b), *extents,
             ptr(out), g_n, n_a, n_b, n_v,
             kmax_a.shape[-1] if skip else 0, kmax_b.shape[-1] if skip else 0,
             bi, bj, bk, stream_of(a)), key)
-        counts[key] += 1
+    counts[key] += 1
     return out
 
 
-def butterfly_update(a, b, s, ids_a, ids_b):
+def butterfly_update(a, b, s, ids_a, ids_b, *, body="peel"):
     """Kernel 1.  a (n_a, n_v) f32 0/1, b (n_b, n_v), s (n_b,) f32,
-    ids_a (n_a,) / ids_b (n_b,) int32; returns out (n_a,) f32."""
+    ids_a (n_a,) / ids_b (n_b,) int32; returns out (n_a,) f32.  ``body``
+    (``"peel"`` or ``"count"``) is the body launched on CUDA tensors."""
     if a.device.type == "cpu":
         return butterfly_update_plain(a, b, s, ids_a, ids_b)
-    return _launch(LAUNCHES, "butterfly_update", a, b, s, ids_a, ids_b)
+    return _launch(LAUNCHES, "butterfly_update", a, b, s, ids_a, ids_b,
+                   body=body)
 
 
 def butterfly_update_batched(a, b, s, ids_a, ids_b):

@@ -11,7 +11,8 @@ them.  This module holds the extent helpers (``row_extents``,
 
 * ``butterfly_update_sparse``  kernel 4 (``csrc/butterfly_sparse.cu``):
   ``out[i] = sum_{j: ids_b[j] != ids_a[i]} s[j] * C((A B^T)[i, j], 2)``
-  with the stripe skip, one graph, global ids;
+  with the stripe skip, one graph, global ids; kernel 1's count and peel
+  bodies (the caller names one, as for kernel 1) with the extents' bound;
 * ``butterfly_update_sparse_batched``  kernel 5 (same source): the same
   over a (G, ...) stack, local ids, one staircase per group member;
 * ``b2_stack``  kernel 3 (``csrc/b2_stack.cu``):
@@ -51,8 +52,10 @@ __all__ = [
     "b2_stack_plain",
 ]
 
-# launches of each kernel (plain calls are not counted)
-LAUNCHES = {"butterfly_update_sparse": 0,
+# launches of each kernel body (plain calls are not counted); kernel 4
+# has kernel 1's two bodies
+LAUNCHES = {"butterfly_update_sparse[count]": 0,
+            "butterfly_update_sparse[peel]": 0,
             "butterfly_update_sparse_batched": 0, "b2_stack": 0}
 
 
@@ -184,26 +187,28 @@ def _check_extents(a, b, kmax_a, kmax_b, blocks):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_sparse(key, a, b, s, ids_a, ids_b, kmax_a, kmax_b, blocks):
+def _launch_sparse(name, a, b, s, ids_a, ids_b, kmax_a, kmax_b, blocks,
+                   body="count"):
     """Kernels 4 and 5: the wedge-update launch with stripe extents."""
     if a.device.type != "cuda":
         raise ValueError(f"no butterfly kernel for device {a.device}")
     _check_extents(a, b, kmax_a, kmax_b, blocks)
-    return _bfly._launch(LAUNCHES, key, a, b, s, ids_a, ids_b, kmax_a,
-                         kmax_b, blocks)
+    return _bfly._launch(LAUNCHES, name, a, b, s, ids_a, ids_b, kmax_a,
+                         kmax_b, blocks, body=body)
 
 
 def butterfly_update_sparse(a, b, s, ids_a, ids_b, kmax_a, kmax_b, *,
-                            blocks):
+                            blocks, body="peel"):
     """Kernel 4.  a (n_a, n_v) f32 0/1, b (n_b, n_v), s (n_b,) f32,
     ids_a (n_a,) / ids_b (n_b,) int32, kmax_a (ceil(n_a/bi),) and
     kmax_b (ceil(n_b/bj),) int32 stripe extents of ``blocks = (bi, bj,
-    bk)`` row tiles; returns out (n_a,) f32."""
+    bk)`` row tiles; returns out (n_a,) f32.  ``body`` (``"peel"`` or
+    ``"count"``) is the body launched on CUDA tensors, as for kernel 1."""
     if a.device.type == "cpu":
         return butterfly_update_sparse_plain(a, b, s, ids_a, ids_b, kmax_a,
                                              kmax_b, blocks=blocks)
     return _launch_sparse("butterfly_update_sparse", a, b, s, ids_a, ids_b,
-                          kmax_a, kmax_b, blocks)
+                          kmax_a, kmax_b, blocks, body=body)
 
 
 def butterfly_update_sparse_batched(a, b, s, ids_a, ids_b, kmax_a, kmax_b,

@@ -13,8 +13,9 @@ with ``s`` = the alive mask it is per-vertex butterfly counting, with ``s``
 (``core/engine/tiled.py``).
 
 * ``butterfly_update_tiled``  kernel 6 (``csrc/butterfly_tiled.cu``): the
-  wrapper checks its inputs and launches the kernel on CUDA tensors,
-  counting the launch in ``LAUNCHES``; CPU tensors take the plain version;
+  wrapper checks its inputs and launches the kernel's peel body on CUDA
+  tensors, counting the launch in ``LAUNCHES`` under the body's key; CPU
+  tensors take the plain version;
 * ``butterfly_update_tiled_plain``  its plain version, the port of the
   reference's streaming oracle ``butterfly_update_tiled_xla``: a
   gathered-row path for masks of at most ``_PEEL_ROW_WIDTH`` rows and a
@@ -26,9 +27,13 @@ reference either): ``slot_liveness``, ``regather_tiles`` (in place),
 
 The plain version picks its gathered or band-streaming path from
 ``n_srows``, the number of nonzero entries of ``s``, when the caller knows
-it (the tiled engine on CPU tensors hands it the peel-set size its sweep
-has already read), so choosing reads nothing more.  Kernel 6 needs no such
-hint, and its wrapper takes none.
+it (the tiled engine hands it the peel-set size its sweep has already
+read), so choosing reads nothing more.  Kernel 6's peel body, which
+multiplies only the rows with ``s`` mass on the int8 tensor cores, takes
+the same hint to size its scratch; it runs for every mask, ``s`` = alive
+included, since it beat the count body at every width timed (PERF.md).
+The count body stays as the yardstick it is timed against
+(``body="count"``).
 
 Every product below has 0/1 operands (or a 0/1 mask), so it is exact in
 f32 and in TF32 alike, and every sum is an integer below 2^24 (DESIGN.md
@@ -43,6 +48,8 @@ from ._build import check_launch, ptr, stream_of
 
 __all__ = [
     "LAUNCHES",
+    "peel_scratch_bytes",
+    "peel_windows",
     "butterfly_update_tiled",
     "butterfly_update_tiled_plain",
     "colsum_tiled",
@@ -58,8 +65,47 @@ __all__ = [
 # (the reference's constant)
 _PEEL_ROW_WIDTH = 16
 
-# launches of the kernel (plain calls are not counted)
-LAUNCHES = {"butterfly_update_tiled": 0}
+# the peel body's geometry (csrc/butterfly_tiled.cu: CH, KS)
+_PEEL_CHUNK = 16
+_STRIPE = 32
+
+# launches of each kernel body (plain calls are not counted)
+LAUNCHES = {"butterfly_update_tiled[count]": 0,
+            "butterfly_update_tiled[peel]": 0}
+
+
+def peel_scratch_bytes(n_srows: int, n_ct: int, bk: int) -> int:
+    """Device scratch of the peel body (``peel_scratch_layout`` of
+    ``csrc/butterfly_tiled.cu``): the row count (16 bytes), the peeled-row
+    list, one stripe-mask word per 32 stripes for each (chunk of 16 rows,
+    column band), and the chunk's partner rows as s8, each from a 16-byte
+    boundary."""
+    def up16(x):
+        return -(-x // 16) * 16
+
+    n_chunks = -(-n_srows // _PEEL_CHUNK)
+    n_str = -(-bk // _STRIPE)
+    n_sw = -(-n_str // 32)
+    return (16 + up16(4 * n_chunks * _PEEL_CHUNK)
+            + up16(4 * n_chunks * n_ct * n_sw)
+            + n_chunks * n_ct * _PEEL_CHUNK * n_str * _STRIPE)
+
+
+def peel_windows(n_rows: int, n_srows: int, n_ct: int, bk: int,
+                 max_scratch: int):
+    """The row windows of the peel body's launches and the peeled-row cap
+    of each, so that its scratch stays within ``max_scratch`` bytes: one
+    window over every row, capped at ``n_srows``, when the scratch for
+    ``n_srows`` rows fits; else windows of the most whole chunks of rows
+    that fit (one chunk at least), each capped at its width.  Returns
+    ([(row0, row_end), ...], cap)."""
+    if peel_scratch_bytes(n_srows, n_ct, bk) <= max_scratch:
+        return [(0, n_rows)], n_srows
+    # peel_scratch_bytes(k * chunk) <= k * peel_scratch_bytes(chunk)
+    chunks = max(1, max_scratch // peel_scratch_bytes(_PEEL_CHUNK, n_ct, bk))
+    win = chunks * _PEEL_CHUNK
+    return ([(r0, min(r0 + win, n_rows)) for r0 in range(0, n_rows, win)],
+            min(win, n_srows))
 
 
 # ---------------------------------------------------------------------- #
@@ -244,25 +290,61 @@ def _check(tile_data, srow, scol, sptr, pos, slot_live, s):
             raise ValueError(f"{name} must be contiguous")
 
 
-def butterfly_update_tiled(tile_data, srow, scol, sptr, pos, slot_live, s):
+def butterfly_update_tiled(tile_data, srow, scol, sptr, pos, slot_live, s, *,
+                           n_srows=None, body="peel", max_scratch=None):
     """Kernel 6.  tile_data (n_slots, bi, bk) f32 0/1; srow, scol,
     slot_live (n_slots,), sptr (n_rt + 1,), pos (n_rt, n_ct) int32 (-1 =
-    absent tile); s (n_rt * bi,) f32; returns out (n_rt * bi,) f32."""
+    absent tile); s (n_rt * bi,) f32; returns out (n_rt * bi,) f32.
+
+    ``n_srows`` is the number of nonzero entries of ``s`` when the caller
+    knows it (at least that number: the peel body sees only the first
+    ``n_srows`` of them; None: every row may carry mass); on CPU tensors it
+    picks the plain version's path.  On CUDA tensors the peel body runs,
+    in row windows (``peel_windows``) whose scratch stays within
+    ``max_scratch`` bytes, by default the payload's own size; each window
+    is one launch.  ``body="count"`` launches the count body instead, the
+    yardstick the peel body is timed against.
+    """
     if tile_data.device.type == "cpu":
         return butterfly_update_tiled_plain(tile_data, srow, scol, sptr, pos,
-                                            slot_live, s)
+                                            slot_live, s, n_srows=n_srows)
     if tile_data.device.type != "cuda":
         raise ValueError(f"no tiled butterfly kernel for device "
                          f"{tile_data.device}")
     _check(tile_data, srow, scol, sptr, pos, slot_live, s)
+    if body not in ("count", "peel"):
+        raise ValueError(f"body {body!r}: 'count' or 'peel'")
+    if n_srows is not None and int(n_srows) < 0:
+        raise ValueError(f"n_srows must be >= 0, got {n_srows}")
     n_slots, bi, bk = tile_data.shape
     n_rt, n_ct = pos.shape
-    out = torch.zeros(n_rt * bi, dtype=torch.float32, device=tile_data.device)
-    if n_slots and n_rt and bk:
-        lib = _build.library("butterfly_tiled")
+    n_rows = n_rt * bi
+    out = torch.zeros(n_rows, dtype=torch.float32, device=tile_data.device)
+    n_srows = n_rows if n_srows is None else int(n_srows)
+    if not (n_slots and n_rt and bk) or (body == "peel" and not n_srows):
+        return out
+    key = f"butterfly_update_tiled[{body}]"
+    lib = _build.library("butterfly_tiled")
+    if body == "count":
         check_launch(lib.butterfly_update_tiled_f32(
             ptr(tile_data), ptr(scol), ptr(sptr), ptr(pos), ptr(slot_live),
             ptr(s), ptr(out), n_rt, n_ct, bi, bk,
-            stream_of(tile_data)), "butterfly_update_tiled")
-        LAUNCHES["butterfly_update_tiled"] += 1
+            stream_of(tile_data)), key)
+        LAUNCHES[key] += 1
+        return out
+    if max_scratch is None:
+        max_scratch = 4 * tile_data.numel()
+    windows, cap = peel_windows(n_rows, n_srows, n_ct, bk, max_scratch)
+    n_scratch = peel_scratch_bytes(cap, n_ct, bk)
+    # one scratch for every window (they run in order on this stream);
+    # freed on return: the caching allocator hands it out again only to
+    # work queued after the kernels on this stream
+    scratch = torch.empty(n_scratch, dtype=torch.uint8,
+                          device=tile_data.device)
+    for row0, row_end in windows:
+        check_launch(lib.butterfly_update_tiled_peel_f32(
+            ptr(tile_data), ptr(scol), ptr(sptr), ptr(pos), ptr(slot_live),
+            ptr(s), ptr(out), n_rt, n_ct, bi, bk, row0, row_end, cap,
+            ptr(scratch), n_scratch, stream_of(tile_data)), key)
+        LAUNCHES[key] += 1
     return out

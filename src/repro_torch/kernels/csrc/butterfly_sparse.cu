@@ -8,8 +8,7 @@
 // k >= min(kmax_a[g, i / bi], kmax_b[g, j / bj]).  Without them (null
 // extent pointers) every stripe is read.
 //
-// Replaces four Pallas TPU kernels of the reference package, all one body
-// here with the group as gridDim.z:
+// Replaces four Pallas TPU kernels of the reference package:
 //   * kernel 1, src/repro/kernels/butterfly.py:125 butterfly_support_pallas
 //     (body butterfly_kernel_body): one graph, GLOBAL row ids, no extents.
 //     Counting and HUC recounts (A = B, s = alive) and every CD peel update
@@ -27,50 +26,77 @@
 //     kernel 2 with one staircase per group member, extents (G, n_a / bi)
 //     and (G, n_b / bj).
 //
-// Design.  One 256-thread block computes a 64 x 64 wedge tile
-// W = A[i0:i0+64] . B[j0:j0+64]^T in registers (4 x 4 per thread), from
-// 16-column K-stripes staged through shared memory, with f32 FMA
-// (wedge_tile.cuh, shared with b2_stack.cu).  The epilogue applies
-// C(W, 2) = W * (W - 1) * 0.5, the row mask s and the not-self mask,
-// row-reduces the tile (half-warp shuffles) and adds the partial row sums
-// into out with atomicAdd.  The Pallas grid carries out_i across j in order
-// on one core; here the j-tiles run as parallel blocks and meet in the
-// atomics.  The wrapper zeroes out before the launch.
+// Two bodies compute that function, and the caller names one
+// (kernels/butterfly.py, body=):
 //
-// Stripe skip.  As in b2_stack.cu, the block reads the extents of the
-// reference tiles (bi rows on the A side, bj rows on the B side) that cover
-// its 64 rows and 64 columns and stops its K loop at
-// min(max kmax_a, max kmax_b) * bk.  The Pallas grid skips stripes tile pair
-// by tile pair; a block that spans several reference tiles (bi or bj below
-// 64) takes the largest extent among them.  Both are exact for extents that
-// upper-bound the true ones: every column past the bound is zero in all the
-// block's rows on one side.  With bi, bj >= 64 and multiples of 64 the block
-// skips exactly the stripes the Pallas kernel skips.
+// THE COUNT BODY (sparse_update_kernel; kernels 1 and 4 for counting and
+// HUC recounts, where B is A, and kernels 2 and 5).  One 256-thread block
+// computes a 64 x 64 wedge tile W = A[i0:i0+64] . B[j0:j0+64]^T in
+// registers (4 x 4 per thread), from 16-column K-stripes staged through
+// shared memory, with f32 FMA (wedge_tile.cuh, shared with b2_stack.cu).
+// The epilogue applies C(W, 2) = W * (W - 1) * 0.5, the row mask s and the
+// not-self mask, row-reduces the tile (half-warp shuffles) and adds the
+// partial row sums into out with atomicAdd.  The Pallas grid carries out_i
+// across j in order on one core; here the j-tiles run as parallel blocks
+// and meet in the atomics.  Stripe skip: as in b2_stack.cu, the block reads
+// the extents of the reference tiles (bi rows on the A side, bj rows on the
+// B side) that cover its 64 rows and 64 columns and stops its K loop at
+// min(max kmax_a, max kmax_b) * bk: exact for extents that upper-bound the
+// true ones (every column past the bound is zero in all the block's rows on
+// one side).  Bound: at the count shape (8192 x 8192) by operations, whose
+// floor is the int8 tensor-core rate; this body runs on the f32 FMA units
+// (moving it to wgmma is ROADMAP queue 0).
 //
-// Exactness.  A and B are 0/1, so every wedge count W is an integer below
-// n_v and is exact in f32 while n_v < 2^24.  The engine works in the regime
-// where every butterfly support is below 2^24 (DESIGN.md section 8); then
-// every C(W, 2), every partial row sum and every atomicAdd operand is a
+// THE PEEL BODY (peel_prep_kernel + peel_update_kernel; kernels 1 and 4
+// for every other call: the CD peel updates of the dense and staircase
+// backends and every ParB sweep, one graph).  B holds a few gathered rows,
+// most with s = 0 in a ParB sweep (128 gathered rows, one valid), and a
+// valid row of degree ~13 touches ~13 of the 256 32-column stripes, so
+// the function needs only the columns where a row with s mass holds a
+// nonzero.  What bounds it is bytes: A's f32 columns in those stripes,
+// read once, and B's mass rows once (2 n_a n_valid L operations over L
+// live columns are ~1/100 of the byte time at the int8 rate).  The design moves only
+// those bytes:
+//   1. peel_prep_kernel (grid: stripes / 4 x chunks of 128 B rows) packs
+//      the chunk's rows with s != 0 ("mass rows", compacted in row order)
+//      to s8 into scratch, and marks each 32-column stripe where any of
+//      them holds a nonzero: flags[chunk][stripe], on the device, so the
+//      wrapper reads nothing.  Stripes left unmarked add exactly 0 to
+//      every W[i, j] that s does not zero.
+//   2. peel_update_kernel (grid: chunk x 64-row band of A, chunk fastest
+//      so the blocks sharing an A band run together and share it in L2):
+//      a block whose chunk has no mass row returns at once; otherwise it
+//      compacts the marked stripes (below today's k_end = min(ka, kb) bk
+//      with extents) into a list and walks it through a 4-stage cp.async
+//      ring: A's 64 x 32 f32 stripe (read from HBM once per band) and the
+//      mass rows' s8 stripe, so the loads of the next three stripes
+//      overlap the products.  Eight warps (4 x 16 A rows, 2 x 64 mass
+//      rows) multiply with mma.sync m16n8k32 s8 x s8 -> s32 (wedge_mma.cuh)
+//      over only the n-tiles that hold mass rows.  The epilogue converts
+//      each s32 W to f32 (exact: below 2^24) and applies C(W, 2) in the
+//      reference's order (W * (W - 1), then * 0.5), s[j], the not-self
+//      mask on the rows' ids (a gathered row is its own A row's id), the
+//      row reduction (quad shuffles) and an exact f32 atomicAdd.
+// mma.sync is enough here: the 256-row CD shape needs 34.4 GOP, 0.017 ms
+// at the int8 peak, under the byte bound even at a quarter of that rate.
+//
+// Exactness.  A and B are 0/1 (the function's contract; the peel body's
+// s8 conversion [v != 0] relies on it), so every wedge count W is an
+// integer below n_v: exact in f32 while n_v < 2^24, and the s32 products
+// cannot overflow (W <= n_v < 2^31).  The engine works in the regime where
+// every butterfly support is below 2^24 (DESIGN.md section 8); then every
+// C(W, 2), every partial row sum and every atomicAdd operand is a
 // non-negative integer no larger than the final support, so each f32
-// addition is exact in ANY order: the atomics give the same bits on every
-// run and the same bits as the reference.  C(W, 2) is evaluated in the
-// reference's operation order (W * (W - 1), then * 0.5).
-//
-// What bounds it on the H100.  The product over the live stripes,
-// 2 * sum over tile pairs of bi bj min(ka, kb) bk operations (2 n_a n_b n_v
-// without extents), against the live stripes' f32 reads: at the engine's
-// count shape (8192 x 8192) it is bound by operations, at a 256-row peel
-// update by bytes.  Its floor is the int8 tensor-core rate (0/1 operands and
-// counts below 2^24 are exact in int8 -> int32); this first version runs on
-// the f32 FMA units (about 1/30 of that rate), which keeps the arithmetic
-// plainly exact, and the skip removes the staircase's all-zero tail.
-// Moving the product to wgmma (s8 x s8 -> s32) is the work of a later change.
+// addition is exact in ANY order: both bodies give the same bits on every
+// run, and the same bits as the reference.
 //
 // Shapes need not be multiples of any tile: loads and the epilogue mask the
 // ragged edge.  All tensors are contiguous, f32 (a, b, s, out) and int32
-// (ids, extents).  The launch goes on the caller's stream, allocates nothing
-// and returns cudaGetLastError().
+// (ids, extents).  The launches go on the caller's stream, allocate nothing
+// (the peel body's scratch comes from the wrapper) and return
+// cudaGetLastError().
 
+#include "wedge_mma.cuh"
 #include "wedge_tile.cuh"
 
 namespace {
@@ -136,4 +162,289 @@ extern "C" int butterfly_update_sparse_f32(
       a, b, s, ids_a, ids_b, kmax_a, kmax_b, out, n_a, n_b, n_v, n_ta, n_tb,
       bi, bj, bk);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------- //
+// the peel body
+// ---------------------------------------------------------------------- //
+namespace {
+
+using namespace wmma8;
+
+constexpr int PB = 128;          // gathered B rows per chunk
+constexpr int PA = 64;           // A rows per block
+constexpr int P_STAGES = 4;      // cp.async ring depth
+constexpr int P_THREADS = 256;   // 8 warps: 4 (A rows) x 2 (mass rows)
+constexpr int PREP_THREADS = 128;
+constexpr int A_STAGE = PA * KS;   // floats
+constexpr int B_STAGE = PB * KS;   // bytes
+constexpr int P_SMEM = P_STAGES * (A_STAGE * 4 + B_STAGE);
+
+// Rows of chunk [j0, j0 + PB) with s != 0, in row order, into mrow
+// (offsets from j0); every thread of the block calls it, the first PB
+// threads offer one row each.
+__device__ __forceinline__ int chunk_mass_rows(const float* __restrict__ s,
+                                               int n_b, int j0, int* mrow,
+                                               int* warp_sums) {
+  const int r = threadIdx.x;
+  const bool mass = r < PB && j0 + r < n_b && s[j0 + r] != 0.0f;
+  return block_compact(mass, r, mrow, 0, PB, warp_sums);
+}
+
+// b8 holds, per chunk, PB rows of n_str * 32 s8 bytes: mass row m of
+// chunk c at (c * PB + m) * n_str * 32.
+__device__ __forceinline__ int64_t b8_row(int c, int m, int n_str) {
+  return ((int64_t)c * PB + m) * n_str * KS;
+}
+
+// grid (ceil(n_str / 4), n_chunks), PREP_THREADS: warp w of block x packs
+// stripe 4 x + w of the chunk's mass rows to s8 and marks the stripe in
+// flags[c * n_str + k] when any of them holds a nonzero there.  kVec: B's
+// rows are 16-byte aligned (n_v % 4 == 0), so four columns are one load.
+template <bool kVec>
+__global__ void __launch_bounds__(PREP_THREADS)
+peel_prep_kernel(const float* __restrict__ b, const float* __restrict__ s,
+                 int n_b, int n_v, int n_str, int* __restrict__ flags,
+                 uint8_t* __restrict__ b8) {
+  __shared__ int mrow[PB];
+  __shared__ int warp_sums[PREP_THREADS / 32];
+  const int c = blockIdx.y;
+  const int j0 = c * PB;
+  const int n_mass = chunk_mass_rows(s, n_b, j0, mrow, warp_sums);
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * (PREP_THREADS / 32) + (threadIdx.x >> 5);
+  if (k >= n_str) return;
+  // lanes 8 r + q: row m = r (mod 4), columns 4 q .. 4 q + 3 of the stripe
+  const int col = k * KS + 4 * (lane & 7);
+  bool any = false;
+#pragma unroll 4
+  for (int m = lane >> 3; m < n_mass; m += 4) {
+    const float* row = b + (int64_t)(j0 + mrow[m]) * n_v;
+    uint32_t w;
+    if constexpr (kVec) {
+      w = col < n_v ? pack_s8(*reinterpret_cast<const float4*>(row + col))
+                    : 0u;
+    } else {
+      w = pack_s8(col < n_v ? row[col] : 0.0f,
+                  col + 1 < n_v ? row[col + 1] : 0.0f,
+                  col + 2 < n_v ? row[col + 2] : 0.0f,
+                  col + 3 < n_v ? row[col + 3] : 0.0f);
+    }
+    any |= w != 0u;
+    *reinterpret_cast<uint32_t*>(b8 + b8_row(c, m, n_str) + k * KS +
+                                 4 * (lane & 7)) = w;
+  }
+  any = __any_sync(0xffffffffu, any);
+  if (lane == 0) flags[(int64_t)c * n_str + k] = any ? 1 : 0;
+}
+
+// grid (n_chunks, ceil(n_a / PA)), P_THREADS, P_SMEM dynamic bytes.
+template <bool kSkip, bool kVec>
+__global__ void __launch_bounds__(P_THREADS)
+peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
+                   const int* __restrict__ ids_a,
+                   const int* __restrict__ ids_b,
+                   const int* __restrict__ kmax_a,
+                   const int* __restrict__ kmax_b,
+                   const int* __restrict__ flags,
+                   const uint8_t* __restrict__ b8, float* __restrict__ out,
+                   int n_a, int n_b, int n_v, int n_str, int bi, int bj,
+                   int bk) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  float* as_ring = reinterpret_cast<float*>(ring);
+  uint8_t* bs_ring = ring + P_STAGES * A_STAGE * 4;
+  __shared__ int mrow[PB];
+  __shared__ int live[P_THREADS];
+  __shared__ int warp_sums[P_THREADS / 32];
+
+  const int c = blockIdx.x;
+  const int j0 = c * PB;
+  const int i0 = blockIdx.y * PA;
+  const int n_mass = chunk_mass_rows(s, n_b, j0, mrow, warp_sums);
+  if (n_mass == 0) return;   // no s mass in the chunk: nothing to add
+
+  // columns past kcut add nothing to this block's W
+  int kcut = n_v;
+  if constexpr (kSkip) {
+    const int ka = wedge::covering_extent(kmax_a, i0, min(i0 + PA, n_a), bi);
+    const int kb = wedge::covering_extent(kmax_b, j0, min(j0 + PB, n_b), bj);
+    kcut = (int)min((int64_t)min(ka, kb) * bk, (int64_t)n_v);
+  }
+  const int n_str_cut = (kcut + KS - 1) / KS;
+  const int b_rows = (n_mass + 7) & ~7;   // rows the mma reads
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wm = warp & 3;          // A rows 16 wm .. 16 wm + 15
+  const int wn = warp >> 2;         // mass rows 64 wn .. 64 wn + 63
+  const int n_tiles = min(max((n_mass - 64 * wn + 7) >> 3, 0), 8);
+  int acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0;
+
+  auto load_stage = [&](int slot, int k) {
+    load_a_stripe<kVec, PA, P_THREADS>(as_ring + slot * A_STAGE, a, n_v, i0,
+                                       n_a, k * KS, kcut);
+    // one 16-byte half-row of the mass rows' s8 stripe per thread
+    const int row = tid >> 1;
+    const int half = tid & 1;
+    if (row < b_rows) {
+      const bool have = row < n_mass;
+      cp_async16(bs_ring + slot * B_STAGE + b_slot(row, half),
+                 have ? (const void*)(b8 + b8_row(c, row, n_str) + k * KS +
+                                      16 * half)
+                      : (const void*)b8,
+                 have ? 16 : 0);
+    }
+  };
+
+  for (int win = 0; win < n_str_cut; win += P_THREADS) {
+    const int k = win + tid;
+    const int n_live = block_compact(
+        k < n_str_cut && flags[(int64_t)c * n_str + k] != 0, k, live, 0,
+        P_THREADS, warp_sums);
+#pragma unroll
+    for (int st = 0; st < P_STAGES - 1; ++st) {
+      if (st < n_live) load_stage(st, live[st]);
+      cp_async_commit();
+    }
+    for (int it = 0; it < n_live; ++it) {
+      cp_async_wait<P_STAGES - 2>();
+      __syncthreads();
+      const int nx = it + P_STAGES - 1;
+      if (nx < n_live) load_stage(nx % P_STAGES, live[nx]);
+      cp_async_commit();
+      if (n_tiles > 0) {
+        const int slot = it % P_STAGES;
+        uint32_t af[4];
+        a_fragment(as_ring + slot * A_STAGE, 16 * wm, af);
+        const uint8_t* bs = bs_ring + slot * B_STAGE;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          if (nt < n_tiles) mma_b_rows(acc[nt], af, bs, 64 * wn + 8 * nt);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // the ring and the list are free for the next window
+  }
+
+  // epilogue: C(W, 2) * s[j] * [ids differ], reduced over the quad's columns
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + 16 * wm + g + 8 * h;
+    float part = 0.0f;
+    if (i < n_a) {
+      const int ida = ids_a[i];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt >= n_tiles) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = 64 * wn + 8 * nt + 2 * t + e;
+          if (m >= n_mass) continue;
+          const int j = j0 + mrow[m];
+          const float w = (float)acc[nt][2 * h + e];
+          const float b2 = w * (w - 1.0f) * 0.5f;
+          if (ida != ids_b[j]) part += b2 * s[j];
+        }
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if (t == 0 && i < n_a && part != 0.0f) atomicAdd(out + i, part);
+  }
+}
+
+// one-time opt-in above 48 KB of dynamic shared memory, per instantiation
+template <bool kSkip, bool kVec>
+cudaError_t launch_peel_update(dim3 grid, cudaStream_t stream,
+                               const float* a, const float* s,
+                               const int* ids_a, const int* ids_b,
+                               const int* kmax_a, const int* kmax_b,
+                               const int* flags, const uint8_t* b8,
+                               float* out, int n_a, int n_b, int n_v,
+                               int n_str, int bi, int bj, int bk) {
+  static cudaError_t attr = cudaFuncSetAttribute(
+      peel_update_kernel<kSkip, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P_SMEM);
+  if (attr != cudaSuccess) return attr;
+  peel_update_kernel<kSkip, kVec><<<grid, P_THREADS, P_SMEM, stream>>>(
+      a, s, ids_a, ids_b, kmax_a, kmax_b, flags, b8, out, n_a, n_b, n_v,
+      n_str, bi, bj, bk);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Scratch bytes of the peel body: flags (n_chunks x n_str int32, rounded
+// up to 16 bytes) then the s8 mass rows (n_chunks x PB x n_str x 32), with
+// n_str = ceil(n_v / 32) and n_chunks = ceil(n_b / PB).
+// kernels/butterfly.py's peel_scratch_bytes is the same formula.
+static int64_t peel_scratch_bytes(int n_b, int n_v) {
+  const int64_t n_str = (n_v + KS - 1) / KS;
+  const int64_t n_chunks = (n_b + PB - 1) / PB;
+  const int64_t flag_bytes = (4 * n_chunks * n_str + 15) / 16 * 16;
+  return flag_bytes + n_chunks * PB * n_str * KS;
+}
+
+// The peel body of kernels 1 and 4 (one graph).  Operands as
+// butterfly_update_sparse_f32 with groups = 1; scratch: at least
+// peel_scratch_bytes(n_b, n_v) bytes of device memory, 16-byte aligned,
+// needing no initial value.
+extern "C" int butterfly_update_peel_f32(
+    const float* a, const float* b, const float* s, const int* ids_a,
+    const int* ids_b, const int* kmax_a, const int* kmax_b, float* out,
+    int n_a, int n_b, int n_v, int bi, int bj, int bk, void* scratch,
+    long long scratch_bytes, void* stream) {
+  if ((kmax_a == nullptr) != (kmax_b == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (scratch_bytes < peel_scratch_bytes(n_b, n_v) ||
+      ((uintptr_t)scratch & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_str = (n_v + KS - 1) / KS;
+  const int n_chunks = (n_b + PB - 1) / PB;
+  const int n_bands = (n_a + PA - 1) / PA;
+  if (n_chunks > 65535 || n_bands > 65535) return (int)cudaErrorInvalidValue;
+  int* flags = static_cast<int*>(scratch);
+  uint8_t* b8 = static_cast<uint8_t*>(scratch) +
+                ((4 * (int64_t)n_chunks * n_str + 15) / 16 * 16);
+  cudaStream_t st = (cudaStream_t)stream;
+
+  const dim3 prep_grid((n_str + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32),
+                       n_chunks);
+  const bool vec_b = (n_v % 4 == 0) && (((uintptr_t)b & 15) == 0);
+  if (vec_b)
+    peel_prep_kernel<true><<<prep_grid, PREP_THREADS, 0, st>>>(
+        b, s, n_b, n_v, n_str, flags, b8);
+  else
+    peel_prep_kernel<false><<<prep_grid, PREP_THREADS, 0, st>>>(
+        b, s, n_b, n_v, n_str, flags, b8);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const dim3 grid(n_chunks, n_bands);
+  const bool vec = (n_v % 4 == 0) && (((uintptr_t)a & 15) == 0);
+  const bool skip = kmax_a != nullptr;
+  if (skip && vec)
+    err = launch_peel_update<true, true>(grid, st, a, s, ids_a, ids_b, kmax_a,
+                                         kmax_b, flags, b8, out, n_a, n_b,
+                                         n_v, n_str, bi, bj, bk);
+  else if (skip)
+    err = launch_peel_update<true, false>(grid, st, a, s, ids_a, ids_b,
+                                          kmax_a, kmax_b, flags, b8, out, n_a,
+                                          n_b, n_v, n_str, bi, bj, bk);
+  else if (vec)
+    err = launch_peel_update<false, true>(grid, st, a, s, ids_a, ids_b,
+                                          kmax_a, kmax_b, flags, b8, out, n_a,
+                                          n_b, n_v, n_str, bi, bj, bk);
+  else
+    err = launch_peel_update<false, false>(grid, st, a, s, ids_a, ids_b,
+                                           kmax_a, kmax_b, flags, b8, out,
+                                           n_a, n_b, n_v, n_str, bi, bj, bk);
+  return (int)err;
 }

@@ -160,20 +160,24 @@ def _sparse_extents(a, b, kmax_a, kmax_b, blocks):
 
 
 def butterfly_update(a, b, s, ids_a, ids_b, *, backend=None,
-                     blocks=DEFAULT_BLOCKS, kmax_a=None, kmax_b=None):
+                     blocks=DEFAULT_BLOCKS, kmax_a=None, kmax_b=None,
+                     body="peel"):
     """out[i] = sum_{j: ids_b[j] != ids_a[i]} s[j] * C((A B^T)[i, j], 2).
 
     The general (gathered peel set) form: kernel 1, or kernel 4 on the
     sparse backends, which read the row-tile extents ``kmax_a``
-    ((ceil(n_a/bi),) int32) and ``kmax_b`` ((ceil(n_b/bj),)).
+    ((ceil(n_a/bi),) int32) and ``kmax_b`` ((ceil(n_b/bj),)).  ``body``
+    is the kernel body on the card: ``"peel"`` for a gathered peel update,
+    ``"count"`` for counting and HUC recounts (B is A, every row may carry
+    ``s`` mass).
     """
     backend = resolve_backend(backend, a.device)
     args = (_f32(a), _f32(b), _f32(s), _i32(ids_a), _i32(ids_b))
     if backend in SPARSE_BACKENDS:
         return _sparse.butterfly_update_sparse(
             *args, *_sparse_extents(a, b, kmax_a, kmax_b, blocks),
-            blocks=blocks)
-    return _bfly.butterfly_update(*args)
+            blocks=blocks, body=body)
+    return _bfly.butterfly_update(*args, body=body)
 
 
 def butterfly_update_batched(a, b, s, ids_a, ids_b, *, backend=None,
@@ -229,11 +233,12 @@ def butterfly_support(a, s, *, backend=None, blocks=DEFAULT_BLOCKS,
     """
     ids = torch.arange(a.shape[0], dtype=torch.int32, device=a.device)
     return butterfly_update(a, a, s, ids, ids, backend=backend,
-                            blocks=blocks, kmax_a=kmax, kmax_b=kmax)
+                            blocks=blocks, kmax_a=kmax, kmax_b=kmax,
+                            body="count")
 
 
 def butterfly_update_tiled(tile_data, srow, scol, sptr, pos, slot_live, s, *,
-                           backend=None):
+                           backend=None, n_srows=None):
     """Mask-form butterfly update over a nonzero-tile list
     (``core.graph.TiledGraph`` arrays):
 
@@ -241,12 +246,14 @@ def butterfly_update_tiled(tile_data, srow, scol, sptr, pos, slot_live, s, *,
 
     Kernel 6 on ``"cuda"`` / ``"cuda_sparse"``, its plain version on
     ``"torch"`` / ``"torch_sparse"``; ``None`` resolves from the tensors'
-    device.
+    device.  ``n_srows``, the number of nonzero entries of ``s`` when the
+    caller has it, sizes kernel 6's scratch (or picks the plain version's
+    path) without a read.
     """
     resolve_backend(backend, tile_data.device)
     return _tiled.butterfly_update_tiled(
         _f32(tile_data), _i32(srow), _i32(scol), _i32(sptr), _i32(pos),
-        _i32(slot_live), _f32(s))
+        _i32(slot_live), _f32(s), n_srows=n_srows)
 
 
 # ---------------------------------------------------------------------- #

@@ -51,8 +51,17 @@ def test_kernels_equal_plain(card, n_a, n_b, n_v):
     b = a[rows] * valid[:, None]
     ids = torch.arange(n_a, dtype=torch.int32, device=card)
     rows = rows.to(torch.int32)
-    assert torch.equal(bfly.butterfly_update(a, b, valid, ids, rows),
-                       bfly.butterfly_update_plain(a, b, valid, ids, rows))
+    want = bfly.butterfly_update_plain(a, b, valid, ids, rows)
+    assert torch.equal(bfly.butterfly_update(a, b, valid, ids, rows), want)
+    assert torch.equal(bfly.butterfly_update(a, b, valid, ids, rows,
+                                             body="count"), want)
+    # the counting form through both bodies (the peel body is right for
+    # any operands, s = alive of every row included)
+    alive = (torch.rand(n_a, generator=gen) < 0.8).float().to(card)
+    want = bfly.butterfly_update_plain(a, a, alive, ids, ids)
+    for body in ("count", "peel"):
+        assert torch.equal(bfly.butterfly_update(a, a, alive, ids, ids,
+                                                 body=body), want)
     a3 = _adj(gen, 3, n_a, n_v).to(card)
     ids3 = ids.expand(3, n_a).contiguous()
     s3 = (torch.rand(3, n_a, generator=gen) < 0.7).float().to(card)
@@ -93,12 +102,63 @@ def test_sparse_kernels_equal_plain(card, n_a, n_b, n_v, blocks):
                            *args, blocks=blocks))
     args1 = (a3[0], b3[0], valid3[0], ids3[0], rows3[0], ka[0].contiguous(),
              kb[0].contiguous())
+    want = bsp.butterfly_update_sparse_plain(*args1, blocks=blocks)
     assert torch.equal(bsp.butterfly_update_sparse(*args1, blocks=blocks),
-                       bsp.butterfly_update_sparse_plain(*args1,
-                                                         blocks=blocks))
-    assert torch.equal(bsp.butterfly_update_sparse(*args1, blocks=blocks),
-                       bfly.butterfly_update_plain(*args1[:5]))
+                       want)
+    for body in ("count", "peel"):
+        assert torch.equal(bsp.butterfly_update_sparse(*args1, blocks=blocks,
+                                                       body=body), want)
+    assert torch.equal(want, bfly.butterfly_update_plain(*args1[:5]))
     torch.cuda.synchronize()
+
+
+def _peel_operands(gen, card, n_a, n_b, n_v, n_valid):
+    """A gathered peel update as hard as the engine's can be: rows drawn
+    with repeats, ``n_valid`` valid ones at random positions (not a
+    prefix), a valid row that is all zero, invalid rows that keep their
+    content (s = 0 must zero them), global ids (a gathered row meets its
+    own A row: the self-pair)."""
+    a = _adj(gen, n_a, n_v).to(card)
+    rows = torch.randint(0, n_a, (n_b,), generator=gen)
+    valid = torch.zeros(n_b)
+    valid[torch.randperm(n_b, generator=gen)[:n_valid]] = 1.0
+    b = a[rows.to(card)].clone()
+    if n_valid:
+        b[int(torch.nonzero(valid)[0])] = 0.0
+    ids = torch.arange(n_a, dtype=torch.int32, device=card)
+    return (a, b, valid.to(card), ids, rows.to(torch.int32).to(card))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_valid", [0, 1, 63, 64, 65, 256, 300])
+@pytest.mark.parametrize("n_a,n_b,n_v", [(70, 33, 129), (300, 257, 1000),
+                                         (130, 300, 64)])
+def test_peel_body_equals_plain(card, n_a, n_b, n_v, n_valid):
+    """Kernel 1's peel body (int8 tensor cores over the live stripes) on
+    ragged shapes (n_a, n_b, n_v not multiples of 16, 8 or 32; rows of
+    129 floats are not 16-byte aligned), every count of valid rows up to
+    n_b, and against the count body it replaced; then kernel 4's
+    instantiation with full extents.  Each launch is counted under its
+    own body's key only."""
+    gen = torch.Generator().manual_seed(n_a + n_v + n_valid)
+    args = _peel_operands(gen, card, n_a, n_b, n_v, min(n_valid, n_b))
+    want = bfly.butterfly_update_plain(*args)
+    ops.reset_launch_counts()
+    assert torch.equal(bfly.butterfly_update(*args), want)
+    assert torch.equal(bfly.butterfly_update(*args, body="count"), want)
+    bk = 32
+    ka = torch.full((-(-n_a // 16),), -(-n_v // bk), dtype=torch.int32,
+                    device=card)
+    kb = torch.full((-(-n_b // 8),), -(-n_v // bk), dtype=torch.int32,
+                    device=card)
+    assert torch.equal(bsp.butterfly_update_sparse(
+        *args, ka, kb, blocks=(16, 8, bk)), want)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["butterfly_update[peel]"] == 1
+    assert counts["butterfly_update[count]"] == 1
+    assert counts["butterfly_update_sparse[peel]"] == 1
+    assert sum(counts.values()) == 3
 
 
 @pytest.mark.gpu
@@ -112,9 +172,11 @@ def test_sparse_backend_on_card_matches_oracle(card, dispatch):
                 fd_update_mode=mode))
             np.testing.assert_array_equal(theta, peeling.bup_oracle(g)[0])
     counts = ops.launch_counts()
-    assert counts["butterfly_update_sparse"] > 0
+    assert counts["butterfly_update_sparse[count]"] > 0
+    assert counts["butterfly_update_sparse[peel]"] > 0
     assert counts["butterfly_update_sparse_batched"] > 0
-    assert counts["butterfly_update"] == counts["butterfly_update_batched"] == 0
+    assert (counts["butterfly_update[count]"] == counts["butterfly_update[peel]"]
+            == counts["butterfly_update_batched"] == 0)
 
 
 @pytest.mark.gpu
@@ -210,7 +272,8 @@ def test_main_path_on_card_matches_oracle(card, mode):
         theta, _ = tip_decompose(g, ReceiptConfig(fd_update_mode=mode))
         np.testing.assert_array_equal(theta, peeling.bup_oracle(g)[0])
     counts = ops.launch_counts()
-    assert counts["butterfly_update"] > 0
+    assert counts["butterfly_update[count]"] > 0
+    assert counts["butterfly_update[peel]"] > 0
     assert counts["butterfly_update_batched"] > 0
     assert (counts["b2_stack"] > 0) == (mode == "b2")
 
@@ -218,10 +281,14 @@ def test_main_path_on_card_matches_oracle(card, mode):
 @pytest.mark.gpu
 @pytest.mark.parametrize("blocks", [(8, 8), (64, 64), (128, 512)])
 def test_tiled_kernel_equals_plain(card, blocks):
-    """Kernel 6 against its plain version on a degree-sorted power-law
-    graph's slot list, with filler slots and, after a regather, dead
-    slots; masks: zero, one row, 16 rows (the plain version's gathered
-    path), sparse and all (its band-streaming path)."""
+    """Kernel 6's two bodies against its plain version on a degree-sorted
+    power-law graph's slot list, with filler slots and, after a regather,
+    dead slots and dead partners; masks: zero, one row, 16 and 17 rows
+    (one and two chunks of the peel body), 300 rows, rows of one band,
+    rows across bands, sparse and all.  The peel body given no size (every
+    row), the mask's size, a size above it, and the mask's size with a
+    scratch cap of one chunk (one launch per 16-row window); the count
+    body; each launch counted under its own body's key only."""
     br, bk = blocks
     g = powerlaw_bipartite(700, 1300, 9000, seed=3).relabel_by_degree()
     tg = TiledGraph.from_graph(g, block_rows=br, block_k=bk)
@@ -238,30 +305,57 @@ def test_tiled_kernel_equals_plain(card, blocks):
     dead = btl.regather_tiles(td.clone(), lists[0], lists[1], rows, cols)
     assert int(dead[1].sum()) < tg.n_slots - 7
     n = tg.rows_pad
-    masks = {"zero": torch.zeros(n), "one": torch.zeros(n),
-             "w16": torch.zeros(n),
-             "sparse": (torch.rand(n, generator=gen) < 0.05).float(),
+    n_ct = tg.n_col_tiles
+    masks = {"zero": torch.zeros(n), "sparse":
+             (torch.rand(n, generator=gen) < 0.05).float(),
              "all": (torch.arange(n) < g.n_u).float()}
-    masks["one"][n // 3] = 1.0
-    masks["w16"][torch.randperm(g.n_u, generator=gen)[:16]] = 1.0
+    for name, width in (("one", 1), ("w16", 16), ("w17", 17), ("w300", 300)):
+        masks[name] = torch.zeros(n)
+        masks[name][torch.randperm(g.n_u, generator=gen)[:width]] = 1.0
+    masks["one_band"] = torch.zeros(n)
+    masks["one_band"][2 * br: 2 * br + min(br, 5)] = 1.0
+    masks["across"] = torch.zeros(n)
+    masks["across"][torch.arange(3, g.n_u, max(1, g.n_u // 12))] = 1.0
     ops.reset_launch_counts()
-    launched = 0
+    launched = {"count": 0, "peel": 0}
     for tdata, live in ((td, btl.slot_liveness(td)), dead):
+        default_cap = 4 * tdata.numel()
         for name, s in masks.items():
             s = s.to(card)
-            got = btl.butterfly_update_tiled(tdata, *lists, live, s)
+            n_s = int((s != 0).sum())
             want = btl.butterfly_update_tiled_plain(tdata, *lists, live, s)
-            assert torch.equal(got, want), name
-            launched += 1
+            for n_srows, cap in ((None, None), (n_s, None), (n_s + 40, None),
+                                 (n_s, 1)):
+                got = btl.butterfly_update_tiled(tdata, *lists, live, s,
+                                                 n_srows=n_srows,
+                                                 max_scratch=cap)
+                assert torch.equal(got, want), (name, n_srows, cap)
+                stated = n if n_srows is None else n_srows
+                if stated:
+                    windows, _ = btl.peel_windows(
+                        n, stated, n_ct, bk,
+                        default_cap if cap is None else cap)
+                    launched["peel"] += len(windows)
+            got = btl.butterfly_update_tiled(tdata, *lists, live, s,
+                                             body="count")
+            assert torch.equal(got, want), (name, "count")
+            launched["count"] += 1
     torch.cuda.synchronize()
-    assert ops.launch_counts()["butterfly_update_tiled"] == launched
+    counts = ops.launch_counts()
+    assert counts["butterfly_update_tiled[count]"] == launched["count"]
+    assert counts["butterfly_update_tiled[peel]"] == launched["peel"]
+    with pytest.raises(ValueError, match="body"):
+        btl.butterfly_update_tiled(td, *lists, live, s, body="tile")
+    with pytest.raises(ValueError, match="n_srows"):
+        btl.butterfly_update_tiled(td, *lists, live, s, n_srows=-1)
 
 
 @pytest.mark.gpu
 def test_tiled_legacy_fd_and_parb_on_card_match_oracle(card):
     """The tiled path (both backend names), ``fd_mode="b2"`` and
     ``"matvec"`` and ParB (both backends) on the card: theta equal to
-    ``bup_oracle``, and kernel 6 launched by the tiled path."""
+    ``bup_oracle``, and kernel 6 launched by the tiled path, its peel
+    body only."""
     vhub = make_vhub_graph(seed=6)
     for g in (paper_fig1_graph(), powerlaw_bipartite(200, 120, 1500, seed=5),
               graph_from_arrays(vhub.n_u, vhub.n_v, vhub.edges_u,
@@ -273,7 +367,9 @@ def test_tiled_legacy_fd_and_parb_on_card_match_oracle(card):
                 backend=backend, representation="tiled",
                 tiled_compact_every=8))
             np.testing.assert_array_equal(theta, want)
-            assert ops.launch_counts()["butterfly_update_tiled"] > 0
+            counts = ops.launch_counts()
+            assert counts["butterfly_update_tiled[count]"] == 0
+            assert counts["butterfly_update_tiled[peel]"] > 0
             theta, _ = parb_tip_decompose(g, ReceiptConfig(backend=backend))
             np.testing.assert_array_equal(theta, want)
         for mode in ("b2", "matvec"):

@@ -24,6 +24,7 @@ from repro.kernels.butterfly_sparse import (b2_stack_pallas_sparse,
 from repro_torch.kernels import _build
 from repro_torch.kernels import butterfly as tbf
 from repro_torch.kernels import butterfly_sparse as tbs
+from repro_torch.kernels import butterfly_tiled as tbt
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -381,12 +382,84 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
         torch.zeros(2, dtype=i32), torch.tensor([0, 1, 2], dtype=i32),
         torch.tensor([[0], [1]], dtype=i32), torch.ones(2, dtype=i32),
         torch.ones(16))
-    assert tops.launch_counts() == {"butterfly_update": 0,
+    assert tops.launch_counts() == {"butterfly_update[count]": 0,
+                                    "butterfly_update[peel]": 0,
                                     "butterfly_update_batched": 0,
-                                    "butterfly_update_sparse": 0,
+                                    "butterfly_update_sparse[count]": 0,
+                                    "butterfly_update_sparse[peel]": 0,
                                     "butterfly_update_sparse_batched": 0,
                                     "b2_stack": 0,
-                                    "butterfly_update_tiled": 0}
+                                    "butterfly_update_tiled[count]": 0,
+                                    "butterfly_update_tiled[peel]": 0}
+
+
+@pytest.mark.parametrize("backend", ["torch", "torch_sparse"])
+def test_callers_name_the_wedge_body(backend, monkeypatch):
+    """Kernels 1 and 4 launch the body their caller names: the count body
+    for counting (``ops.butterfly_support``) and for the engine's
+    initial counts and HUC recounts (``support_all``), the peel body for
+    the engine's peel updates (``support_delta``) and by default."""
+    from repro_torch.core.engine import peel_loop as tpl
+
+    seen = []
+
+    def spy(a, b, s, ids_a, ids_b, *extents, blocks=None, body):
+        seen.append(body)
+        return torch.zeros(a.shape[0])
+
+    monkeypatch.setattr(tbf, "butterfly_update", spy)
+    monkeypatch.setattr(tbs, "butterfly_update_sparse", spy)
+    a = torch.zeros(16, 8)
+    ids = torch.arange(16, dtype=torch.int32)
+    alive = torch.ones(16)
+    blocks = (8, 8, 8)
+    kmax = torch.ones(2, dtype=torch.int32) if backend == "torch_sparse" \
+        else None
+    tops.butterfly_support(a, alive, backend=backend, blocks=blocks,
+                           kmax=kmax)
+    tpl.support_all(a, alive, ids, kmax, backend=backend, blocks=blocks)
+    b = a[:8]
+    tpl.support_delta(a, b, torch.ones(8), ids, ids[:8], kmax,
+                      None if kmax is None else kmax[:1], backend=backend,
+                      blocks=blocks)
+    tops.butterfly_update(a, b, torch.ones(8), ids, ids[:8],
+                          backend=backend, blocks=blocks)
+    assert seen == ["count", "count", "peel", "peel"]
+
+
+def test_peel_body_helpers_read_nothing_on_the_host():
+    """The host side of the peel launches (scratch sizing, kernel 6's row
+    windows, the scratch's allocation) reads no tensor's value: under a
+    dispatch mode that raises on every such read, with the operands of an
+    engine peel update."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class NoHostReads(TorchDispatchMode):
+        READS = ("aten::_local_scalar_dense", "aten::nonzero", "aten::item",
+                 "aten::is_nonzero")
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._schema.name in self.READS:
+                raise AssertionError(f"host read: {func}")
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.default_rng(3)
+    a = _t(_adj(rng, 300, 257))
+    with NoHostReads():
+        peel = torch.zeros(300, dtype=torch.bool)
+        peel[7] = True
+        order = torch.argsort((~peel).to(torch.int8), stable=True)[:128]
+        b = a[order]
+        n = tbf.peel_scratch_bytes(b.shape[0], a.shape[1])
+        scratch = torch.empty(n, dtype=torch.uint8)
+        windows, cap = tbt.peel_windows(300, 17, 16, 512, 4 * a.numel())
+        n6 = tbt.peel_scratch_bytes(cap, 16, 512)
+        scratch6 = torch.empty(n6, dtype=torch.uint8)
+    assert windows == [(0, 300)] and cap == 17
+    # flags (1 chunk x 9 stripes, 16-byte rounded) + s8 rows (128 x 288)
+    assert n == 48 + 128 * 9 * 32 and scratch.numel() == n
+    # count + row list (2 chunks x 16) + masks (2 x 16 x 1) + s8 rows
+    assert n6 == 16 + 128 + 128 + 2 * 16 * 16 * 512 and scratch6.numel() == n6
 
 
 def test_wrapper_checks_reject_bad_inputs():
@@ -427,3 +500,65 @@ def test_build_without_toolkit_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(ext, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="no CUDA toolkit"):
         _build.build_all()
+
+
+# ---------------------------------------------------------------------- #
+# the recounted peel bound of chip_smoke.py
+# ---------------------------------------------------------------------- #
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("extents", [False, True])
+@pytest.mark.parametrize("n_valid", [0, 1, 5])
+def test_peel_live_bound_matches_brute_force(n_valid, extents):
+    """The gathered peel form's recounted bound (``chip_smoke.
+    peel_live_work``) against a count over every (A row, gathered row,
+    column): 2 operations per (A row, valid gathered row, column) where
+    some valid row holds a nonzero and, with extents, the column lies
+    below the pair's bound min(kmax_a, kmax_b) * bk; bytes for each A
+    row's live columns below its farthest bound, the valid rows of B (a
+    row with s = 0 is never needed), s, A's ids and the valid rows' ids,
+    out and the extents.  Valid rows in no particular order (a non-prefix
+    mask), and invalid rows that keep their content."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(11 + n_valid)
+    n_a, n_b, n_v = 21, 9, 37
+    blocks = (4, 2, 8)
+    a = _adj(rng, n_a, n_v, density=0.2)
+    b = _adj(rng, n_b, n_v, density=0.15)
+    s = np.zeros(n_b, np.float32)
+    s[rng.choice(n_b, n_valid, replace=False)] = 1.0
+    ka = rng.integers(0, 6, -(-n_a // blocks[0])).astype(np.int32)
+    kb = rng.integers(0, 6, -(-n_b // blocks[1])).astype(np.int32)
+    live = (b[s != 0] != 0).any(axis=0)
+
+    def lim(i, j):
+        if not extents:
+            return n_v
+        return min(ka[i // blocks[0]], kb[j // blocks[1]]) * blocks[2]
+
+    ops = a_bytes = 0
+    for i in range(n_a):
+        reach = 0
+        for j in np.nonzero(s)[0]:
+            ops += 2 * sum(1 for c in range(n_v) if live[c] and c < lim(i, j))
+            reach = max(reach, lim(i, j))
+        a_bytes += 4 * sum(1 for c in range(n_v) if live[c] and c < reach)
+    want_bytes = a_bytes + 4.0 * (n_valid * n_v + n_b + n_valid + 2 * n_a)
+    if extents:
+        want_bytes += 4.0 * (ka.size + kb.size)
+    args = (torch, _t(a), _t(b), _t(s))
+    if extents:
+        args += (_t(ka), _t(kb), blocks)
+    got_ops, got_bytes, got_live = cs.peel_live_work(*args)
+    assert got_ops == ops
+    assert got_bytes == want_bytes
+    assert got_live == live.sum()

@@ -11,6 +11,7 @@ its plain version on the card by tests/test_torch_gpu.py.
 """
 import dataclasses
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -261,9 +262,60 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     tops.reset_launch_counts()
     s = torch.ones(targs[4].shape[0] * 8)
     tops.butterfly_update_tiled(*targs, s)
-    assert tops.launch_counts()["butterfly_update_tiled"] == 0
+    tops.butterfly_update_tiled(*targs, s, n_srows=s.numel())
+    counts = tops.launch_counts()
+    assert counts["butterfly_update_tiled[count]"] == 0
+    assert counts["butterfly_update_tiled[peel]"] == 0
     with pytest.raises(ValueError, match="CUDA tensors"):
         tops.butterfly_update_tiled(*targs, s, backend="cuda")
+
+
+@pytest.mark.parametrize("n_rows,n_srows,n_ct,bk,max_scratch", [
+    (6528, 1, 26, 512, 204_734_464),      # a sweep at full size: one window
+    (6528, 6486, 26, 512, 204_734_464),   # the count launch there: one too
+    (8192, 8192, 16, 512, 2_000_000),     # a sparse payload: windows
+    (100, 90, 3, 8, 1),                   # a cap below one chunk
+    (40, 0, 2, 64, 1000),                 # no peeled row
+])
+def test_peel_windows_bound_the_scratch(n_rows, n_srows, n_ct, bk,
+                                        max_scratch):
+    """Kernel 6's peel body runs over row windows that cover every row
+    once, in order, with a peeled-row cap no wider than a window; their
+    scratch stays within the cap whenever one chunk of 16 rows fits, and
+    there is one window whenever the scratch for every stated row fits."""
+    windows, cap = tk.peel_windows(n_rows, n_srows, n_ct, bk, max_scratch)
+    edges = [r for w in windows for r in w]
+    assert edges[0] == 0 and edges[-1] == n_rows
+    assert edges[1:-1:2] == edges[2:-1:2]          # each starts at the last end
+    assert all(r0 < r1 for r0, r1 in windows)
+    if tk.peel_scratch_bytes(n_srows, n_ct, bk) <= max_scratch:
+        assert windows == [(0, n_rows)] and cap == n_srows
+        return
+    width = windows[0][1]
+    assert width % 16 == 0 and cap == min(width, n_srows)
+    assert all(r1 - r0 <= width for r0, r1 in windows)
+    if tk.peel_scratch_bytes(16, n_ct, bk) <= max_scratch:
+        assert tk.peel_scratch_bytes(cap, n_ct, bk) <= max_scratch
+    else:
+        assert width == 16
+
+
+def test_tiled_engine_states_the_peel_set_size():
+    """The tiled engine hands kernel 6 the nonzero count of ``s`` it has
+    already read, for every sweep and for its count launch alike, so that
+    kernel 6 sizes its scratch without a read."""
+    seen = []
+
+    def spy(td, *args, backend=None, n_srows=None):
+        seen.append(n_srows)
+
+    # a stand-in for a CUDA payload: only its device is read
+    card_td = types.SimpleNamespace(device=torch.device("cuda"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tops, "butterfly_update_tiled", spy)
+        ttiled._tiled_update(card_td, (None,) * 4, None, None, 5, "cuda")
+        ttiled._tiled_update(card_td, (None,) * 4, None, None, 6486, "cuda")
+    assert seen == [5, 6486]
 
 
 def test_wrapper_checks_reject_bad_inputs():
@@ -390,3 +442,53 @@ def test_a_sweep_reads_only_through_fetch(regather_every, monkeypatch):
     assert per_sweep and set(per_sweep) == {1}
     assert stats.host_round_trips == len(fetches)
     assert len(fetches) == len(per_sweep) + stats.device_loop_calls
+
+
+def test_tiled_peel_live_bound_matches_brute_force():
+    """Kernel 6's recounted peel bound (``chip_smoke.tiled_peel_live_work``)
+    against a count over the dense matrix: 2 bi operations for each
+    (peeled row y, column c where y holds a nonzero in a live tile, live
+    slot of c's column band); bytes for every column where some peeled
+    row holds such a nonzero, bi rows of it in each live slot of its
+    column band, then s, out and the index arrays.  A dead slot and a
+    filler slot take part."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    g = _port_graph(GRAPH_CASES["powerlaw"]())
+    bi, bk = 8, 8
+    tg = TTiledGraph.from_graph(g, block_rows=bi, block_k=bk)
+    tg = TTiledGraph.from_graph(g, block_rows=bi, block_k=bk,
+                                pad_slots_to=tg.n_slots + 3)
+    td = torch.from_numpy(tg.tile_data.copy())
+    live = tk.slot_liveness(td)
+    live[int(np.argmax(tg.tile_data.reshape(tg.n_slots, -1).sum(1)))] = 0
+    pos = torch.from_numpy(tg.pos)
+    rng = np.random.default_rng(4)
+    ys = rng.choice(g.n_u, 5, replace=False)
+    s = torch.zeros(tg.rows_pad)
+    s[torch.from_numpy(ys)] = 1.0
+    n_rt, n_ct = tg.pos.shape
+    dense = np.zeros((tg.rows_pad, tg.cols_pad), np.float32)
+    for t in range(tg.n_slots):
+        if live[t]:
+            r, c = tg.srow[t], tg.scol[t]
+            dense[r * bi:(r + 1) * bi, c * bk:(c + 1) * bk] = tg.tile_data[t]
+    col_live = np.zeros(n_ct)
+    for t in range(tg.n_slots):
+        col_live[tg.scol[t]] += int(live[t])
+    ops = sum(2 * bi * col_live[c // bk] for y in ys
+              for c in range(tg.cols_pad) if dense[y, c] != 0)
+    cols = {c for y in ys for c in range(tg.cols_pad) if dense[y, c] != 0}
+    nbytes = (4.0 * bi * sum(col_live[c // bk] for c in cols)
+              + 4.0 * 2 * n_rt * bi
+              + 4.0 * (3 * tg.n_slots + n_rt + 1 + n_rt * n_ct))
+    got_ops, got_bytes = cs.tiled_peel_live_work(
+        torch, td, torch.from_numpy(tg.scol), pos, live, s)
+    assert got_ops == ops and got_bytes == nbytes
+    assert ops > 0
