@@ -14,16 +14,20 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    extents, the tiled kernel the tiled path's own slot list), then each
    one's time (CUDA events, warmed, over many launches), its bound
    (operations and bytes over the live stripes only, for the
-   stripe-skipping count forms, whose skipped share is printed; over the
-   live columns of the rows with mass for the peel forms of kernels 1, 4
-   and 6, with the earlier bound printed beside it), the plain version's
-   time and the time of the bare matrix product (product only, not the
-   same function).  The redesigned peel bodies are also held and timed
-   against the count body they replaced, on the same operands: kernel 1
-   at a 256-row CD update and at ParB's own shape (its unsorted matrix,
-   128 gathered rows, one valid), kernel 4 at the CD update, kernel 6 at
-   every alive row (its count launch, which takes the peel body too) and
-   at 1, 16, 64 and 256 peeled rows.  Times are device time per call (a
+   stripe-skipping forms, whose skipped share is printed; over each pair
+   of distinct rows with s mass once, for the symmetric count forms of
+   kernels 1 and 4; over the live columns of the rows with mass for the
+   peel forms of kernels 1, 4 and 6; the earlier bound printed beside
+   each redesigned form's), the plain version's time and the time of the
+   bare matrix product (product only, not the same function; for the
+   count forms also the int8 product of the s8 copy, ``torch._int_mm``).
+   The redesigned bodies are also held and timed against the body they
+   replaced, on the same operands: kernels 1 and 4 against their f32 tile
+   body at the counting form and at a 256-row CD update, kernel 1 also
+   at ParB's own shape (its unsorted matrix, 128 gathered rows, one
+   valid); kernel 6 against its count body at every alive row (its count
+   launch, which takes the peel body too) and at 1, 16, 64 and 256
+   peeled rows.  Times are device time per call (a
    CUDA graph of many calls, replayed between CUDA events); the new
    bodies' eager time, host enqueue included, and their launches' device
    times (profiler) are printed beside;
@@ -46,7 +50,8 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    float64 B2) on every path, the tiled path's sweeps must equal ParB's
    rounds, every kernel must have launched on at least one path, and
    each path's count and peel bodies on it (launches are counted per
-   body); then each path twice more, under ``torch.profiler`` (device
+   body), and no path may launch the f32 tile body of kernel 1 or 4 on
+   one graph; then each path twice more, under ``torch.profiler`` (device
    time by kernel, busy share of the wall) and ``cProfile`` (host time by
    function);
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
@@ -201,6 +206,46 @@ def peel_live_work(torch, a, b, s, kmax_a=None, kmax_b=None, blocks=None):
     nbytes = (4.0 * (a_cols + n_valid * n_v + n_b + n_valid + 2 * n_a)
               + ext_bytes)
     return ops, nbytes, n_live
+
+
+def count_pair_ops(torch, a, s, kmax=None, blocks=None):
+    """Operations the counting form of kernels 1 and 4 (B = A) needs,
+    whatever implements it: W = A A^T is symmetric, so each pair {i, j}
+    of distinct rows is needed once, and only when both rows hold a
+    nonzero (an all-zero row has W = 0 with every row) and s[i] or s[j]
+    is nonzero (a pair of rows without mass adds to neither out); 2
+    operations per live column of the pair, the columns where some row
+    with mass holds a nonzero (a pair with mass on j meets only j's
+    columns), over every column, or with the shared extents (square
+    tiles) only below min(kmax[i / bi], kmax[j / bi]) * bk.  Summed per
+    (row tile, row tile) pair: the ordered pairs of nonzero rows with
+    mass on a side, less the self-pairs on the diagonal, times the
+    pair's live columns."""
+    n, n_v = a.shape
+    held = a != 0
+    full = held.any(dim=1)                       # rows holding a nonzero
+    mass = full & (s != 0)
+    live = held[mass].any(dim=0)
+    cum = torch.zeros(n_v + 1, dtype=torch.float64, device=a.device)
+    cum[1:] = torch.cumsum(live.double(), dim=0)
+    if kmax is None:
+        bi = max(n, 1)
+        cols = torch.full((1,), n_v, dtype=torch.long, device=a.device)
+    else:
+        bi, _, bk = blocks
+        cols = (kmax.long() * bk).clamp(max=n_v)
+    n_t = -(-n // bi)
+
+    def per_tile(v):
+        v = torch.nn.functional.pad(v.double(), (0, n_t * bi - n))
+        return v.reshape(n_t, bi).sum(dim=1)
+
+    rows, heavy = per_tile(full), per_tile(mass)
+    idle = rows - heavy
+    pairs = rows[:, None] * rows[None, :] - idle[:, None] * idle[None, :]
+    pairs.diagonal().sub_(heavy)              # (i, i) with s[i] != 0
+    lim = cum[torch.minimum(cols[:, None], cols[None, :])]
+    return float((pairs * lim).sum())
 
 
 def tiled_peel_live_work(torch, td, scol, pos, live, s):
@@ -425,12 +470,13 @@ def main() -> int:
         return tile_bytes(reach_a, n_a, bi) + tile_bytes(reach_b, n_b, bj)
 
     def measure(key, kernel, plain, product, ops_, nbytes, reps, old=None,
-                old_bound=None):
+                old_bound=None, int8_product=None):
         """Hold ``kernel`` against ``plain`` (torch.equal) and time both and
         ``product``; with ``old`` (the body a redesigned form replaced, on
         the same operands) hold and time that too, in the same run, and
         print ``old_bound`` (ops, bytes), the bound as an earlier PR
-        counted it, beside the bound."""
+        counted it, beside the bound; with ``int8_product`` time that
+        product too (a yardstick only: the port never calls it)."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -448,10 +494,16 @@ def main() -> int:
         ms = time_ms(torch, kernel, reps)
         plain_ms = time_ms(torch, plain, max(3, reps // 4))
         prod_ms = time_ms(torch, product, reps)
+        int8_ms = (time_ms(torch, int8_product, reps) if int8_product
+                   else None)
         b_ms, b_by = bound(ops_, nbytes)
+        ob_ms, ob_by = (bound(*old_bound) if old_bound is not None
+                        else (None, None))
         results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by,
-                            product_only_ms=prod_ms, old_body_ms=old_ms)
+                            earlier_bound_ms=ob_ms,
+                            product_only_ms=prod_ms,
+                            int8_product_only_ms=int8_ms, old_body_ms=old_ms)
         extra = ""
         if old is not None:
             eager_ms = time_ms(torch, kernel, reps, eager=True)
@@ -460,23 +512,38 @@ def main() -> int:
                       f"included)={eager_ms:.4f} launches: "
                       + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
         if old_bound is not None:
-            ob_ms, ob_by = bound(*old_bound)
             extra += f" earlier_bound_ms={ob_ms:.6f} ({ob_by})"
+        if int8_ms is not None:
+            extra += (f" int8_mm_ms(torch._int_mm of the s8 copy, product "
+                      f"only)={int8_ms:.4f}")
         log(f"{key}: torch.equal=True ms={ms:.4f} bound_ms={b_ms:.6f} "
             f"({b_by}){extra} plain_ms={plain_ms:.4f} matmul_ms(product "
             f"only, not the same function)={prod_ms:.4f}")
 
-    # kernel 1, counting form at the full-size matrix (the count body)
+    # kernel 1, counting form at the full-size matrix: the count body
+    # (int8 wgmma over the tile pairs I <= J) against the tile body it
+    # replaced; bound over the pairs the symmetric form needs, the full
+    # square as the earlier bound; the int8 product of the s8 copy beside
+    # the f32 one
     a = dg.a
     n_a, n_v = a.shape
     alive = (torch.arange(n_a, device=dev) < dg.n_rows).float()
     ids = dg.ids
+    a8 = (a != 0).to(torch.int8)
+    bytes1c = 4.0 * (n_a * n_v + 3 * n_a)
+    log(f"butterfly_update[count]: {int((a != 0).any(dim=1).sum())} of "
+        f"{n_a} rows hold a nonzero, {int((a != 0).any(dim=0).sum())} of "
+        f"{n_v} columns")
     measure("butterfly_update[count]",
             lambda: bfly.butterfly_update(a, a, alive, ids, ids,
                                           body="count"),
             lambda: bfly.butterfly_update_plain(a, a, alive, ids, ids),
             lambda: torch.matmul(a, a.T),
-            2.0 * n_a * n_a * n_v, 4.0 * (n_a * n_v + 3 * n_a), reps=10)
+            count_pair_ops(torch, a, alive), bytes1c, reps=10,
+            old=lambda: bfly.butterfly_update(a, a, alive, ids, ids,
+                                              body="tile"),
+            old_bound=(2.0 * n_a * n_a * n_v, bytes1c),
+            int8_product=lambda: torch._int_mm(a8, a8.T))
     # kernel 1, a CD peel update: 256 gathered rows with global ids (the
     # peel body; the count body, which it replaced, on the same operands)
     n_peel, width = 240, 256
@@ -503,7 +570,7 @@ def main() -> int:
             lambda: bfly.butterfly_update_plain(a, a_peel, valid, ids, rows),
             lambda: torch.matmul(a, a_peel.T), ops1, bytes1, reps=50,
             old=lambda: bfly.butterfly_update(a, a_peel, valid, ids, rows,
-                                              body="count"),
+                                              body="tile"),
             old_bound=(2.0 * n_a * width * n_v,
                        4.0 * (n_a * n_v + width * n_v + 2 * width
                               + 2 * n_a)))
@@ -530,15 +597,18 @@ def main() -> int:
                                                 rows_p),
             lambda: torch.matmul(ap, ap_peel.T), opsp, bytesp, reps=200,
             old=lambda: bfly.butterfly_update(ap, ap_peel, valid_p, ids_p,
-                                              rows_p, body="count"),
+                                              rows_p, body="tile"),
             old_bound=(2.0 * n_ap * 128 * n_vp,
                        4.0 * (n_ap * n_vp + 128 * n_vp + 2 * 128
                               + 2 * n_ap)))
     del dgp, ap, ap_peel
-    # kernel 4, counting form at the full-size matrix, its real extents
+    # kernel 4, counting form at the full-size matrix, its real extents:
+    # the count body against the tile body, as for kernel 1
     kmax = dg.kmax
     ops4, skip = live_stripe_ops(kmax, kmax, n_v)
     log(f"butterfly_update_sparse[count]: {skip:.3f} of the stripes skipped")
+    bytes4c = (live_stripe_bytes(kmax, kmax, n_a, n_a, n_v, same=True)
+               + 4.0 * (3 * n_a + kmax.numel()))
     measure("butterfly_update_sparse[count]",
             lambda: bsp.butterfly_update_sparse(a, a, alive, ids, ids, kmax,
                                                 kmax, blocks=blocks,
@@ -546,8 +616,14 @@ def main() -> int:
             lambda: bsp.butterfly_update_sparse_plain(
                 a, a, alive, ids, ids, kmax, kmax, blocks=blocks),
             lambda: torch.matmul(a, a.T),
-            ops4, live_stripe_bytes(kmax, kmax, n_a, n_a, n_v, same=True)
-            + 4.0 * (3 * n_a + kmax.numel()), reps=10)
+            count_pair_ops(torch, a, alive, kmax, blocks), bytes4c,
+            reps=10,
+            old=lambda: bsp.butterfly_update_sparse(
+                a, a, alive, ids, ids, kmax, kmax, blocks=blocks,
+                body="tile"),
+            old_bound=(ops4, bytes4c),
+            int8_product=lambda: torch._int_mm(a8, a8.T))
+    del a8
     # kernel 4, a CD peel update: the same 256 gathered rows, B-side
     # extents gathered from the per-row extents (padding rows 0)
     kb_peel = bsp.gathered_tile_extents(dg.row_ext, rows, valid > 0, bj)
@@ -564,7 +640,7 @@ def main() -> int:
             lambda: torch.matmul(a, a_peel.T), ops4l, bytes4l, reps=50,
             old=lambda: bsp.butterfly_update_sparse(
                 a, a_peel, valid, ids, rows, kmax, kb_peel, blocks=blocks,
-                body="count"),
+                body="tile"),
             old_bound=(ops4p, live_stripe_bytes(kmax, kb_peel, n_a, width,
                                                 n_v)
                        + 4.0 * (2 * width + 2 * n_a + kmax.numel()
@@ -840,6 +916,12 @@ def main() -> int:
         if launches[pname]["butterfly_update_tiled[count]"]:
             raise AssertionError(f"full size {pname}: kernel 6's count body "
                                  "launched")
+        tile = [k for k in ("butterfly_update[tile]",
+                            "butterfly_update_sparse[tile]")
+                if launches[pname][k]]
+        if tile:
+            raise AssertionError(f"full size {pname}: the f32 tile body of "
+                                 f"{tile} launched on a 2-D operand")
     log("full size: kernel-1 launches by body (count, peel): "
         + ", ".join(f"{p_} ({launches[p_]['butterfly_update[count]']}, "
                     f"{launches[p_]['butterfly_update[peel]']})"
@@ -886,6 +968,7 @@ def main() -> int:
             " both exact")
 
     # ---- 7. kernel list ------------------------------------------------ #
+    count_cu = "src/repro_torch/kernels/csrc/butterfly_count.cu"
     k1 = ("src/repro_torch/kernels/csrc/butterfly_sparse.cu",
           "src/repro/kernels/butterfly.py:125")
     k4 = ("src/repro_torch/kernels/csrc/butterfly_sparse.cu",
@@ -894,7 +977,8 @@ def main() -> int:
           "src/repro/kernels/butterfly_tiled.py:259")
     # (launch key, phase-3 result, source, Pallas kernel replaced)
     table = [
-        ("butterfly_update[count]", "butterfly_update[count]", *k1),
+        ("butterfly_update[count]", "butterfly_update[count]", count_cu,
+         k1[1]),
         ("butterfly_update[peel]", "butterfly_update[peel]", *k1),
         ("butterfly_update[peel]", "butterfly_update[peel_parb]", *k1),
         ("butterfly_update_batched", "butterfly_update_batched",
@@ -904,7 +988,7 @@ def main() -> int:
          "src/repro_torch/kernels/csrc/b2_stack.cu",
          "src/repro/kernels/butterfly_sparse.py:420"),
         ("butterfly_update_sparse[count]", "butterfly_update_sparse[count]",
-         *k4),
+         count_cu, k4[1]),
         ("butterfly_update_sparse[peel]", "butterfly_update_sparse[peel]",
          *k4),
         ("butterfly_update_sparse_batched", "butterfly_update_sparse_batched",
@@ -922,7 +1006,9 @@ def main() -> int:
             launches_by_path=by_path, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
+            earlier_bound_ms=r["earlier_bound_ms"],
             product_only_ms=r["product_only_ms"],
+            int8_product_only_ms=r["int8_product_only_ms"],
             old_body_ms=r["old_body_ms"]))
     log(json.dumps({"kernels": kernels}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -26,7 +26,8 @@ __all__ = ["SOURCES", "build_dir", "nvcc_command", "build_all", "library",
            "ptr", "stream_of", "check_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("butterfly_sparse", "b2_stack", "butterfly_tiled")
+SOURCES = ("butterfly_count", "butterfly_sparse", "b2_stack",
+           "butterfly_tiled")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 
@@ -121,6 +122,10 @@ def library(name: str) -> ctypes.CDLL:
     if name == "b2_stack":
         lib.b2_stack_f32.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
         lib.b2_stack_f32.restype = i32
+    elif name == "butterfly_count":
+        lib.butterfly_count_f32.argtypes = (
+            [ptr] * 5 + [i32] * 4 + [ptr, i64, ptr])
+        lib.butterfly_count_f32.restype = i32
     elif name == "butterfly_sparse":
         lib.butterfly_update_sparse_f32.argtypes = (
             [ptr] * 8 + [i32] * 9 + [ptr])

@@ -13,28 +13,37 @@ section 2.1):
 ``ids_a`` / ``ids_b`` carry the row ids of each side so self-pairs (u, u)
 are excluded even when B holds gathered copies of A rows.
 
-Two kernels, both launches of ``csrc/butterfly_sparse.cu`` with no stripe
-extents (the source notes the Pallas kernels it replaces, what bounds it
-on the H100 and how it is built):
+Two kernels, launched with no stripe extents (each source notes the
+Pallas kernels it replaces, what bounds it on the H100 and how it is
+built):
 
 * ``butterfly_update``         kernel 1, one graph, global ids;
 * ``butterfly_update_batched`` kernel 2, a (G, ...) stack, local ids.
 
-Kernel 1 (and kernel 4, ``butterfly_sparse``) has two bodies, and the
-caller names one (``body``): the peel body (int8 tensor cores over only
-the stripes the rows with ``s`` mass touch), the default, for the
-gathered peel updates; the count body for counting and HUC recounts,
-where ``b`` is ``a`` and every row may carry ``s`` mass
-(``ops.butterfly_support``, the engine's ``support_all``).  Both compute
-the same function for any inputs.  Each body counts its launches under
-its own key, ``"<kernel>[count]"`` and ``"<kernel>[peel]"``; kernel 2
-always takes the count body.
+Kernel 1 (and kernel 4, ``butterfly_sparse``) has three bodies, and the
+caller names one (``body``):
+
+* ``"peel"``, the default, for the gathered peel updates: int8
+  ``mma.sync`` over only the stripes the rows with ``s`` mass touch
+  (``csrc/butterfly_sparse.cu``);
+* ``"count"`` for counting and HUC recounts (``ops.butterfly_support``,
+  the engine's ``support_all``): int8 ``wgmma`` fed by TMA over the tile
+  pairs I <= J of the symmetric W = A A^T (``csrc/butterfly_count.cu``).
+  It takes only that form: ``b`` must be ``a``, ``ids_b`` ``ids_a`` (and
+  kernel 4's ``kmax_b`` ``kmax_a``), the same storage, or it raises;
+* ``"tile"``, the f32 FMA tile (``csrc/butterfly_sparse.cu``,
+  ``wedge_tile.cuh``) that counted before the count body: the yardstick
+  the other two are timed against, and kernel 2's (and 5's) only body.
+
+Each body counts its launches under its own key,
+``"<kernel>[count]"``, ``"[peel]"`` and ``"[tile]"``.
 
 Each wrapper takes its plain version (beside it) for CPU tensors and
 launches its kernel for CUDA tensors, counting the launch in ``LAUNCHES``.
 There is no fallback from one to the other.  ``_launch`` is the one
 launch of those bodies, shared with the stripe-skipping kernels 4 and 5
-(``butterfly_sparse``).
+(``butterfly_sparse``); ``check_body`` holds a call to its body's form on
+every device.
 """
 from __future__ import annotations
 
@@ -46,6 +55,8 @@ from ._build import check_launch, ptr, stream_of
 __all__ = [
     "LAUNCHES",
     "BODIES",
+    "check_body",
+    "count_scratch_bytes",
     "peel_scratch_bytes",
     "butterfly_update",
     "butterfly_update_plain",
@@ -53,15 +64,49 @@ __all__ = [
     "butterfly_update_batched_plain",
 ]
 
-BODIES = ("count", "peel")
+BODIES = ("count", "peel", "tile")
 
 # launches of each kernel body (plain calls are not counted)
 LAUNCHES = {"butterfly_update[count]": 0, "butterfly_update[peel]": 0,
-            "butterfly_update_batched": 0}
+            "butterfly_update[tile]": 0, "butterfly_update_batched": 0}
 
 # the peel body's geometry (csrc/butterfly_sparse.cu: KS, PB)
 _STRIPE = 32
 _PEEL_CHUNK = 128
+# the count body's tile and K-stage (csrc/butterfly_count.cu: CT, CK)
+_COUNT_TILE = 128
+
+
+def count_scratch_bytes(n: int, n_v: int) -> int:
+    """Device scratch of the count body (``count_scratch_bytes`` of
+    ``csrc/butterfly_count.cu``): the s8 copy of A, zero-padded to
+    128-row tiles and a 128-byte column pitch."""
+    def pad(x):
+        return -(-x // _COUNT_TILE) * _COUNT_TILE
+    return pad(n) * pad(n_v)
+
+
+def _same(x, y) -> bool:
+    """The same storage seen the same way (no read of either tensor)."""
+    if x is None or y is None:
+        return x is y
+    return (x.data_ptr() == y.data_ptr() and x.shape == y.shape
+            and x.stride() == y.stride() and x.dtype == y.dtype
+            and x.device == y.device)
+
+
+def check_body(body, a, b, ids_a, ids_b, kmax_a=None, kmax_b=None):
+    """Raise unless ``body`` is one of ``BODIES`` and the operands are its
+    form: the count body takes only B = A (``b`` is ``a``, ``ids_b`` is
+    ``ids_a``, ``kmax_b`` is ``kmax_a``: the same storage)."""
+    if body not in BODIES:
+        raise ValueError(f"body {body!r}: one of {BODIES}")
+    if body == "count" and not (_same(a, b) and _same(ids_a, ids_b)
+                                and _same(kmax_a, kmax_b)):
+        raise ValueError(
+            "body 'count' is the counting form: b must be a, ids_b ids_a "
+            "and kmax_b kmax_a (the same storage); other operands take "
+            "body 'peel' or 'tile'")
 
 
 def peel_scratch_bytes(n_b: int, n_v: int) -> int:
@@ -119,14 +164,15 @@ def _check(a, b, s, ids_a, ids_b, *, batched: bool):
 
 
 def _launch(counts, name, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
-            blocks=(1, 1, 1), body="count"):
-    """Launch a wedge-update body of ``csrc/butterfly_sparse.cu`` on CUDA
-    operands and count it in ``counts``.  3-D operands (a stack, the group
-    is gridDim.z) take the count body, counted under ``name``; 2-D ones
-    (one graph) the ``body`` named, counted under ``name[body]``.  Without
-    extents every stripe is read (kernels 1 and 2); with
-    ``kmax_a``/``kmax_b`` of ``blocks`` row tiles the K loop stops at the
-    covering tiles' extents (kernels 4 and 5)."""
+            blocks=(1, 1, 1), body="tile"):
+    """Launch a wedge-update body on CUDA operands and count it in
+    ``counts``.  3-D operands (a stack, the group is gridDim.z) take the
+    tile body, counted under ``name``; 2-D ones (one graph) the ``body``
+    named, counted under ``name[body]``.  Without extents every stripe is
+    read (kernels 1 and 2); with ``kmax_a``/``kmax_b`` of ``blocks`` row
+    tiles the K loop stops at the covering tiles' extents (kernels 4 and
+    5; the count body takes square tiles, bi == bj).  The public wrappers
+    check the body's form first (``check_body``)."""
     if a.device.type != "cuda":
         raise ValueError(f"no butterfly kernel for device {a.device}")
     batched = a.dim() == 3
@@ -134,16 +180,28 @@ def _launch(counts, name, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
     skip = kmax_a is not None
     if skip != (kmax_b is not None):
         raise ValueError("kmax_a and kmax_b come together")
-    if body not in BODIES or (batched and body != "count"):
-        raise ValueError(f"body {body!r}: one of {BODIES}, 'count' for a "
-                         "stack")
+    if batched and body != "tile":
+        raise ValueError(f"body {body!r}: a stack takes the 'tile' body")
     key = name if batched else f"{name}[{body}]"
     bi, bj, bk = (int(x) for x in blocks)
+    if body == "count" and skip and bi != bj:
+        raise ValueError(f"the count body's extents need square tiles, got "
+                         f"blocks {tuple(blocks)}")
     g_n = a.shape[0] if batched else 1
     n_a, n_v = a.shape[-2:]
     n_b = b.shape[-2]
     out = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
     if not (g_n and n_a and n_b and n_v):
+        return out
+    if body == "count":
+        n_scratch = count_scratch_bytes(n_a, n_v)
+        # the s8 copy of A; freed on return, as the peel body's scratch
+        scratch = torch.empty(n_scratch, dtype=torch.uint8, device=a.device)
+        check_launch(_build.library("butterfly_count").butterfly_count_f32(
+            ptr(a), ptr(s), ptr(ids_a), ptr(kmax_a) if skip else None,
+            ptr(out), n_a, n_v, bi, bk, ptr(scratch), n_scratch,
+            stream_of(a)), key)
+        counts[key] += 1
         return out
     lib = _build.library("butterfly_sparse")
     extents = ((ptr(kmax_a), ptr(kmax_b)) if skip else (None, None))
@@ -169,7 +227,9 @@ def _launch(counts, name, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
 def butterfly_update(a, b, s, ids_a, ids_b, *, body="peel"):
     """Kernel 1.  a (n_a, n_v) f32 0/1, b (n_b, n_v), s (n_b,) f32,
     ids_a (n_a,) / ids_b (n_b,) int32; returns out (n_a,) f32.  ``body``
-    (``"peel"`` or ``"count"``) is the body launched on CUDA tensors."""
+    (one of ``BODIES``) is the body launched on CUDA tensors; its form is
+    checked on every device."""
+    check_body(body, a, b, ids_a, ids_b)
     if a.device.type == "cpu":
         return butterfly_update_plain(a, b, s, ids_a, ids_b)
     return _launch(LAUNCHES, "butterfly_update", a, b, s, ids_a, ids_b,

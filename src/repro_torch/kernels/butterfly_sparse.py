@@ -11,8 +11,9 @@ them.  This module holds the extent helpers (``row_extents``,
 
 * ``butterfly_update_sparse``  kernel 4 (``csrc/butterfly_sparse.cu``):
   ``out[i] = sum_{j: ids_b[j] != ids_a[i]} s[j] * C((A B^T)[i, j], 2)``
-  with the stripe skip, one graph, global ids; kernel 1's count and peel
-  bodies (the caller names one, as for kernel 1) with the extents' bound;
+  with the stripe skip, one graph, global ids; kernel 1's count, peel and
+  tile bodies (the caller names one, as for kernel 1) with the extents'
+  bound;
 * ``butterfly_update_sparse_batched``  kernel 5 (same source): the same
   over a (G, ...) stack, local ids, one staircase per group member;
 * ``b2_stack``  kernel 3 (``csrc/b2_stack.cu``):
@@ -53,9 +54,10 @@ __all__ = [
 ]
 
 # launches of each kernel body (plain calls are not counted); kernel 4
-# has kernel 1's two bodies
+# has kernel 1's three bodies
 LAUNCHES = {"butterfly_update_sparse[count]": 0,
             "butterfly_update_sparse[peel]": 0,
+            "butterfly_update_sparse[tile]": 0,
             "butterfly_update_sparse_batched": 0, "b2_stack": 0}
 
 
@@ -188,7 +190,7 @@ def _check_extents(a, b, kmax_a, kmax_b, blocks):
 
 
 def _launch_sparse(name, a, b, s, ids_a, ids_b, kmax_a, kmax_b, blocks,
-                   body="count"):
+                   body="tile"):
     """Kernels 4 and 5: the wedge-update launch with stripe extents."""
     if a.device.type != "cuda":
         raise ValueError(f"no butterfly kernel for device {a.device}")
@@ -202,8 +204,10 @@ def butterfly_update_sparse(a, b, s, ids_a, ids_b, kmax_a, kmax_b, *,
     """Kernel 4.  a (n_a, n_v) f32 0/1, b (n_b, n_v), s (n_b,) f32,
     ids_a (n_a,) / ids_b (n_b,) int32, kmax_a (ceil(n_a/bi),) and
     kmax_b (ceil(n_b/bj),) int32 stripe extents of ``blocks = (bi, bj,
-    bk)`` row tiles; returns out (n_a,) f32.  ``body`` (``"peel"`` or
-    ``"count"``) is the body launched on CUDA tensors, as for kernel 1."""
+    bk)`` row tiles; returns out (n_a,) f32.  ``body`` (one of
+    ``butterfly.BODIES``) is the body launched on CUDA tensors, as for
+    kernel 1; its form is checked on every device."""
+    _bfly.check_body(body, a, b, ids_a, ids_b, kmax_a, kmax_b)
     if a.device.type == "cpu":
         return butterfly_update_sparse_plain(a, b, s, ids_a, ids_b, kmax_a,
                                              kmax_b, blocks=blocks)

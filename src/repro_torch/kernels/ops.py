@@ -150,13 +150,20 @@ def _full_extents(lead, n_rows: int, block_rows: int, n_v: int, block_k: int,
 
 
 def _sparse_extents(a, b, kmax_a, kmax_b, blocks):
+    """The extents of both sides as int32, full ones where none is given;
+    the counting form (``b`` is ``a``, ``kmax_b`` is ``kmax_a``, square
+    tiles) keeps one tensor for both."""
     bi, bj, bk = blocks
     lead, n_v = tuple(a.shape[:-2]), a.shape[-1]
+    shared = b is a and kmax_b is kmax_a and bi == bj
     if kmax_a is None:
         kmax_a = _full_extents(lead, a.shape[-2], bi, n_v, bk, a.device)
+    kmax_a = _i32(kmax_a)
+    if shared:
+        return kmax_a, kmax_a
     if kmax_b is None:
         kmax_b = _full_extents(lead, b.shape[-2], bj, n_v, bk, a.device)
-    return _i32(kmax_a), _i32(kmax_b)
+    return kmax_a, _i32(kmax_b)
 
 
 def butterfly_update(a, b, s, ids_a, ids_b, *, backend=None,
@@ -168,11 +175,15 @@ def butterfly_update(a, b, s, ids_a, ids_b, *, backend=None,
     sparse backends, which read the row-tile extents ``kmax_a``
     ((ceil(n_a/bi),) int32) and ``kmax_b`` ((ceil(n_b/bj),)).  ``body``
     is the kernel body on the card: ``"peel"`` for a gathered peel update,
-    ``"count"`` for counting and HUC recounts (B is A, every row may carry
-    ``s`` mass).
+    ``"count"`` for counting and HUC recounts (``b`` is ``a``, ``ids_b``
+    is ``ids_a`` and ``kmax_b`` is ``kmax_a``; every row may carry ``s``
+    mass), ``"tile"`` the f32 yardstick body.  A tensor passed for both
+    sides stays one tensor through the conversions.
     """
     backend = resolve_backend(backend, a.device)
-    args = (_f32(a), _f32(b), _f32(s), _i32(ids_a), _i32(ids_b))
+    a32, ids_a32 = _f32(a), _i32(ids_a)
+    args = (a32, a32 if b is a else _f32(b), _f32(s), ids_a32,
+            ids_a32 if ids_b is ids_a else _i32(ids_b))
     if backend in SPARSE_BACKENDS:
         return _sparse.butterfly_update_sparse(
             *args, *_sparse_extents(a, b, kmax_a, kmax_b, blocks),

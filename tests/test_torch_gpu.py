@@ -54,12 +54,12 @@ def test_kernels_equal_plain(card, n_a, n_b, n_v):
     want = bfly.butterfly_update_plain(a, b, valid, ids, rows)
     assert torch.equal(bfly.butterfly_update(a, b, valid, ids, rows), want)
     assert torch.equal(bfly.butterfly_update(a, b, valid, ids, rows,
-                                             body="count"), want)
-    # the counting form through both bodies (the peel body is right for
-    # any operands, s = alive of every row included)
+                                             body="tile"), want)
+    # the counting form through every body (the peel and tile bodies are
+    # right for any operands, s = alive of every row included)
     alive = (torch.rand(n_a, generator=gen) < 0.8).float().to(card)
     want = bfly.butterfly_update_plain(a, a, alive, ids, ids)
-    for body in ("count", "peel"):
+    for body in ("count", "peel", "tile"):
         assert torch.equal(bfly.butterfly_update(a, a, alive, ids, ids,
                                                  body=body), want)
     a3 = _adj(gen, 3, n_a, n_v).to(card)
@@ -105,10 +105,19 @@ def test_sparse_kernels_equal_plain(card, n_a, n_b, n_v, blocks):
     want = bsp.butterfly_update_sparse_plain(*args1, blocks=blocks)
     assert torch.equal(bsp.butterfly_update_sparse(*args1, blocks=blocks),
                        want)
-    for body in ("count", "peel"):
+    for body in ("peel", "tile"):
         assert torch.equal(bsp.butterfly_update_sparse(*args1, blocks=blocks,
                                                        body=body), want)
     assert torch.equal(want, bfly.butterfly_update_plain(*args1[:5]))
+    # the counting form of the same staircase, its shared extents
+    a0, k0 = a3[0], ka[0].contiguous()
+    s0 = (torch.rand(n_a, generator=gen) < 0.7).float().to(card)
+    want = bsp.butterfly_update_sparse_plain(a0, a0, s0, ids3[0], ids3[0],
+                                             k0, k0, blocks=blocks)
+    for body in ("count", "peel", "tile"):
+        assert torch.equal(bsp.butterfly_update_sparse(
+            a0, a0, s0, ids3[0], ids3[0], k0, k0, blocks=blocks, body=body),
+            want)
     torch.cuda.synchronize()
 
 
@@ -137,7 +146,7 @@ def test_peel_body_equals_plain(card, n_a, n_b, n_v, n_valid):
     """Kernel 1's peel body (int8 tensor cores over the live stripes) on
     ragged shapes (n_a, n_b, n_v not multiples of 16, 8 or 32; rows of
     129 floats are not 16-byte aligned), every count of valid rows up to
-    n_b, and against the count body it replaced; then kernel 4's
+    n_b, and against the tile body it replaced; then kernel 4's
     instantiation with full extents.  Each launch is counted under its
     own body's key only."""
     gen = torch.Generator().manual_seed(n_a + n_v + n_valid)
@@ -145,7 +154,7 @@ def test_peel_body_equals_plain(card, n_a, n_b, n_v, n_valid):
     want = bfly.butterfly_update_plain(*args)
     ops.reset_launch_counts()
     assert torch.equal(bfly.butterfly_update(*args), want)
-    assert torch.equal(bfly.butterfly_update(*args, body="count"), want)
+    assert torch.equal(bfly.butterfly_update(*args, body="tile"), want)
     bk = 32
     ka = torch.full((-(-n_a // 16),), -(-n_v // bk), dtype=torch.int32,
                     device=card)
@@ -156,9 +165,98 @@ def test_peel_body_equals_plain(card, n_a, n_b, n_v, n_valid):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts["butterfly_update[peel]"] == 1
-    assert counts["butterfly_update[count]"] == 1
+    assert counts["butterfly_update[tile]"] == 1
     assert counts["butterfly_update_sparse[peel]"] == 1
     assert sum(counts.values()) == 3
+
+
+def _count_operands(gen, card, n, n_v):
+    """A counting form as hard as the engine's can be: a degree-sorted
+    staircase with all-zero rows, s with zeros (dead rows on both sides
+    of a tile pair), distinct ids that are not the row positions."""
+    cut = torch.randint(0, n_v + 1, (n, 1), generator=gen).sort(
+        dim=0, descending=True).values
+    a = _adj(gen, n, n_v) * (torch.arange(n_v) < cut)
+    a[torch.rand(n, generator=gen) < 0.1] = 0.0
+    s = (torch.rand(n, generator=gen) < 0.7).float()
+    ids = (torch.randperm(n, generator=gen) + 5).to(torch.int32)
+    return a.to(card), s.to(card), ids.to(card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_v", [1, 33, 777, 4097])
+@pytest.mark.parametrize("n", [1, 127, 129, 300, 1024])
+def test_count_body_equals_plain(card, n, n_v):
+    """The count body of kernels 1 and 4 (int8 wgmma over the 128-row
+    tile pairs I <= J, fed by TMA) against the plain versions on ragged
+    shapes (n and n_v not multiples of 128; rows of 33 or 777 floats are
+    not 16-byte aligned); then kernel 4's instantiation with the
+    staircase's own extents at bi = 8, 16 and 128 (tiles that divide the
+    body's 128 rows or are them) and bk = 16, 64, 512.  Each launch is
+    counted under the count key only."""
+    gen = torch.Generator().manual_seed(7 * n + n_v)
+    a, s, ids = _count_operands(gen, card, n, n_v)
+    want = bfly.butterfly_update_plain(a, a, s, ids, ids)
+    ops.reset_launch_counts()
+    assert torch.equal(bfly.butterfly_update(a, a, s, ids, ids,
+                                             body="count"), want)
+    for bi, bk in ((8, 16), (16, 64), (128, 512)):
+        blocks = (bi, bi, bk)
+        kmax = bsp.column_extents(a, bi, bk).to(torch.int32).contiguous()
+        assert torch.equal(bsp.butterfly_update_sparse_plain(
+            a, a, s, ids, ids, kmax, kmax, blocks=blocks), want)
+        assert torch.equal(bsp.butterfly_update_sparse(
+            a, a, s, ids, ids, kmax, kmax, blocks=blocks, body="count"),
+            want)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["butterfly_update[count]"] == 1
+    assert counts["butterfly_update_sparse[count]"] == 3
+    assert sum(counts.values()) == 4
+
+
+@pytest.mark.gpu
+def test_count_body_rejects_other_operands(card):
+    """``body="count"`` with B not A (a copy, a slice, other ids or
+    other extents) raises before any launch; it is never rerouted."""
+    gen = torch.Generator().manual_seed(2)
+    a, s, ids = _count_operands(gen, card, 200, 300)
+    k = bsp.column_extents(a, 16, 32).to(torch.int32).contiguous()
+    ops.reset_launch_counts()
+    for args in ((a, a.clone(), s, ids, ids), (a, a, s, ids, ids.clone()),
+                 (a, a[:100], s[:100], ids, ids[:100])):
+        with pytest.raises(ValueError, match="counting form"):
+            bfly.butterfly_update(*args, body="count")
+    with pytest.raises(ValueError, match="counting form"):
+        bsp.butterfly_update_sparse(a, a, s, ids, ids, k, k.clone(),
+                                    blocks=(16, 16, 32), body="count")
+    assert sum(ops.launch_counts().values()) == 0
+
+
+@pytest.mark.gpu
+def test_each_body_counts_only_its_own_launches(card):
+    """Kernels 1 and 4 count each body's launches under its own key
+    (``[count]``, ``[peel]``, ``[tile]``), and every body gives the plain
+    version's bits on the counting form."""
+    gen = torch.Generator().manual_seed(3)
+    a, s, ids = _count_operands(gen, card, 300, 1000)
+    blocks = (16, 16, 32)
+    k = bsp.column_extents(a, 16, 32).to(torch.int32).contiguous()
+    want = bfly.butterfly_update_plain(a, a, s, ids, ids)
+    ops.reset_launch_counts()
+    times = {"count": 1, "peel": 2, "tile": 3}
+    for body, reps in times.items():
+        for _ in range(reps):
+            assert torch.equal(bfly.butterfly_update(a, a, s, ids, ids,
+                                                     body=body), want)
+            assert torch.equal(bsp.butterfly_update_sparse(
+                a, a, s, ids, ids, k, k, blocks=blocks, body=body), want)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for body, reps in times.items():
+        assert counts[f"butterfly_update[{body}]"] == reps
+        assert counts[f"butterfly_update_sparse[{body}]"] == reps
+    assert sum(counts.values()) == 2 * sum(times.values())
 
 
 @pytest.mark.gpu

@@ -7,6 +7,8 @@ The f32 integer regime (DESIGN.md section 8) makes the comparison exact,
 so the tolerance is zero.  The CUDA kernels are held against the plain
 versions on the card by tests/test_torch_gpu.py.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -384,9 +386,11 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
         torch.ones(16))
     assert tops.launch_counts() == {"butterfly_update[count]": 0,
                                     "butterfly_update[peel]": 0,
+                                    "butterfly_update[tile]": 0,
                                     "butterfly_update_batched": 0,
                                     "butterfly_update_sparse[count]": 0,
                                     "butterfly_update_sparse[peel]": 0,
+                                    "butterfly_update_sparse[tile]": 0,
                                     "butterfly_update_sparse_batched": 0,
                                     "b2_stack": 0,
                                     "butterfly_update_tiled[count]": 0,
@@ -398,13 +402,19 @@ def test_callers_name_the_wedge_body(backend, monkeypatch):
     """Kernels 1 and 4 launch the body their caller names: the count body
     for counting (``ops.butterfly_support``) and for the engine's
     initial counts and HUC recounts (``support_all``), the peel body for
-    the engine's peel updates (``support_delta``) and by default."""
+    the engine's peel updates (``support_delta``) and by default, the
+    tile body (the f32 yardstick) only when named.  The counting form
+    reaches the wrapper with one tensor for both sides (and one extent
+    tensor), as the count body requires."""
     from repro_torch.core.engine import peel_loop as tpl
 
     seen = []
 
     def spy(a, b, s, ids_a, ids_b, *extents, blocks=None, body):
         seen.append(body)
+        if body == "count":
+            assert b is a and ids_b is ids_a
+            assert not extents or extents[1] is extents[0]
         return torch.zeros(a.shape[0])
 
     monkeypatch.setattr(tbf, "butterfly_update", spy)
@@ -424,7 +434,141 @@ def test_callers_name_the_wedge_body(backend, monkeypatch):
                       blocks=blocks)
     tops.butterfly_update(a, b, torch.ones(8), ids, ids[:8],
                           backend=backend, blocks=blocks)
-    assert seen == ["count", "count", "peel", "peel"]
+    tops.butterfly_update(a, b, torch.ones(8), ids, ids[:8],
+                          backend=backend, blocks=blocks, body="tile")
+    # the counting form with no extents given and an operand to convert
+    tops.butterfly_support(a.double(), alive, backend=backend, blocks=blocks)
+    assert seen == ["count", "count", "peel", "peel", "tile", "count"]
+
+
+def test_count_body_takes_only_the_counting_form():
+    """``body="count"`` holds on every device: B must be A, ids_b ids_a
+    and kmax_b kmax_a, the same storage (a view of the same elements
+    counts, a copy does not); anything else raises, it is never rerouted.
+    An unknown body raises too."""
+    rng = np.random.default_rng(9)
+    a = _t(_adj(rng, 16, 12))
+    ids = torch.arange(16, dtype=torch.int32)
+    s = torch.ones(16)
+    k = torch.full((2,), 2, dtype=torch.int32)
+    want = tbf.butterfly_update_plain(a, a, s, ids, ids)
+    assert torch.equal(tbf.butterfly_update(a, a, s, ids, ids, body="count"),
+                       want)
+    assert torch.equal(tbf.butterfly_update(a, a[:], s, ids, ids,
+                                            body="count"), want)
+    assert torch.equal(tbs.butterfly_update_sparse(
+        a, a, s, ids, ids, k, k, blocks=(8, 8, 8), body="count"), want)
+    for args in ((a, a.clone(), s, ids, ids), (a, a, s, ids, ids.clone()),
+                 (a, a[:8], s[:8], ids, ids[:8])):
+        with pytest.raises(ValueError, match="counting form"):
+            tbf.butterfly_update(*args, body="count")
+    with pytest.raises(ValueError, match="counting form"):
+        tbs.butterfly_update_sparse(a, a, s, ids, ids, k, k.clone(),
+                                    blocks=(8, 8, 8), body="count")
+    with pytest.raises(ValueError, match="body"):
+        tbf.butterfly_update(a, a, s, ids, ids, body="dense")
+    for body in ("peel", "tile"):
+        assert torch.equal(tbf.butterfly_update(a, a.clone(), s, ids, ids,
+                                                body=body), want)
+
+
+# ---------------------------------------------------------------------- #
+# the count body's split (csrc/butterfly_count.cu) in plain PyTorch
+# ---------------------------------------------------------------------- #
+def _count_split(a, s, ids, tile, kmax=None, blocks=None):
+    """The count body's arithmetic at ``tile`` rows a tile (128 on the
+    card): the pre-pass keeps row tile R's columns below kcut_R = the
+    covering extent of its rows (``kmax`` of ``blocks`` tiles, which
+    need not divide ``tile``) times bk, else n_v; only the tile pairs
+    I <= J are multiplied; C(W, 2) in the reference's order, the not-self
+    mask on the ids; a pair adds its rows' sums weighted by s[j] into
+    out[I rows] and, off the diagonal, its columns' sums weighted by s[i]
+    into out[J rows].  Integer-valued f32 sums, as the kernel's."""
+    n, n_v = a.shape
+    n_t = -(-n // tile)
+    rows = [slice(t * tile, min(t * tile + tile, n)) for t in range(n_t)]
+    a8 = torch.zeros(n, n_v, dtype=torch.int64)
+    for r in rows:
+        kcut = n_v
+        if kmax is not None:
+            bi, _, bk = blocks
+            cover = kmax[r.start // bi: (r.stop - 1) // bi + 1]
+            kcut = min(int(cover.max()) * bk, n_v)
+        a8[r, :kcut] = (a[r, :kcut] != 0).to(torch.int64)
+    out = torch.zeros(n)
+    for j in range(n_t):
+        rj = rows[j]
+        for i in range(j + 1):
+            ri = rows[i]
+            w = (a8[ri] @ a8[rj].T).to(torch.float32)
+            b2 = torch.where(ids[ri][:, None] != ids[rj][None, :],
+                             w * (w - 1.0) * 0.5, 0.0)
+            out[ri] += (b2 * s[rj][None, :]).sum(dim=1)
+            if i != j:
+                out[rj] += (b2 * s[ri][:, None]).sum(dim=0)
+    return out
+
+
+# the reference's staircase count at its own (16, 16, 16) tiles, padded as
+# its Pallas entry points need, once per graph: the interpreter is slow
+_REF_BLOCKS = (16, 16, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_counts(case):
+    from conftest import GRAPH_CASES
+
+    a = GRAPH_CASES[case]().relabel_by_degree().dense()
+    n = a.shape[0]
+    s = (np.random.default_rng(n).random(n) < 0.7).astype(np.float32)
+    bi, _, bk = _REF_BLOCKS
+    a_pad = np.zeros((-(-n // bi) * bi, -(-a.shape[1] // bk) * bk),
+                     np.float32)
+    a_pad[:n, :a.shape[1]] = a
+    s_pad = np.zeros(a_pad.shape[0], np.float32)
+    s_pad[:n] = s
+    kmax = tbs.column_extents(_t(a_pad), bi, bk)
+    xla = np.asarray(jops.butterfly_support(jnp.asarray(a), jnp.asarray(s),
+                                            backend="xla"))
+    sparse = np.asarray(jops.butterfly_support(
+        jnp.asarray(a_pad), jnp.asarray(s_pad), backend="interpret_sparse",
+        blocks=_REF_BLOCKS, kmax=jnp.asarray(kmax.numpy())))[:n]
+    return a, s, xla, sparse
+
+
+@pytest.mark.parametrize("extents", [None, (8, 8, 8), (12, 12, 4)])
+@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("case", ["fig1", "er_small", "er_dense", "powerlaw",
+                                  "vhub", "empty_edges", "single_bfly",
+                                  "star"])
+def test_count_split_matches_plain_and_reference(case, tile, extents):
+    """The count body's split (upper-triangle tile pairs, row plus column
+    sums, self-exclusion on the ids) bit-identical to kernel 1's plain
+    version, to kernel 4's with the same extents, and to the reference's
+    counting form (``xla``; ``interpret_sparse``, the Pallas staircase
+    kernel under the interpreter); on the degree-sorted GRAPH_CASES with
+    ~30% dead rows in s, extents of tiles that do not divide the count
+    tile among them (12 rows against 8 and 16)."""
+    a_np, s_np, xla, sparse = _reference_counts(case)
+    a, s = _t(a_np), _t(s_np)
+    n = a.shape[0]
+    ids = torch.arange(n, dtype=torch.int32)
+    kmax = None
+    if extents is not None:
+        kmax = tbs.column_extents(a, extents[0], extents[2])
+    got = _count_split(a, s, ids, tile, kmax, extents)
+    want = tbf.butterfly_update_plain(a, a, s, ids, ids)
+    assert torch.equal(got, want)
+    if extents is not None:
+        assert torch.equal(got, tbs.butterfly_update_sparse_plain(
+            a, a, s, ids, ids, kmax, kmax, blocks=extents))
+        via_ops = tops.butterfly_support(a, s, backend="torch_sparse",
+                                         blocks=extents, kmax=kmax)
+    else:
+        via_ops = tops.butterfly_support(a, s, backend="torch")
+    assert torch.equal(via_ops, want)
+    np.testing.assert_array_equal(got.numpy(), xla)
+    np.testing.assert_array_equal(got.numpy(), sparse)
 
 
 def test_peel_body_helpers_read_nothing_on_the_host():
@@ -562,3 +706,44 @@ def test_peel_live_bound_matches_brute_force(n_valid, extents):
     assert got_ops == ops
     assert got_bytes == want_bytes
     assert got_live == live.sum()
+
+
+@pytest.mark.parametrize("extents", [None, (4, 4, 8), (5, 5, 3)])
+@pytest.mark.parametrize("dead", [0, 7, 23])
+def test_count_triangle_bound_matches_brute_force(dead, extents):
+    """The counting form's triangle bound (``chip_smoke.count_pair_ops``)
+    against a count over every ordered pair of distinct rows that both
+    hold a nonzero, with s mass on a side: 2 operations per unordered
+    pair and live column (one some row with mass holds a nonzero in),
+    over every column or below the pair's bound min(kmax[i / bi],
+    kmax[j / bi]) * bk (clipped at n_v); all-zero rows (padding), an
+    all-zero column band and dead rows at random positions, a ragged
+    last row tile."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(5 + dead)
+    n, n_v = 23, 37
+    a = (rng.random((n, n_v)) < 0.3).astype(np.float32)
+    a[rng.choice(n, 6, replace=False)] = 0.0
+    a[n - 3:] = 0.0
+    a[:, 9:13] = 0.0
+    s = np.ones(n, np.float32)
+    s[rng.choice(n, dead, replace=False)] = 0.0
+    live = (a[s != 0] != 0).any(axis=0)
+    full = (a != 0).any(axis=1)
+    kmax = None
+    if extents is not None:
+        bi, _, bk = extents
+        kmax = rng.integers(0, 7, -(-n // bi)).astype(np.int32)
+
+    def cols(i, j):
+        if kmax is None:
+            lim = n_v
+        else:
+            lim = min(min(kmax[i // bi], kmax[j // bi]) * bk, n_v)
+        return int(live[:lim].sum())
+
+    ops = sum(cols(i, j) for i in range(n) for j in range(n)
+              if i != j and full[i] and full[j] and (s[i] or s[j]))
+    got = cs.count_pair_ops(torch, _t(a), _t(s),
+                            None if kmax is None else _t(kmax), extents)
+    assert got == ops
