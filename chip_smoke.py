@@ -25,8 +25,12 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    replaced, on the same operands: kernels 1 and 4 against their f32 tile
    body at the counting form and at a 256-row CD update, kernel 1 also
    at ParB's own shape (its unsorted matrix, 128 gathered rows, one
-   valid); kernel 6 against its count body at every alive row (its count
-   launch, which takes the peel body too) and at 1, 16, 64 and 256
+   valid); kernels 2, 3 and 5 against their f32 tile bodies at FD's
+   (16, 1024, 1024) stack (bounds per group over the live columns of
+   the valid rows for 2 and 5, over the distinct nonzero row pairs for
+   3), then held on ragged (3, 777, 1000) stacks, kernel 3 also at
+   bi != bj; kernel 6 against its count body at every alive row (its
+   count launch, which takes the peel body too) and at 1, 16, 64 and 256
    peeled rows.  Times are device time per call (a
    CUDA graph of many calls, replayed between CUDA events); the new
    bodies' eager time, host enqueue included, and their launches' device
@@ -49,11 +53,13 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    just after it.  Theta must equal one exact oracle (Alg. 2 on a scipy
    float64 B2) on every path, the tiled path's sweeps must equal ParB's
    rounds, every kernel must have launched on at least one path, and
-   each path's count and peel bodies on it (launches are counted per
-   body), and no path may launch the f32 tile body of kernel 1 or 4 on
-   one graph; then each path twice more, under ``torch.profiler`` (device
-   time by kernel, busy share of the wall) and ``cProfile`` (host time by
-   function);
+   each path's count and peel bodies on it, and its stack bodies of
+   kernels 2, 3 and 5 (launches are counted per body), and no path may
+   launch an f32 tile body; the (G, m, n_v) of every call of kernels 2,
+   3 and 5 is logged; then each path twice more, under
+   ``torch.profiler`` (device time by kernel, busy share of the wall, and
+   the device time of each call of kernels 2, 3 and 5) and ``cProfile``
+   (host time by function);
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
    on the sp_mid and sp_large graphs of the reference's benchmark ladder
@@ -147,8 +153,7 @@ def kernel_device_ms(torch, fn, calls: int = 5) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
+        us = e.self_device_time_total
         if e.device_type == DeviceType.CUDA and us > 0:
             hit = re.search(r"\w+_kernel\w*", e.key)
             name = hit.group(0) if hit else e.key[:40]
@@ -248,6 +253,53 @@ def count_pair_ops(torch, a, s, kmax=None, blocks=None):
     return float((pairs * lim).sum())
 
 
+def stack_peel_live_work(torch, a, b, s, kmax_a=None, kmax_b=None,
+                         blocks=None):
+    """Operations and bytes the stack form of kernels 2 and 5 needs,
+    whatever implements it: each group g is an independent gathered peel
+    update, so the stack needs the sum over the groups of what
+    ``peel_live_work`` counts for (a[g], b[g], s[g]) and, with extents,
+    the group's own (kmax_a[g], kmax_b[g]).  Returns (operations,
+    bytes)."""
+    ops = nbytes = 0.0
+    for g in range(a.shape[0]):
+        ext = () if kmax_a is None else (kmax_a[g], kmax_b[g], blocks)
+        o, n, _ = peel_live_work(torch, a[g], b[g], s[g], *ext)
+        ops += o
+        nbytes += n
+    return ops, nbytes
+
+
+def b2_pair_ops(torch, a, kmax_a=None, kmax_b=None, blocks=None):
+    """Operations kernel 3 needs, whatever implements it: out[g] =
+    C(W_g, 2) with W_g = A_g A_g^T symmetric, so each pair {x, y} of
+    distinct rows of a group is needed once, and only when both rows hold
+    a nonzero (an all-zero row has W = 0 with every row); 2 operations
+    per live column of the pair: a column some row of the group holds a
+    nonzero in, below min(lim_x, lim_y), where lim_x is row x's tighter
+    extent min(kmax_a[x / bi], kmax_b[x / bj]) * bk (both are upper
+    bounds; every column without extents)."""
+    g_n, m, n_v = a.shape
+    held = a != 0
+    full = held.any(dim=2)                                 # (G, m)
+    cum = torch.zeros((g_n, n_v + 1), dtype=torch.float64, device=a.device)
+    cum[:, 1:] = torch.cumsum(held.any(dim=1).double(), dim=1)
+    if kmax_a is None:
+        lim = torch.full((g_n, m), n_v, dtype=torch.long, device=a.device)
+    else:
+        bi, bj, bk = blocks
+        per_a = kmax_a.long().repeat_interleave(bi, dim=1)[:, :m]
+        per_b = kmax_b.long().repeat_interleave(bj, dim=1)[:, :m]
+        lim = (torch.minimum(per_a, per_b) * bk).clamp(max=n_v)
+    ops = 0.0
+    upper = torch.ones(m, m, dtype=torch.bool, device=a.device).triu(1)
+    for g in range(g_n):
+        pair = torch.minimum(lim[g][:, None], lim[g][None, :])
+        need = upper & full[g][:, None] & full[g][None, :]
+        ops += 2.0 * float(cum[g][pair][need].sum())
+    return ops
+
+
 def tiled_peel_live_work(torch, td, scol, pos, live, s):
     """Operations and bytes kernel 6's mask form needs for a peel mask s,
     counted per column: row y with s mass meets the other rows only in
@@ -315,6 +367,38 @@ def vhub_graph(BipartiteGraph, n_u=300, n_v=60, n_hubs=6, seed=6):
     return BipartiteGraph.from_edges(n_u, n_v, eu, ev)
 
 
+STACK_LABEL = "stack launch "
+
+
+def stack_launches(torch, bfly, bsp, shapes):
+    """Wrap the wrappers of kernels 2, 5 and 3 (the engine reaches them
+    through these module attributes) so that each call appends its kernel
+    and (G, m, n_v) to ``shapes`` and runs inside a profiler range named
+    after them (``where_the_time_goes`` reads each range's device time).
+    The wrapped functions still count their own launches.  Returns a
+    function that puts the originals back."""
+    originals = [(bfly, "butterfly_update_batched"),
+                 (bsp, "butterfly_update_sparse_batched"),
+                 (bsp, "b2_stack")]
+    saved = [getattr(mod, fname) for mod, fname in originals]
+
+    def wrap(fn, fname):
+        def call(a, *args, **kwargs):
+            label = f"{fname} (G, m, n_v) = {tuple(a.shape)}"
+            shapes.append(label)
+            with torch.profiler.record_function(STACK_LABEL + label):
+                return fn(a, *args, **kwargs)
+        return call
+
+    for (mod, fname), fn in zip(originals, saved):
+        setattr(mod, fname, wrap(fn, fname))
+
+    def restore():
+        for (mod, fname), fn in zip(originals, saved):
+            setattr(mod, fname, fn)
+    return restore
+
+
 def where_the_time_goes(torch, run, top: int = 8):
     """Two more runs of the full-size path: one under ``torch.profiler``
     (device kernel time by name, and its share of the run's wall time),
@@ -335,8 +419,7 @@ def where_the_time_goes(torch, run, top: int = 8):
     from torch.autograd import DeviceType
 
     def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
+        return e.self_device_time_total
 
     # device-side activities only (a CPU op such as aten::copy_ also
     # carries the device time of what it launched: counting both would
@@ -344,7 +427,8 @@ def where_the_time_goes(torch, run, top: int = 8):
     # the program's
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and device_us(e) > 0
-                   and not e.key.startswith("Activity Buffer")),
+                   and not e.key.startswith(("Activity Buffer",
+                                             STACK_LABEL))),
                   key=device_us, reverse=True)
     copies = sum(device_us(e) for e in rows
                  if e.key.startswith(("Memcpy", "Memset"))) / 1e6
@@ -356,6 +440,26 @@ def where_the_time_goes(torch, run, top: int = 8):
     for e in rows[:top]:
         log(f"  device {device_us(e) / 1e3:10.3f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
+    # each call of kernels 2, 3 and 5, as annotated by stack_launches: the
+    # profiler's range of the call on the card's timeline, and the device
+    # time of the kernels that ran inside it (one stream: the call's own)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(STACK_LABEL)]
+    for span in events:
+        if (span.device_type != DeviceType.CUDA
+                or not span.name.startswith(STACK_LABEL)):
+            continue
+        t0, t1 = span.time_range.start, span.time_range.end
+        inside = [e for e in kernels
+                  if t0 <= e.time_range.start and e.time_range.end <= t1]
+        names = sorted({(re.search(r"\w+_kernel\w*", e.name)
+                         or re.search(r"\w+", e.name)).group(0)
+                        for e in inside})
+        log(f"  call {span.name[len(STACK_LABEL):]}: device "
+            f"{sum(e.time_range.elapsed_us() for e in inside) / 1e3:.4f} ms "
+            f"in {len(inside)} kernels ({', '.join(names)}), over a "
+            f"{span.time_range.elapsed_us() / 1e3:.4f} ms range")
     prof_host = cProfile.Profile()
     prof_host.enable()
     run()
@@ -476,7 +580,9 @@ def main() -> int:
         the same operands) hold and time that too, in the same run, and
         print ``old_bound`` (ops, bytes), the bound as an earlier PR
         counted it, beside the bound; with ``int8_product`` time that
-        product too (a yardstick only: the port never calls it)."""
+        product too (a yardstick only: the port never calls it).  Returns
+        the device time per call of each CUDA kernel one call launches
+        (profiler; with ``old`` only, else empty)."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -505,6 +611,7 @@ def main() -> int:
                             product_only_ms=prod_ms,
                             int8_product_only_ms=int8_ms, old_body_ms=old_ms)
         extra = ""
+        parts = {}
         if old is not None:
             eager_ms = time_ms(torch, kernel, reps, eager=True)
             parts = kernel_device_ms(torch, kernel)
@@ -519,6 +626,7 @@ def main() -> int:
         log(f"{key}: torch.equal=True ms={ms:.4f} bound_ms={b_ms:.6f} "
             f"({b_by}){extra} plain_ms={plain_ms:.4f} matmul_ms(product "
             f"only, not the same function)={prod_ms:.4f}")
+        return parts
 
     # kernel 1, counting form at the full-size matrix: the count body
     # (int8 wgmma over the tile pairs I <= J) against the tile body it
@@ -645,7 +753,10 @@ def main() -> int:
                                                 n_v)
                        + 4.0 * (2 * width + 2 * n_a + kmax.numel()
                                 + kb_peel.numel())))
-    # kernel 2: a (16, 1024, 1024) FD stack against 128 gathered rows
+    # kernel 2: a (16, 1024, 1024) FD stack against 128 gathered rows: the
+    # stack peel body against the tile body it replaced; bound per group
+    # over the live columns of the valid rows (peel_live_work), the full
+    # product as the earlier bound
     g_n, mm, cc, w = 16, 1024, 1024, 128
     gen = torch.Generator(device="cpu").manual_seed(1)
     a3 = (torch.rand(g_n, mm, cc, generator=gen) < 0.02).float().to(dev)
@@ -657,16 +768,32 @@ def main() -> int:
     ids3 = torch.arange(mm, dtype=torch.int32, device=dev).expand(
         g_n, mm).contiguous()
     rows3 = rows3.to(torch.int32).contiguous()
-    measure("butterfly_update_batched",
-            lambda: bfly.butterfly_update_batched(a3, b3, valid3, ids3, rows3),
-            lambda: bfly.butterfly_update_batched_plain(a3, b3, valid3, ids3,
-                                                        rows3),
-            lambda: torch.bmm(a3, b3.transpose(1, 2)),
-            2.0 * g_n * mm * w * cc,
-            4.0 * (g_n * mm * cc + g_n * w * cc + 2 * g_n * w + 2 * g_n * mm),
-            reps=50)
+    ops2, bytes2 = stack_peel_live_work(torch, a3, b3, valid3)
+    log(f"butterfly_update_batched[peel]: {int(valid3.sum())} valid of "
+        f"{g_n * w} gathered rows; yardstick: a clone of the stack "
+        f"({4 * a3.numel()} bytes read, as many written) "
+        f"{time_ms(torch, lambda: a3.clone(), 20):.4f} ms")
+    parts = measure(
+        "butterfly_update_batched[peel]",
+        lambda: bfly.butterfly_update_batched(a3, b3, valid3, ids3, rows3),
+        lambda: bfly.butterfly_update_batched_plain(a3, b3, valid3, ids3,
+                                                    rows3),
+        lambda: torch.bmm(a3, b3.transpose(1, 2)), ops2, bytes2, reps=50,
+        old=lambda: bfly.butterfly_update_batched(a3, b3, valid3, ids3, rows3,
+                                                  body="tile"),
+        old_bound=(2.0 * g_n * mm * w * cc,
+                   4.0 * (g_n * mm * cc + g_n * w * cc + 2 * g_n * w
+                          + 2 * g_n * mm)))
+    update_ms = sum(v for k, v in parts.items() if "peel_update" in k)
+    log(f"butterfly_update_batched[peel]: its main kernel reads the stack "
+        f"({4 * a3.numel()} bytes) in "
+        + (f"{update_ms:.4f} ms, {4 * a3.numel() / update_ms / 1e9:.3f} TB/s"
+           if update_ms else "(not in the profile)"))
     # kernel 3: a (16, 1024, 1024) staircase stack with its real extents;
-    # the row cuts fall down the rows, as in a degree-sorted subgraph
+    # the row cuts fall down the rows, as in a degree-sorted subgraph; the
+    # pairs body against the tile body it replaced; bound over the distinct
+    # nonzero row pairs, the live stripes of every tile pair as the
+    # earlier bound
     row_cut = torch.randint(0, cc + 1, (g_n, mm, 1), generator=gen).sort(
         dim=1, descending=True).values
     st = ((torch.rand(g_n, mm, cc, generator=gen) < 0.05)
@@ -674,31 +801,93 @@ def main() -> int:
     row_ext3 = bsp.row_extents_device(st, bk)
     kmax3 = bsp.tile_extents(row_ext3, bi).to(torch.int32).contiguous()
     ops3, skip = live_stripe_ops(kmax3, kmax3, cc)
-    log(f"b2_stack: {skip:.3f} of the stripes skipped")
-    measure("b2_stack",
+    bytes3 = (live_stripe_bytes(kmax3, kmax3, mm, mm, cc, same=True)
+              + 4.0 * (g_n * mm * mm + 2 * kmax3.numel()))
+    out3 = torch.empty(g_n, mm, mm, device=dev)
+    log(f"b2_stack[pairs]: {skip:.3f} of the stripes skipped; yardstick: "
+        f"writing the (G, m, m) output once ({4 * out3.numel()} bytes, "
+        f"zero_) {time_ms(torch, out3.zero_, 20):.4f} ms")
+    del out3
+    measure("b2_stack[pairs]",
             lambda: bsp.b2_stack(st, kmax3, kmax3, blocks=blocks),
             lambda: bsp.b2_stack_plain(st, kmax3, kmax3, blocks=blocks),
             lambda: torch.bmm(st, st.transpose(1, 2)),
-            ops3, live_stripe_bytes(kmax3, kmax3, mm, mm, cc, same=True)
-            + 4.0 * (g_n * mm * mm + 2 * kmax3.numel()), reps=20)
+            b2_pair_ops(torch, st, kmax3, kmax3, blocks), bytes3, reps=20,
+            old=lambda: bsp.b2_stack(st, kmax3, kmax3, blocks=blocks,
+                                     body="tile"),
+            old_bound=(ops3, bytes3))
     # kernel 5: the same staircase stack against 128 gathered rows per
-    # group, per-group extents gathered from the per-row extents
+    # group, per-group extents gathered from the per-row extents: the
+    # stack peel body against the tile body, as for kernel 2
     b5 = torch.take_along_dim(st, rows3.long()[:, :, None], dim=1) \
         * valid3[:, :, None]
     kb5 = bsp.batched_gathered_tile_extents(row_ext3, rows3, valid3 > 0, bj)
     ops5, skip = live_stripe_ops(kmax3, kb5, cc)
-    log(f"butterfly_update_sparse_batched: {skip:.3f} of the stripes "
-        "skipped")
-    measure("butterfly_update_sparse_batched",
+    ops5l, bytes5l = stack_peel_live_work(torch, st, b5, valid3, kmax3, kb5,
+                                          blocks)
+    log(f"butterfly_update_sparse_batched[peel]: {skip:.3f} of the stripes "
+        "skipped by the extents")
+    measure("butterfly_update_sparse_batched[peel]",
             lambda: bsp.butterfly_update_sparse_batched(
                 st, b5, valid3, ids3, rows3, kmax3, kb5, blocks=blocks),
             lambda: bsp.butterfly_update_sparse_batched_plain(
                 st, b5, valid3, ids3, rows3, kmax3, kb5, blocks=blocks),
-            lambda: torch.bmm(st, b5.transpose(1, 2)),
-            ops5, live_stripe_bytes(kmax3, kb5, mm, w, cc)
-            + 4.0 * (2 * g_n * w + 2 * g_n * mm + kmax3.numel()
-                     + kb5.numel()), reps=50)
+            lambda: torch.bmm(st, b5.transpose(1, 2)), ops5l, bytes5l,
+            reps=50,
+            old=lambda: bsp.butterfly_update_sparse_batched(
+                st, b5, valid3, ids3, rows3, kmax3, kb5, blocks=blocks,
+                body="tile"),
+            old_bound=(ops5, live_stripe_bytes(kmax3, kb5, mm, w, cc)
+                       + 4.0 * (2 * g_n * w + 2 * g_n * mm + kmax3.numel()
+                                + kb5.numel())))
     del a3, b3, st, b5
+    # the ragged stacks the engine may hand kernels 2, 3 and 5 (m and n_v
+    # not multiples of any tile, rows of 1,000 floats), kernel 3 also at
+    # bi != bj, the B side's extents rebuilt at bj as ops.b2_stack does:
+    # each body torch.equal to its plain version (in a function, so that
+    # nothing it allocates outlives it)
+    def check_ragged():
+        gr, mr, nr = 3, 777, 1000
+        cut_r = torch.randint(0, nr + 1, (gr, mr, 1), generator=gen).sort(
+            dim=1, descending=True).values
+        ar = ((torch.rand(gr, mr, nr, generator=gen) < 0.05)
+              & (torch.arange(nr)[None, None, :] < cut_r)).float().to(dev)
+        ext_r = bsp.row_extents_device(ar, bk)
+        rows_r = torch.randint(0, mr, (gr, w), generator=gen).to(dev)
+        valid_r = (torch.rand(gr, w, generator=gen) < 0.5).float().to(dev)
+        br = torch.take_along_dim(ar, rows_r[:, :, None], dim=1)
+        ids_r = torch.arange(mr, dtype=torch.int32, device=dev).expand(
+            gr, mr).contiguous()
+        rows_r = rows_r.to(torch.int32).contiguous()
+        ka_r = bsp.tile_extents(ext_r, bi).to(torch.int32).contiguous()
+        kb_r = bsp.batched_gathered_tile_extents(ext_r, rows_r, valid_r > 0,
+                                                 bj)
+        want_b2 = bsp.b2_stack_plain(ar, None, None, blocks=None)
+        ragged = {
+            "butterfly_update_batched[peel]": (
+                bfly.butterfly_update_batched(ar, br, valid_r, ids_r,
+                                              rows_r),
+                bfly.butterfly_update_batched_plain(ar, br, valid_r, ids_r,
+                                                    rows_r)),
+            "butterfly_update_sparse_batched[peel]": (
+                bsp.butterfly_update_sparse_batched(
+                    ar, br, valid_r, ids_r, rows_r, ka_r, kb_r,
+                    blocks=blocks),
+                bsp.butterfly_update_sparse_batched_plain(
+                    ar, br, valid_r, ids_r, rows_r, ka_r, kb_r,
+                    blocks=blocks)),
+        }
+        for blk in (blocks, (128, 64, 512), (64, 128, 256)):
+            ragged[f"b2_stack[pairs] blocks {blk}"] = (
+                ops.b2_stack(ar, blocks=blk), want_b2)
+        for what, (got, want_r) in ragged.items():
+            if not torch.equal(got, want_r):
+                raise AssertionError(f"{what} at ({gr}, {mr}, {nr}): the "
+                                     "kernel differs from its plain version")
+        log(f"ragged stacks ({gr}, {mr}, {nr}): " + ", ".join(ragged)
+            + ": torch.equal to the plain versions")
+
+    check_ragged()
 
     # kernel 6 at the tiled path's own slot list: the degree-sorted graph
     # after the host DGM pre-compaction, in (max(bi, bj), bk) tiles
@@ -868,6 +1057,8 @@ def main() -> int:
         return tip_decompose(g, cfg, side="U", device=dev)
 
     for pname, cfg in paths.items():
+        shapes = []
+        restore = stack_launches(torch, bfly, bsp, shapes)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -896,18 +1087,25 @@ def main() -> int:
             f"host_round_trips {stats.host_round_trips}")
         log(f"full size {pname}: launches {launches[pname]} | "
             f"max_memory_allocated {peak} bytes")
+        log(f"full size {pname}: calls of kernels 2, 3 and 5: "
+            + ("; ".join(shapes) if shapes else "none"))
         full_stats[pname] = stats
         full_walls[pname] = wall
         where_the_time_goes(torch, lambda: run_path(pname, g_full, cfg))
+        restore()
     # each body ran where it should: the peel bodies on the peel updates,
     # the count bodies on counting and HUC recounts
     # (kernel 6 launches its peel body for its count launch too, and its
     # count body, the yardstick of phase 3, nowhere)
     must = {"dense_subset": ("butterfly_update[count]",
-                             "butterfly_update[peel]"),
+                             "butterfly_update[peel]",
+                             "butterfly_update_batched[peel]",
+                             "b2_stack[pairs]"),
             "parb": ("butterfly_update[count]", "butterfly_update[peel]"),
             "sparse_graph": ("butterfly_update_sparse[count]",
-                             "butterfly_update_sparse[peel]"),
+                             "butterfly_update_sparse[peel]",
+                             "butterfly_update_sparse_batched[peel]",
+                             "b2_stack[pairs]"),
             "tiled": ("butterfly_update_tiled[peel]",)}
     for pname, keys in must.items():
         idle = [k for k in keys if launches[pname][k] <= 0]
@@ -916,12 +1114,11 @@ def main() -> int:
         if launches[pname]["butterfly_update_tiled[count]"]:
             raise AssertionError(f"full size {pname}: kernel 6's count body "
                                  "launched")
-        tile = [k for k in ("butterfly_update[tile]",
-                            "butterfly_update_sparse[tile]")
-                if launches[pname][k]]
+        tile = [k for k, n in launches[pname].items()
+                if k.endswith("[tile]") and n]
         if tile:
-            raise AssertionError(f"full size {pname}: the f32 tile body of "
-                                 f"{tile} launched on a 2-D operand")
+            raise AssertionError(f"full size {pname}: the f32 tile body "
+                                 f"launched: {tile}")
     log("full size: kernel-1 launches by body (count, peel): "
         + ", ".join(f"{p_} ({launches[p_]['butterfly_update[count]']}, "
                     f"{launches[p_]['butterfly_update[peel]']})"
@@ -981,17 +1178,18 @@ def main() -> int:
          k1[1]),
         ("butterfly_update[peel]", "butterfly_update[peel]", *k1),
         ("butterfly_update[peel]", "butterfly_update[peel_parb]", *k1),
-        ("butterfly_update_batched", "butterfly_update_batched",
+        ("butterfly_update_batched[peel]", "butterfly_update_batched[peel]",
          "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
          "src/repro/kernels/butterfly.py:225"),
-        ("b2_stack", "b2_stack",
+        ("b2_stack[pairs]", "b2_stack[pairs]",
          "src/repro_torch/kernels/csrc/b2_stack.cu",
          "src/repro/kernels/butterfly_sparse.py:420"),
         ("butterfly_update_sparse[count]", "butterfly_update_sparse[count]",
          count_cu, k4[1]),
         ("butterfly_update_sparse[peel]", "butterfly_update_sparse[peel]",
          *k4),
-        ("butterfly_update_sparse_batched", "butterfly_update_sparse_batched",
+        ("butterfly_update_sparse_batched[peel]",
+         "butterfly_update_sparse_batched[peel]",
          "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
          "src/repro/kernels/butterfly_sparse.py:318"),
     ] + [("butterfly_update_tiled[peel]", f"butterfly_update_tiled[{form}]",

@@ -140,6 +140,10 @@ class ReceiptConfig:
             raise ValueError(
                 f"kernel_blocks must be three positive tile sizes "
                 f"(bi, bj, bk), got {self.kernel_blocks!r}")
+        if self.backend in kops.SPARSE_BACKENDS and blocks[0] != blocks[1]:
+            raise ValueError(
+                f"sparse backends require square row tiles (bi == bj), "
+                f"got kernel_blocks={self.kernel_blocks!r}")
         if self.fd_mode not in ("level", "b2", "matvec"):
             raise ValueError(
                 f"unknown fd_mode {self.fd_mode!r}: expected 'level', "

@@ -122,6 +122,9 @@ def library(name: str) -> ctypes.CDLL:
     if name == "b2_stack":
         lib.b2_stack_f32.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
         lib.b2_stack_f32.restype = i32
+        lib.b2_stack_pairs_f32.argtypes = (
+            [ptr] * 4 + [i32] * 8 + [ptr, i64, ptr])
+        lib.b2_stack_pairs_f32.restype = i32
     elif name == "butterfly_count":
         lib.butterfly_count_f32.argtypes = (
             [ptr] * 5 + [i32] * 4 + [ptr, i64, ptr])
@@ -131,7 +134,7 @@ def library(name: str) -> ctypes.CDLL:
             [ptr] * 8 + [i32] * 9 + [ptr])
         lib.butterfly_update_sparse_f32.restype = i32
         lib.butterfly_update_peel_f32.argtypes = (
-            [ptr] * 8 + [i32] * 6 + [ptr, i64, ptr])
+            [ptr] * 8 + [i32] * 10 + [ptr, i64, ptr])
         lib.butterfly_update_peel_f32.restype = i32
     elif name == "butterfly_tiled":
         lib.butterfly_update_tiled_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]

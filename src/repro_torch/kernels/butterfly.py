@@ -32,8 +32,12 @@ caller names one (``body``):
   It takes only that form: ``b`` must be ``a``, ``ids_b`` ``ids_a`` (and
   kernel 4's ``kmax_b`` ``kmax_a``), the same storage, or it raises;
 * ``"tile"``, the f32 FMA tile (``csrc/butterfly_sparse.cu``,
-  ``wedge_tile.cuh``) that counted before the count body: the yardstick
-  the other two are timed against, and kernel 2's (and 5's) only body.
+  ``wedge_tile.cuh``) that computed every form before the other two:
+  the yardstick they are timed against.
+
+Kernel 2 (and kernel 5) has two of them, ``STACK_BODIES``: ``"peel"``,
+the default (the same peel body over the stack, group g in
+``gridDim.z``, four stripes a K-stage), and ``"tile"``.
 
 Each body counts its launches under its own key,
 ``"<kernel>[count]"``, ``"[peel]"`` and ``"[tile]"``.
@@ -42,8 +46,8 @@ Each wrapper takes its plain version (beside it) for CPU tensors and
 launches its kernel for CUDA tensors, counting the launch in ``LAUNCHES``.
 There is no fallback from one to the other.  ``_launch`` is the one
 launch of those bodies, shared with the stripe-skipping kernels 4 and 5
-(``butterfly_sparse``); ``check_body`` holds a call to its body's form on
-every device.
+(``butterfly_sparse``); ``check_body`` and ``check_stack_body`` hold a
+call to its body's form on every device.
 """
 from __future__ import annotations
 
@@ -55,7 +59,9 @@ from ._build import check_launch, ptr, stream_of
 __all__ = [
     "LAUNCHES",
     "BODIES",
+    "STACK_BODIES",
     "check_body",
+    "check_stack_body",
     "count_scratch_bytes",
     "peel_scratch_bytes",
     "butterfly_update",
@@ -65,10 +71,13 @@ __all__ = [
 ]
 
 BODIES = ("count", "peel", "tile")
+STACK_BODIES = ("peel", "tile")
 
 # launches of each kernel body (plain calls are not counted)
 LAUNCHES = {"butterfly_update[count]": 0, "butterfly_update[peel]": 0,
-            "butterfly_update[tile]": 0, "butterfly_update_batched": 0}
+            "butterfly_update[tile]": 0,
+            "butterfly_update_batched[peel]": 0,
+            "butterfly_update_batched[tile]": 0}
 
 # the peel body's geometry (csrc/butterfly_sparse.cu: KS, PB)
 _STRIPE = 32
@@ -109,13 +118,21 @@ def check_body(body, a, b, ids_a, ids_b, kmax_a=None, kmax_b=None):
             "body 'peel' or 'tile'")
 
 
-def peel_scratch_bytes(n_b: int, n_v: int) -> int:
-    """Device scratch of the peel body (``peel_scratch_bytes`` of
-    ``csrc/butterfly_sparse.cu``): per chunk of 128 gathered rows, one
-    int32 flag per 32-column stripe (rounded up to 16 bytes), then the
-    chunk's rows as s8, 32 bytes per stripe."""
+def check_stack_body(body):
+    """Raise unless ``body`` is one of ``STACK_BODIES``."""
+    if body not in STACK_BODIES:
+        raise ValueError(f"body {body!r}: a stack takes one of "
+                         f"{STACK_BODIES}")
+
+
+def peel_scratch_bytes(n_b: int, n_v: int, groups: int = 1) -> int:
+    """Device scratch of the peel body over ``groups`` graphs
+    (``peel_scratch_bytes`` of ``csrc/butterfly_sparse.cu``): per chunk
+    of 128 gathered rows of each graph, one int32 flag per 32-column
+    stripe (all the flags rounded up to 16 bytes), then the chunk's rows
+    as s8, 32 bytes per stripe."""
     n_str = -(-n_v // _STRIPE)
-    n_chunks = -(-n_b // _PEEL_CHUNK)
+    n_chunks = groups * -(-n_b // _PEEL_CHUNK)
     flag_bytes = -(-4 * n_chunks * n_str // 16) * 16
     return flag_bytes + n_chunks * _PEEL_CHUNK * n_str * _STRIPE
 
@@ -166,13 +183,13 @@ def _check(a, b, s, ids_a, ids_b, *, batched: bool):
 def _launch(counts, name, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
             blocks=(1, 1, 1), body="tile"):
     """Launch a wedge-update body on CUDA operands and count it in
-    ``counts``.  3-D operands (a stack, the group is gridDim.z) take the
-    tile body, counted under ``name``; 2-D ones (one graph) the ``body``
-    named, counted under ``name[body]``.  Without extents every stripe is
-    read (kernels 1 and 2); with ``kmax_a``/``kmax_b`` of ``blocks`` row
-    tiles the K loop stops at the covering tiles' extents (kernels 4 and
-    5; the count body takes square tiles, bi == bj).  The public wrappers
-    check the body's form first (``check_body``)."""
+    ``counts`` under ``name[body]``.  3-D operands are a stack (the group
+    is gridDim.z) and take the peel or tile body; 2-D ones are one graph
+    and take any of ``BODIES``.  Without extents every stripe is read
+    (kernels 1 and 2); with ``kmax_a``/``kmax_b`` of ``blocks`` row tiles
+    the K loop stops at the covering tiles' extents (kernels 4 and 5; the
+    count body takes square tiles, bi == bj).  The public wrappers check
+    the body's form first (``check_body``, ``check_stack_body``)."""
     if a.device.type != "cuda":
         raise ValueError(f"no butterfly kernel for device {a.device}")
     batched = a.dim() == 3
@@ -180,9 +197,9 @@ def _launch(counts, name, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
     skip = kmax_a is not None
     if skip != (kmax_b is not None):
         raise ValueError("kmax_a and kmax_b come together")
-    if batched and body != "tile":
-        raise ValueError(f"body {body!r}: a stack takes the 'tile' body")
-    key = name if batched else f"{name}[{body}]"
+    if batched:
+        check_stack_body(body)
+    key = f"{name}[{body}]"
     bi, bj, bk = (int(x) for x in blocks)
     if body == "count" and skip and bi != bj:
         raise ValueError(f"the count body's extents need square tiles, got "
@@ -205,21 +222,22 @@ def _launch(counts, name, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
         return out
     lib = _build.library("butterfly_sparse")
     extents = ((ptr(kmax_a), ptr(kmax_b)) if skip else (None, None))
+    n_ta = kmax_a.shape[-1] if skip else 0
+    n_tb = kmax_b.shape[-1] if skip else 0
     if body == "peel":
-        n_scratch = peel_scratch_bytes(n_b, n_v)
+        n_scratch = peel_scratch_bytes(n_b, n_v, g_n)
         # freed on return: the caching allocator hands it out again only to
         # work queued after the kernels on this stream
         scratch = torch.empty(n_scratch, dtype=torch.uint8, device=a.device)
         check_launch(lib.butterfly_update_peel_f32(
             ptr(a), ptr(b), ptr(s), ptr(ids_a), ptr(ids_b), *extents,
-            ptr(out), n_a, n_b, n_v, bi, bj, bk, ptr(scratch), n_scratch,
-            stream_of(a)), key)
+            ptr(out), g_n, n_a, n_b, n_v, n_ta, n_tb, bi, bj, bk,
+            int(batched), ptr(scratch), n_scratch, stream_of(a)), key)
     else:
         check_launch(lib.butterfly_update_sparse_f32(
             ptr(a), ptr(b), ptr(s), ptr(ids_a), ptr(ids_b), *extents,
-            ptr(out), g_n, n_a, n_b, n_v,
-            kmax_a.shape[-1] if skip else 0, kmax_b.shape[-1] if skip else 0,
-            bi, bj, bk, stream_of(a)), key)
+            ptr(out), g_n, n_a, n_b, n_v, n_ta, n_tb, bi, bj, bk,
+            stream_of(a)), key)
     counts[key] += 1
     return out
 
@@ -236,10 +254,13 @@ def butterfly_update(a, b, s, ids_a, ids_b, *, body="peel"):
                    body=body)
 
 
-def butterfly_update_batched(a, b, s, ids_a, ids_b):
+def butterfly_update_batched(a, b, s, ids_a, ids_b, *, body="peel"):
     """Kernel 2.  a (G, n_a, n_v) f32 0/1, b (G, n_b, n_v), s (G, n_b),
-    ids_a (G, n_a) / ids_b (G, n_b) int32 local ids; returns (G, n_a)."""
+    ids_a (G, n_a) / ids_b (G, n_b) int32 local ids; returns (G, n_a).
+    ``body`` (one of ``STACK_BODIES``) is the body launched on CUDA
+    tensors; it is checked on every device."""
+    check_stack_body(body)
     if a.device.type == "cpu":
         return butterfly_update_batched_plain(a, b, s, ids_a, ids_b)
     return _launch(LAUNCHES, "butterfly_update_batched", a, b, s, ids_a,
-                   ids_b)
+                   ids_b, body=body)

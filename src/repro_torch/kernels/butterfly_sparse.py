@@ -16,9 +16,14 @@ them.  This module holds the extent helpers (``row_extents``,
   bound;
 * ``butterfly_update_sparse_batched``  kernel 5 (same source): the same
   over a (G, ...) stack, local ids, one staircase per group member;
+  kernel 2's two bodies (``butterfly.STACK_BODIES``: the peel body by
+  default, the f32 tile body as the yardstick);
 * ``b2_stack``  kernel 3 (``csrc/b2_stack.cu``):
   ``out[g, x, y] = C((A_g A_g^T)[x, y], 2) * [x != y]`` with the skip, the
-  ``fd_update_mode="b2"`` precompute.
+  ``fd_update_mode="b2"`` precompute; ``B2_BODIES``: ``"pairs"`` by
+  default (int8 ``wgmma`` fed by TMA over each group's tile pairs I <= J,
+  both triangles written from one product, the count body's main loop in
+  ``csrc/wgmma_s8.cuh``) and ``"tile"``, the f32 FMA tile it replaced.
 
 Each wrapper takes its plain version (beside it) for CPU tensors and
 launches its kernel for CUDA tensors, counting the launch in ``LAUNCHES``.
@@ -49,16 +54,29 @@ __all__ = [
     "butterfly_update_sparse_plain",
     "butterfly_update_sparse_batched",
     "butterfly_update_sparse_batched_plain",
+    "B2_BODIES",
+    "b2_scratch_bytes",
     "b2_stack",
     "b2_stack_plain",
 ]
 
 # launches of each kernel body (plain calls are not counted); kernel 4
-# has kernel 1's three bodies
+# has kernel 1's three bodies, kernel 5 kernel 2's two
 LAUNCHES = {"butterfly_update_sparse[count]": 0,
             "butterfly_update_sparse[peel]": 0,
             "butterfly_update_sparse[tile]": 0,
-            "butterfly_update_sparse_batched": 0, "b2_stack": 0}
+            "butterfly_update_sparse_batched[peel]": 0,
+            "butterfly_update_sparse_batched[tile]": 0,
+            "b2_stack[pairs]": 0, "b2_stack[tile]": 0}
+
+B2_BODIES = ("pairs", "tile")
+
+
+def b2_scratch_bytes(g: int, m: int, n_v: int) -> int:
+    """Device scratch of kernel 3's pairs body (``b2_scratch_bytes`` of
+    ``csrc/b2_stack.cu``): the s8 copy of the (g, m, n_v) stack, each
+    group padded as the count body pads its one matrix."""
+    return g * _bfly.count_scratch_bytes(m, n_v)
 
 
 def row_extents(a: np.ndarray, block_k: int) -> np.ndarray:
@@ -216,15 +234,18 @@ def butterfly_update_sparse(a, b, s, ids_a, ids_b, kmax_a, kmax_b, *,
 
 
 def butterfly_update_sparse_batched(a, b, s, ids_a, ids_b, kmax_a, kmax_b,
-                                    *, blocks):
+                                    *, blocks, body="peel"):
     """Kernel 5.  a (G, n_a, n_v), b (G, n_b, n_v), s (G, n_b), local ids
     (G, n_a) / (G, n_b) int32, per-group extents (G, ceil(n_a/bi)) and
-    (G, ceil(n_b/bj)) int32; returns (G, n_a) f32."""
+    (G, ceil(n_b/bj)) int32; returns (G, n_a) f32.  ``body`` (one of
+    ``butterfly.STACK_BODIES``) is the body launched on CUDA tensors; it
+    is checked on every device."""
+    _bfly.check_stack_body(body)
     if a.device.type == "cpu":
         return butterfly_update_sparse_batched_plain(
             a, b, s, ids_a, ids_b, kmax_a, kmax_b, blocks=blocks)
     return _launch_sparse("butterfly_update_sparse_batched", a, b, s, ids_a,
-                          ids_b, kmax_a, kmax_b, blocks)
+                          ids_b, kmax_a, kmax_b, blocks, body=body)
 
 
 def b2_stack_plain(a, kmax_a, kmax_b, *, blocks):
@@ -237,10 +258,14 @@ def b2_stack_plain(a, kmax_a, kmax_b, *, blocks):
     return b2 * (1.0 - eye)[None]
 
 
-def b2_stack(a, kmax_a, kmax_b, *, blocks):
+def b2_stack(a, kmax_a, kmax_b, *, blocks, body="pairs"):
     """Kernel 3.  a (G, m, n_v) f32 0/1; kmax_a (G, ceil(m/bi)) and
     kmax_b (G, ceil(m/bj)) int32 stripe extents of ``blocks = (bi, bj,
-    bk)`` row tiles; returns (G, m, m) f32."""
+    bk)`` row tiles; returns (G, m, m) f32.  ``body`` (one of
+    ``B2_BODIES``) is the body launched on CUDA tensors; it is checked on
+    every device."""
+    if body not in B2_BODIES:
+        raise ValueError(f"body {body!r}: one of {B2_BODIES}")
     if a.device.type == "cpu":
         return b2_stack_plain(a, kmax_a, kmax_b, blocks=blocks)
     if a.device.type != "cuda":
@@ -260,11 +285,23 @@ def b2_stack(a, kmax_a, kmax_b, *, blocks):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if not (g_n and m and n_v):
+        # no pair, or no column: every W is 0, C(0, 2) = 0
+        return torch.zeros((g_n, m, m), dtype=torch.float32, device=a.device)
     out = torch.empty((g_n, m, m), dtype=torch.float32, device=a.device)
-    if g_n and m:
-        lib = _build.library("b2_stack")
+    lib = _build.library("b2_stack")
+    key = f"b2_stack[{body}]"
+    if body == "pairs":
+        n_scratch = b2_scratch_bytes(g_n, m, n_v)
+        # the s8 copy of the stack; freed on return, as the count body's
+        scratch = torch.empty(n_scratch, dtype=torch.uint8, device=a.device)
+        check_launch(lib.b2_stack_pairs_f32(
+            ptr(a), ptr(kmax_a), ptr(kmax_b), ptr(out), g_n, m, n_v,
+            n_ta, n_tb, bi, bj, bk, ptr(scratch), n_scratch, stream_of(a)),
+            key)
+    else:
         check_launch(lib.b2_stack_f32(
             ptr(a), ptr(kmax_a), ptr(kmax_b), ptr(out), g_n, m, n_v,
-            n_ta, n_tb, bi, bj, bk, stream_of(a)), "b2_stack")
-        LAUNCHES["b2_stack"] += 1
+            n_ta, n_tb, bi, bj, bk, stream_of(a)), key)
+    LAUNCHES[key] += 1
     return out

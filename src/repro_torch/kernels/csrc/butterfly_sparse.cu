@@ -26,59 +26,67 @@
 //     kernel 2 with one staircase per group member, extents (G, n_a / bi)
 //     and (G, n_b / bj).
 //
-// Two bodies compute that function, and the caller names one
-// (kernels/butterfly.py, body=):
+// Two bodies here compute that function, and the caller names one
+// (kernels/butterfly.py, body=); the count body of kernels 1 and 4 is
+// butterfly_count.cu.
 //
-// THE COUNT BODY (sparse_update_kernel; kernels 1 and 4 for counting and
-// HUC recounts, where B is A, and kernels 2 and 5).  One 256-thread block
-// computes a 64 x 64 wedge tile W = A[i0:i0+64] . B[j0:j0+64]^T in
-// registers (4 x 4 per thread), from 16-column K-stripes staged through
-// shared memory, with f32 FMA (wedge_tile.cuh, shared with b2_stack.cu).
-// The epilogue applies C(W, 2) = W * (W - 1) * 0.5, the row mask s and the
-// not-self mask, row-reduces the tile (half-warp shuffles) and adds the
-// partial row sums into out with atomicAdd.  The Pallas grid carries out_i
-// across j in order on one core; here the j-tiles run as parallel blocks
-// and meet in the atomics.  Stripe skip: as in b2_stack.cu, the block reads
-// the extents of the reference tiles (bi rows on the A side, bj rows on the
-// B side) that cover its 64 rows and 64 columns and stops its K loop at
-// min(max kmax_a, max kmax_b) * bk: exact for extents that upper-bound the
-// true ones (every column past the bound is zero in all the block's rows on
-// one side).  Bound: at the count shape (8192 x 8192) by operations, whose
-// floor is the int8 tensor-core rate; this body runs on the f32 FMA units
-// (moving it to wgmma is ROADMAP queue 0).
-//
-// THE PEEL BODY (peel_prep_kernel + peel_update_kernel; kernels 1 and 4
-// for every other call: the CD peel updates of the dense and staircase
-// backends and every ParB sweep, one graph).  B holds a few gathered rows,
-// most with s = 0 in a ParB sweep (128 gathered rows, one valid), and a
-// valid row of degree ~13 touches ~13 of the 256 32-column stripes, so
-// the function needs only the columns where a row with s mass holds a
-// nonzero.  What bounds it is bytes: A's f32 columns in those stripes,
-// read once, and B's mass rows once (2 n_a n_valid L operations over L
-// live columns are ~1/100 of the byte time at the int8 rate).  The design moves only
-// those bytes:
-//   1. peel_prep_kernel (grid: stripes / 4 x chunks of 128 B rows) packs
-//      the chunk's rows with s != 0 ("mass rows", compacted in row order)
-//      to s8 into scratch, and marks each 32-column stripe where any of
-//      them holds a nonzero: flags[chunk][stripe], on the device, so the
-//      wrapper reads nothing.  Stripes left unmarked add exactly 0 to
-//      every W[i, j] that s does not zero.
-//   2. peel_update_kernel (grid: chunk x 64-row band of A, chunk fastest
-//      so the blocks sharing an A band run together and share it in L2):
-//      a block whose chunk has no mass row returns at once; otherwise it
-//      compacts the marked stripes (below today's k_end = min(ka, kb) bk
-//      with extents) into a list and walks it through a 4-stage cp.async
-//      ring: A's 64 x 32 f32 stripe (read from HBM once per band) and the
-//      mass rows' s8 stripe, so the loads of the next three stripes
-//      overlap the products.  Eight warps (4 x 16 A rows, 2 x 64 mass
-//      rows) multiply with mma.sync m16n8k32 s8 x s8 -> s32 (wedge_mma.cuh)
-//      over only the n-tiles that hold mass rows.  The epilogue converts
-//      each s32 W to f32 (exact: below 2^24) and applies C(W, 2) in the
-//      reference's order (W * (W - 1), then * 0.5), s[j], the not-self
-//      mask on the rows' ids (a gathered row is its own A row's id), the
-//      row reduction (quad shuffles) and an exact f32 atomicAdd.
+// THE PEEL BODY (peel_prep_kernel + peel_update_kernel; the default of
+// every kernel here: the CD peel updates of the dense and staircase
+// backends and every ParB sweep, one graph; and every FD stack update of
+// kernels 2 and 5, a stack of G graphs, group g in gridDim.z).  B holds a
+// few gathered rows, most with s = 0 in a ParB sweep (128 gathered rows,
+// one valid), and a valid row of degree ~13 touches ~13 of the 256
+// 32-column stripes, so the function needs only the columns where a row
+// with s mass holds a nonzero.  What bounds it is bytes: A's f32 columns
+// in those stripes, read once, and B's mass rows once (2 n_a n_valid L
+// operations over L live columns are ~1/100 of the byte time at the int8
+// rate).  The design moves only those bytes:
+//   1. peel_prep_kernel (grid: stripes / 4 x chunks of 128 B rows x
+//      groups) packs the chunk's rows with s != 0 ("mass rows", compacted
+//      in row order) to s8 into scratch, and marks each 32-column stripe
+//      where any of them holds a nonzero: flags[group][chunk][stripe], on
+//      the device, so the wrapper reads nothing.  Stripes left unmarked
+//      add exactly 0 to every W[i, j] that s does not zero.
+//   2. peel_update_kernel (grid: chunk x 64-row band of A x group, chunk
+//      fastest so the blocks sharing an A band run together and share it
+//      in L2): a block whose chunk has no mass row returns at once;
+//      otherwise it compacts the live K-stages (below k_end = min(ka, kb)
+//      bk with extents) into a list and walks it through a cp.async ring:
+//      A's f32 rows of the stage (read from HBM once per band) and the
+//      mass rows' s8 stripes, so the loads of the next stages overlap the
+//      products.  One graph: a stage is one marked stripe, 128 bytes of
+//      each A row, four stages deep.  A stack: a stage is four
+//      neighbouring stripes, live when one of them is marked, 512
+//      contiguous bytes of each A row copied by the 32 lanes of a warp in
+//      one instruction (at FD's stack shapes nearly every stripe is live,
+//      so the read of A is the whole bound, and 128-byte pieces 4 KB apart
+//      read at a quarter of the card's rate), two stages deep so that two
+//      blocks share an SM.  Eight warps (4 x 16 A rows,
+//      2 x 64 mass rows) multiply with mma.sync m16n8k32 s8 x s8 -> s32
+//      (wedge_mma.cuh) over only the n-tiles that hold mass rows.  The
+//      epilogue converts each s32 W to f32 (exact: below 2^24) and applies
+//      C(W, 2) in the reference's order (W * (W - 1), then * 0.5), s[j],
+//      the not-self mask on the rows' ids (a gathered row is its own A
+//      row's id), the row reduction (quad shuffles) and an exact f32
+//      atomicAdd.
 // mma.sync is enough here: the 256-row CD shape needs 34.4 GOP, 0.017 ms
 // at the int8 peak, under the byte bound even at a quarter of that rate.
+//
+// THE TILE BODY (sparse_update_kernel; body="tile").  One 256-thread block
+// computes a 64 x 64 wedge tile W = A[i0:i0+64] . B[j0:j0+64]^T in
+// registers (4 x 4 per thread), from 16-column K-stripes staged through
+// shared memory, with f32 FMA (wedge_tile.cuh, shared with b2_stack.cu's
+// tile body).  The epilogue applies C(W, 2) = W * (W - 1) * 0.5, the row
+// mask s and the not-self mask, row-reduces the tile (half-warp shuffles)
+// and adds the partial row sums into out with atomicAdd.  The Pallas grid
+// carries out_i across j in order on one core; here the j-tiles run as
+// parallel blocks and meet in the atomics.  Stripe skip: the block reads
+// the extents of the reference tiles (bi rows on the A side, bj rows on
+// the B side) that cover its 64 rows and 64 columns and stops its K loop
+// at min(max kmax_a, max kmax_b) * bk: exact for extents that upper-bound
+// the true ones (every column past the bound is zero in all the block's
+// rows on one side).  It computed every form until the count and peel
+// bodies replaced it, and stays as the yardstick they are timed against.
 //
 // Exactness.  A and B are 0/1 (the function's contract; the peel body's
 // s8 conversion [v != 0] relies on it), so every wedge count W is an
@@ -87,7 +95,7 @@
 // every butterfly support is below 2^24 (DESIGN.md section 8); then every
 // C(W, 2), every partial row sum and every atomicAdd operand is a
 // non-negative integer no larger than the final support, so each f32
-// addition is exact in ANY order: both bodies give the same bits on every
+// addition is exact in ANY order: every body gives the same bits on every
 // run, and the same bits as the reference.
 //
 // Shapes need not be multiples of any tile: loads and the epilogue mask the
@@ -173,12 +181,21 @@ using namespace wmma8;
 
 constexpr int PB = 128;          // gathered B rows per chunk
 constexpr int PA = 64;           // A rows per block
-constexpr int P_STAGES = 4;      // cp.async ring depth
 constexpr int P_THREADS = 256;   // 8 warps: 4 (A rows) x 2 (mass rows)
 constexpr int PREP_THREADS = 128;
-constexpr int A_STAGE = PA * KS;   // floats
-constexpr int B_STAGE = PB * KS;   // bytes
-constexpr int P_SMEM = P_STAGES * (A_STAGE * 4 + B_STAGE);
+constexpr int A_STAGE = PA * KS;   // floats of one stripe
+constexpr int B_STAGE = PB * KS;   // bytes of one stripe
+// a K-stage: one stripe (one graph) or four (a stack: 512 bytes of each
+// A row); the cp.async ring's depth: four stages, or two of the stack's
+// 48 KB stages, so that two blocks share an SM (measured faster than one
+// block with three or four, PERF.md); the ring's dynamic shared memory
+__host__ __device__ constexpr int stage_stripes(bool wide) {
+  return wide ? 4 : 1;
+}
+__host__ __device__ constexpr int p_stages(bool wide) { return wide ? 2 : 4; }
+constexpr int p_smem(bool wide) {
+  return p_stages(wide) * stage_stripes(wide) * (A_STAGE * 4 + B_STAGE);
+}
 
 // Rows of chunk [j0, j0 + PB) with s != 0, in row order, into mrow
 // (offsets from j0); every thread of the block calls it, the first PB
@@ -192,15 +209,16 @@ __device__ __forceinline__ int chunk_mass_rows(const float* __restrict__ s,
 }
 
 // b8 holds, per chunk, PB rows of n_str * 32 s8 bytes: mass row m of
-// chunk c at (c * PB + m) * n_str * 32.
+// chunk c at (c * PB + m) * n_str * KS.
 __device__ __forceinline__ int64_t b8_row(int c, int m, int n_str) {
   return ((int64_t)c * PB + m) * n_str * KS;
 }
 
-// grid (ceil(n_str / 4), n_chunks), PREP_THREADS: warp w of block x packs
-// stripe 4 x + w of the chunk's mass rows to s8 and marks the stripe in
-// flags[c * n_str + k] when any of them holds a nonzero there.  kVec: B's
-// rows are 16-byte aligned (n_v % 4 == 0), so four columns are one load.
+// grid (ceil(n_str / 4), n_chunks, G), PREP_THREADS: warp w of block
+// (x, c, g) packs stripe 4 x + w of chunk c's mass rows of group g to s8
+// and marks the stripe in the group's flags[c * n_str + k] when any of them
+// holds a nonzero there.  kVec: B's rows are 16-byte aligned (n_v % 4 ==
+// 0), so four columns are one load.
 template <bool kVec>
 __global__ void __launch_bounds__(PREP_THREADS)
 peel_prep_kernel(const float* __restrict__ b, const float* __restrict__ s,
@@ -208,6 +226,12 @@ peel_prep_kernel(const float* __restrict__ b, const float* __restrict__ s,
                  uint8_t* __restrict__ b8) {
   __shared__ int mrow[PB];
   __shared__ int warp_sums[PREP_THREADS / 32];
+  const int64_t g = blockIdx.z;
+  const int n_chunks = gridDim.y;
+  b += g * n_b * (int64_t)n_v;
+  s += g * n_b;
+  flags += g * n_chunks * (int64_t)n_str;
+  b8 += g * b8_row(n_chunks, 0, n_str);
   const int c = blockIdx.y;
   const int j0 = c * PB;
   const int n_mass = chunk_mass_rows(s, n_b, j0, mrow, warp_sums);
@@ -238,8 +262,9 @@ peel_prep_kernel(const float* __restrict__ b, const float* __restrict__ s,
   if (lane == 0) flags[(int64_t)c * n_str + k] = any ? 1 : 0;
 }
 
-// grid (n_chunks, ceil(n_a / PA)), P_THREADS, P_SMEM dynamic bytes.
-template <bool kSkip, bool kVec>
+// grid (n_chunks, ceil(n_a / PA), G), P_THREADS, p_smem(kWide) dynamic
+// bytes.  kWide: a K-stage is four stripes (the stack form), else one.
+template <bool kSkip, bool kVec, bool kWide>
 __global__ void __launch_bounds__(P_THREADS)
 peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
                    const int* __restrict__ ids_a,
@@ -248,14 +273,35 @@ peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
                    const int* __restrict__ kmax_b,
                    const int* __restrict__ flags,
                    const uint8_t* __restrict__ b8, float* __restrict__ out,
-                   int n_a, int n_b, int n_v, int n_str, int bi, int bj,
-                   int bk) {
+                   int n_a, int n_b, int n_v, int n_str, int n_ta, int n_tb,
+                   int bi, int bj, int bk) {
+  constexpr int SUB = stage_stripes(kWide);
+  constexpr int P_STAGES = p_stages(kWide);
+  constexpr int AS = SUB * A_STAGE;    // floats of a K-stage of A
+  constexpr int BS = SUB * B_STAGE;    // bytes of a K-stage of B
   extern __shared__ __align__(16) unsigned char ring[];
   float* as_ring = reinterpret_cast<float*>(ring);
-  uint8_t* bs_ring = ring + P_STAGES * A_STAGE * 4;
+  uint8_t* bs_ring = ring + P_STAGES * AS * 4;
   __shared__ int mrow[PB];
   __shared__ int live[P_THREADS];
   __shared__ int warp_sums[P_THREADS / 32];
+
+  if constexpr (kWide) {
+    // the group's operands (a one-graph launch is not wide: one group)
+    const int64_t g = blockIdx.z;
+    const int n_chunks = gridDim.x;
+    a += g * n_a * (int64_t)n_v;
+    s += g * n_b;
+    ids_a += g * n_a;
+    ids_b += g * n_b;
+    out += g * n_a;
+    flags += g * n_chunks * (int64_t)n_str;
+    b8 += g * b8_row(n_chunks, 0, n_str);
+    if constexpr (kSkip) {
+      kmax_a += g * n_ta;
+      kmax_b += g * n_tb;
+    }
+  }
 
   const int c = blockIdx.x;
   const int j0 = c * PB;
@@ -271,6 +317,7 @@ peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
     kcut = (int)min((int64_t)min(ka, kb) * bk, (int64_t)n_v);
   }
   const int n_str_cut = (kcut + KS - 1) / KS;
+  const int n_stage = (n_str_cut + SUB - 1) / SUB;   // K-stages below kcut
   const int b_rows = (n_mass + 7) & ~7;   // rows the mma reads
 
   const int tid = threadIdx.x;
@@ -284,27 +331,47 @@ peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0;
 
-  auto load_stage = [&](int slot, int k) {
-    load_a_stripe<kVec, PA, P_THREADS>(as_ring + slot * A_STAGE, a, n_v, i0,
-                                       n_a, k * KS, kcut);
-    // one 16-byte half-row of the mass rows' s8 stripe per thread
+  // K-stage q: stripes SUB q .. SUB q + SUB - 1
+  auto load_stage = [&](int slot, int q) {
+    if constexpr (kWide)
+      load_a_wide<kVec, PA, P_THREADS>(as_ring + slot * AS, a, n_v, i0, n_a,
+                                       q * SUB * KS, kcut);
+    else
+      load_a_stripe<kVec, PA, P_THREADS>(as_ring + slot * AS, a, n_v, i0,
+                                         n_a, q * KS, kcut);
+    // one 16-byte half-row of the mass rows' s8 stripe per thread and
+    // stripe (zero past the row's last stripe)
     const int row = tid >> 1;
     const int half = tid & 1;
     if (row < b_rows) {
-      const bool have = row < n_mass;
-      cp_async16(bs_ring + slot * B_STAGE + b_slot(row, half),
-                 have ? (const void*)(b8 + b8_row(c, row, n_str) + k * KS +
-                                      16 * half)
-                      : (const void*)b8,
-                 have ? 16 : 0);
+#pragma unroll
+      for (int t = 0; t < SUB; ++t) {
+        const int k = q * SUB + t;
+        const bool have = row < n_mass && (SUB == 1 || k < n_str);
+        cp_async16(bs_ring + slot * BS + t * B_STAGE + b_slot(row, half),
+                   have ? (const void*)(b8 + b8_row(c, row, n_str) + k * KS +
+                                        16 * half)
+                        : (const void*)b8,
+                   have ? 16 : 0);
+      }
     }
   };
 
-  for (int win = 0; win < n_str_cut; win += P_THREADS) {
-    const int k = win + tid;
-    const int n_live = block_compact(
-        k < n_str_cut && flags[(int64_t)c * n_str + k] != 0, k, live, 0,
-        P_THREADS, warp_sums);
+  // a K-stage is live when one of its stripes below kcut is marked
+  auto stage_live = [&](int q) {
+    bool any = false;
+#pragma unroll
+    for (int t = 0; t < SUB; ++t) {
+      const int k = q * SUB + t;
+      any |= k < n_str_cut && flags[(int64_t)c * n_str + k] != 0;
+    }
+    return any;
+  };
+
+  for (int win = 0; win < n_stage; win += P_THREADS) {
+    const int q = win + tid;
+    const int n_live = block_compact(q < n_stage && stage_live(q), q, live, 0,
+                                     P_THREADS, warp_sums);
 #pragma unroll
     for (int st = 0; st < P_STAGES - 1; ++st) {
       if (st < n_live) load_stage(st, live[st]);
@@ -318,12 +385,15 @@ peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
       cp_async_commit();
       if (n_tiles > 0) {
         const int slot = it % P_STAGES;
-        uint32_t af[4];
-        a_fragment(as_ring + slot * A_STAGE, 16 * wm, af);
-        const uint8_t* bs = bs_ring + slot * B_STAGE;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          if (nt < n_tiles) mma_b_rows(acc[nt], af, bs, 64 * wn + 8 * nt);
+        for (int t = 0; t < SUB; ++t) {
+          uint32_t af[4];
+          a_fragment(as_ring + slot * AS + t * A_STAGE, 16 * wm, af);
+          const uint8_t* bs = bs_ring + slot * BS + t * B_STAGE;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+            if (nt < n_tiles) mma_b_rows(acc[nt], af, bs, 64 * wn + 8 * nt);
+        }
       }
     }
     cp_async_wait<0>();
@@ -332,11 +402,11 @@ peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
 
   // epilogue: C(W, 2) * s[j] * [ids differ], reduced over the quad's columns
   const int lane = tid & 31;
-  const int g = lane >> 2;
+  const int gq = lane >> 2;
   const int t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int i = i0 + 16 * wm + g + 8 * h;
+    const int i = i0 + 16 * wm + gq + 8 * h;
     float part = 0.0f;
     if (i < n_a) {
       const int ida = ids_a[i];
@@ -360,63 +430,86 @@ peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
   }
 }
 
+// the operands of one peel launch
+struct PeelArgs {
+  const float* a;
+  const float* s;
+  const int* ids_a;
+  const int* ids_b;
+  const int* kmax_a;
+  const int* kmax_b;
+  const int* flags;
+  const uint8_t* b8;
+  float* out;
+  int n_a, n_b, n_v, n_str, n_ta, n_tb, bi, bj, bk;
+};
+
 // one-time opt-in above 48 KB of dynamic shared memory, per instantiation
-template <bool kSkip, bool kVec>
+template <bool kSkip, bool kVec, bool kWide>
 cudaError_t launch_peel_update(dim3 grid, cudaStream_t stream,
-                               const float* a, const float* s,
-                               const int* ids_a, const int* ids_b,
-                               const int* kmax_a, const int* kmax_b,
-                               const int* flags, const uint8_t* b8,
-                               float* out, int n_a, int n_b, int n_v,
-                               int n_str, int bi, int bj, int bk) {
-  static cudaError_t attr = cudaFuncSetAttribute(
-      peel_update_kernel<kSkip, kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, P_SMEM);
+                               const PeelArgs& p) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      peel_update_kernel<kSkip, kVec, kWide>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p_smem(kWide));
   if (attr != cudaSuccess) return attr;
-  peel_update_kernel<kSkip, kVec><<<grid, P_THREADS, P_SMEM, stream>>>(
-      a, s, ids_a, ids_b, kmax_a, kmax_b, flags, b8, out, n_a, n_b, n_v,
-      n_str, bi, bj, bk);
+  peel_update_kernel<kSkip, kVec, kWide>
+      <<<grid, P_THREADS, p_smem(kWide), stream>>>(
+          p.a, p.s, p.ids_a, p.ids_b, p.kmax_a, p.kmax_b, p.flags, p.b8,
+          p.out, p.n_a, p.n_b, p.n_v, p.n_str, p.n_ta, p.n_tb, p.bi, p.bj,
+          p.bk);
   return cudaGetLastError();
+}
+
+template <bool kSkip, bool kVec>
+cudaError_t launch_peel(dim3 grid, cudaStream_t stream, bool wide,
+                               const PeelArgs& p) {
+  return wide ? launch_peel_update<kSkip, kVec, true>(grid, stream, p)
+              : launch_peel_update<kSkip, kVec, false>(grid, stream, p);
 }
 
 }  // namespace
 
-// Scratch bytes of the peel body: flags (n_chunks x n_str int32, rounded
-// up to 16 bytes) then the s8 mass rows (n_chunks x PB x n_str x 32), with
-// n_str = ceil(n_v / 32) and n_chunks = ceil(n_b / PB).
-// kernels/butterfly.py's peel_scratch_bytes is the same formula.
-static int64_t peel_scratch_bytes(int n_b, int n_v) {
+// Scratch bytes of the peel body over `groups` graphs: flags (groups x
+// n_chunks x n_str int32, rounded up to 16 bytes) then the s8 mass rows
+// (groups x n_chunks x PB x n_str x 32), with n_str = ceil(n_v / 32) and
+// n_chunks = ceil(n_b / PB).  kernels/butterfly.py's peel_scratch_bytes is
+// the same formula.
+static int64_t peel_scratch_bytes(int groups, int n_b, int n_v) {
   const int64_t n_str = (n_v + KS - 1) / KS;
-  const int64_t n_chunks = (n_b + PB - 1) / PB;
+  const int64_t n_chunks = (int64_t)groups * ((n_b + PB - 1) / PB);
   const int64_t flag_bytes = (4 * n_chunks * n_str + 15) / 16 * 16;
   return flag_bytes + n_chunks * PB * n_str * KS;
 }
 
-// The peel body of kernels 1 and 4 (one graph).  Operands as
-// butterfly_update_sparse_f32 with groups = 1; scratch: at least
-// peel_scratch_bytes(n_b, n_v) bytes of device memory, 16-byte aligned,
-// needing no initial value.
+// The peel body of kernels 1 and 4 (one graph: groups = 1, stack = 0) and
+// of kernels 2 and 5 (a stack of `groups` graphs, group g the g-th slice of
+// every operand: stack = 1, four stripes a K-stage).  Operands as
+// butterfly_update_sparse_f32; scratch: at least peel_scratch_bytes(groups,
+// n_b, n_v) bytes of device memory, 16-byte aligned, needing no initial
+// value.
 extern "C" int butterfly_update_peel_f32(
     const float* a, const float* b, const float* s, const int* ids_a,
     const int* ids_b, const int* kmax_a, const int* kmax_b, float* out,
-    int n_a, int n_b, int n_v, int bi, int bj, int bk, void* scratch,
-    long long scratch_bytes, void* stream) {
+    int groups, int n_a, int n_b, int n_v, int n_ta, int n_tb, int bi, int bj,
+    int bk, int stack, void* scratch, long long scratch_bytes, void* stream) {
   if ((kmax_a == nullptr) != (kmax_b == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (scratch_bytes < peel_scratch_bytes(n_b, n_v) ||
+  if (scratch_bytes < peel_scratch_bytes(groups, n_b, n_v) ||
       ((uintptr_t)scratch & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const int n_str = (n_v + KS - 1) / KS;
   const int n_chunks = (n_b + PB - 1) / PB;
   const int n_bands = (n_a + PA - 1) / PA;
-  if (n_chunks > 65535 || n_bands > 65535) return (int)cudaErrorInvalidValue;
+  if (n_chunks > 65535 || n_bands > 65535 || groups > 65535 ||
+      (stack == 0 && groups != 1))
+    return (int)cudaErrorInvalidValue;
   int* flags = static_cast<int*>(scratch);
   uint8_t* b8 = static_cast<uint8_t*>(scratch) +
-                ((4 * (int64_t)n_chunks * n_str + 15) / 16 * 16);
+                ((4 * (int64_t)groups * n_chunks * n_str + 15) / 16 * 16);
   cudaStream_t st = (cudaStream_t)stream;
 
   const dim3 prep_grid((n_str + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32),
-                       n_chunks);
+                       n_chunks, groups);
   const bool vec_b = (n_v % 4 == 0) && (((uintptr_t)b & 15) == 0);
   if (vec_b)
     peel_prep_kernel<true><<<prep_grid, PREP_THREADS, 0, st>>>(
@@ -427,24 +520,16 @@ extern "C" int butterfly_update_peel_f32(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const dim3 grid(n_chunks, n_bands);
+  const dim3 grid(n_chunks, n_bands, groups);
   const bool vec = (n_v % 4 == 0) && (((uintptr_t)a & 15) == 0);
-  const bool skip = kmax_a != nullptr;
-  if (skip && vec)
-    err = launch_peel_update<true, true>(grid, st, a, s, ids_a, ids_b, kmax_a,
-                                         kmax_b, flags, b8, out, n_a, n_b,
-                                         n_v, n_str, bi, bj, bk);
-  else if (skip)
-    err = launch_peel_update<true, false>(grid, st, a, s, ids_a, ids_b,
-                                          kmax_a, kmax_b, flags, b8, out, n_a,
-                                          n_b, n_v, n_str, bi, bj, bk);
-  else if (vec)
-    err = launch_peel_update<false, true>(grid, st, a, s, ids_a, ids_b,
-                                          kmax_a, kmax_b, flags, b8, out, n_a,
-                                          n_b, n_v, n_str, bi, bj, bk);
+  const bool wide = stack != 0;
+  const PeelArgs p{a, s, ids_a, ids_b, kmax_a, kmax_b, flags, b8, out,
+                   n_a, n_b, n_v, n_str, n_ta, n_tb, bi, bj, bk};
+  if (kmax_a != nullptr)
+    err = vec ? launch_peel<true, true>(grid, st, wide, p)
+              : launch_peel<true, false>(grid, st, wide, p);
   else
-    err = launch_peel_update<false, false>(grid, st, a, s, ids_a, ids_b,
-                                           kmax_a, kmax_b, flags, b8, out,
-                                           n_a, n_b, n_v, n_str, bi, bj, bk);
+    err = vec ? launch_peel<false, true>(grid, st, wide, p)
+              : launch_peel<false, false>(grid, st, wide, p);
   return (int)err;
 }

@@ -1,6 +1,6 @@
 // Pieces of the int8 tensor-core peel bodies (sm_90a): butterfly_sparse.cu
-// (the gathered peel form of kernels 1 and 4) and butterfly_tiled.cu (the
-// peel form of kernel 6).
+// (the gathered peel form of kernels 1 and 4, and the stack form of
+// kernels 2 and 5) and butterfly_tiled.cu (the peel form of kernel 6).
 //
 // Both multiply 0/1 operands staged through shared memory in 32-column
 // K-stripes: the f32 A stripe arrives by cp.async (16-byte copies, or
@@ -126,6 +126,45 @@ __device__ __forceinline__ void load_a_stripe(float* dst,
       const int r = r0 + row;
       const int bytes = (r < n_rows && col < kcut) ? 4 : 0;
       cp_async4(dst + a_slot(row, kk >> 2) + (kk & 3),
+                bytes ? (const void*)(src + r * ld + col) : (const void*)src,
+                bytes);
+    }
+  }
+}
+
+// Issue the copy of four neighbouring f32 stripes (128 columns, 512
+// bytes a row) as load_a_stripe does one: rows [r0, r0 + rows), columns
+// [k0, k0 + 128) below `kcut`, stripe t into dst + t * kRows * 32 (a_slot
+// layout).  With kVec, the 32 lanes of a warp copy one row's 512
+// contiguous bytes in one instruction; without it, 128 contiguous bytes.
+template <bool kVec, int kRows, int kThreads>
+__device__ __forceinline__ void load_a_wide(float* dst,
+                                            const float* __restrict__ src,
+                                            int64_t ld, int r0, int n_rows,
+                                            int k0, int kcut) {
+  const int tid = threadIdx.x;
+  if constexpr (kVec) {
+#pragma unroll
+    for (int e = tid; e < kRows * 32; e += kThreads) {
+      const int row = e >> 5;
+      const int c16 = e & 31;             // 16-byte chunk of the row's 512
+      const int col = k0 + 4 * c16;
+      const int r = r0 + row;
+      const int bytes = (r < n_rows) ? min(max(kcut - col, 0), 4) * 4 : 0;
+      cp_async16(dst + (c16 >> 3) * kRows * KS + a_slot(row, c16 & 7),
+                 bytes ? (const void*)(src + r * ld + col) : (const void*)src,
+                 bytes);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < kRows * 4 * KS; e += kThreads) {
+      const int row = e >> 7;
+      const int kk = e & 127;
+      const int col = k0 + kk;
+      const int r = r0 + row;
+      const int bytes = (r < n_rows && col < kcut) ? 4 : 0;
+      cp_async4(dst + (kk >> 5) * kRows * KS + a_slot(row, (kk & 31) >> 2) +
+                    (kk & 3),
                 bytes ? (const void*)(src + r * ld + col) : (const void*)src,
                 bytes);
     }

@@ -480,12 +480,19 @@ def test_sparse_level_loop_matches_interpret(peel_width):
     dict(representation="nope"), dict(tiled_regather_every=0),
     dict(tiled_compact_every=0), dict(tiled_compact_ratio=2.0),
     dict(fd_prepeel_levels=0),
+    dict(backend="sparse", kernel_blocks=(8, 16, 8)),
 ])
 def test_config_validation_mirrors_reference(bad):
+    """``backend="sparse"`` stands for each side's sparse backends: the
+    reference's ``interpret_sparse``, the port's ``torch_sparse`` and
+    ``cuda_sparse``."""
+    sparse = bad.get("backend") == "sparse"
     with pytest.raises(ValueError):
-        JConfig(**bad)
-    with pytest.raises(ValueError):
-        tpl.ReceiptConfig(**bad)
+        JConfig(**(dict(bad, backend="interpret_sparse") if sparse else bad))
+    for backend in (("torch_sparse", "cuda_sparse") if sparse else (None,)):
+        with pytest.raises(ValueError):
+            tpl.ReceiptConfig(**(dict(bad, backend=backend) if sparse
+                                 else bad))
 
 
 def test_config_fields_and_backend_mapping():

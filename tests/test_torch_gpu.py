@@ -259,6 +259,182 @@ def test_each_body_counts_only_its_own_launches(card):
     assert sum(counts.values()) == 2 * sum(times.values())
 
 
+def _stack_operands(gen, card, g_n, m, n_v):
+    """A stack as the FD level loop builds them: each group a
+    degree-sorted staircase with all-zero rows; group 1 (when there is
+    one) all zero."""
+    cut = torch.randint(0, n_v + 1, (g_n, m, 1), generator=gen).sort(
+        dim=1, descending=True).values
+    a = _adj(gen, g_n, m, n_v) * (torch.arange(n_v) < cut)
+    a[torch.rand(g_n, m, generator=gen) < 0.1] = 0.0
+    if g_n > 1:
+        a[1] = 0.0
+    return a.to(card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_v", [33, 1000])
+@pytest.mark.parametrize("m", [1, 33, 128, 777])
+@pytest.mark.parametrize("g_n", [1, 3, 16])
+def test_b2_pairs_body_equals_plain(card, g_n, m, n_v):
+    """Kernel 3's pairs body (int8 wgmma over each group's 128-row tile
+    pairs I <= J, both triangles written) against the plain version on
+    ragged shapes (m and n_v not multiples of 128; odd m takes the
+    single-column stores; rows of 33 floats are not 16-byte aligned),
+    with each group's real extents at square tiles and at bi != bj (the
+    B side rebuilt at bj from the same per-row bound, as ``ops.b2_stack``
+    does), and with all-zero extents over an all-zero stack; then the
+    tile body it replaced.  Each launch is counted under its own body's
+    key only."""
+    gen = torch.Generator().manual_seed(100 * g_n + m + n_v)
+    a = _stack_operands(gen, card, g_n, m, n_v)
+    want = bsp.b2_stack_plain(a, None, None, blocks=None)
+    ops.reset_launch_counts()
+    launched = 0
+    for blocks in [(128, 128, 512), (8, 8, 16), (16, 64, 32), (64, 8, 128)]:
+        bi, bj, bk = blocks
+        row_ext = bsp.row_extents_device(a, bk)
+        ka = bsp.tile_extents(row_ext, bi).to(torch.int32).contiguous()
+        kb = bsp.tile_extents(row_ext, bj).to(torch.int32).contiguous()
+        assert torch.equal(bsp.b2_stack(a, ka, kb, blocks=blocks), want)
+        assert torch.equal(ops.b2_stack(a, blocks=blocks), want)
+        launched += 2
+    zero = torch.zeros_like(a)
+    ka = torch.zeros((g_n, -(-m // 16)), dtype=torch.int32, device=card)
+    kb = torch.zeros((g_n, -(-m // 8)), dtype=torch.int32, device=card)
+    assert torch.equal(bsp.b2_stack(zero, ka, kb, blocks=(16, 8, 32)),
+                       bsp.b2_stack_plain(zero, ka, kb, blocks=(16, 8, 32)))
+    launched += 1
+    ka = bsp.column_extents(a, 16, 64).to(torch.int32).contiguous()
+    assert torch.equal(bsp.b2_stack(a, ka, ka, blocks=(16, 16, 64),
+                                    body="tile"), want)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["b2_stack[pairs]"] == launched
+    assert counts["b2_stack[tile]"] == 1
+    assert sum(counts.values()) == launched + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_v", [33, 1000])
+@pytest.mark.parametrize("m", [1, 33, 128, 777])
+@pytest.mark.parametrize("g_n", [1, 3, 16])
+def test_stack_peel_body_equals_plain(card, g_n, m, n_v):
+    """The stack form of the peel body (kernels 2 and 5: the peel body
+    over G groups, four stripes a K-stage) against the plain versions on
+    ragged shapes: the gathered form (up to 128 gathered rows with
+    repeats, each group its own count of valid rows at random positions,
+    group 0 none, invalid rows that keep their content, gathered ids from
+    past the group's rows as the FD first-level delta has them, and the
+    gathered rows' own ids as the level loop has them), and the full-mask
+    form (B = A, s = a peel mask); kernel 5 with the real per-group
+    extents, with all-zero extents, and at bi != bj; then the tile body
+    on the same operands.  Each launch is counted under its own body's
+    key only."""
+    gen = torch.Generator().manual_seed(7 * g_n + 3 * m + n_v)
+    a = _stack_operands(gen, card, g_n, m, n_v)
+    w = min(128, 2 * m)
+    rows = torch.randint(0, m, (g_n, w), generator=gen)
+    valid = torch.zeros(g_n, w)
+    for g in range(1, g_n):
+        valid[g, torch.randperm(w, generator=gen)[:int(
+            torch.randint(1, w + 1, (1,), generator=gen))]] = 1.0
+    b = torch.take_along_dim(a, rows.to(card)[:, :, None], dim=1)
+    ids = torch.arange(m, dtype=torch.int32, device=card).expand(
+        g_n, m).contiguous()
+    peel = (torch.rand(g_n, m, generator=gen) < 0.3).float().to(card)
+    valid, rows = valid.to(card), rows.to(torch.int32).to(card)
+    forms = {
+        "gathered": (b, valid, rows),
+        "first_level": (b, valid, (m + torch.arange(
+            w, dtype=torch.int32, device=card)).expand(g_n, w).contiguous()),
+        "full_mask": (a, peel, ids),
+    }
+    ops.reset_launch_counts()
+    peel_launches = 0
+    for name, (bb, s, ids_b) in forms.items():
+        args = (a, bb, s, ids, ids_b)
+        want = bfly.butterfly_update_batched_plain(*args)
+        assert torch.equal(bfly.butterfly_update_batched(*args), want), name
+        assert torch.equal(bfly.butterfly_update_batched(*args, body="tile"),
+                           want), name
+        peel_launches += 1
+        for blocks in [(32, 32, 64), (128, 128, 512), (16, 64, 32)]:
+            bi, bj, bk = blocks
+            row_ext = bsp.row_extents_device(a, bk)
+            ka = bsp.tile_extents(row_ext, bi).to(torch.int32).contiguous()
+            kb = bsp.tile_extents(
+                bsp.row_extents_device(bb, bk), bj).to(torch.int32)
+            kb = kb.contiguous()
+            for ext in ((ka, kb), (torch.zeros_like(ka),
+                                   torch.zeros_like(kb))):
+                want5 = bsp.butterfly_update_sparse_batched_plain(
+                    *args, *ext, blocks=blocks)
+                assert torch.equal(bsp.butterfly_update_sparse_batched(
+                    *args, *ext, blocks=blocks), want5), (name, blocks)
+                peel_launches += 1
+            assert torch.equal(want5, torch.zeros_like(want5))
+        assert torch.equal(bsp.butterfly_update_sparse_batched(
+            *args, ka, kb, blocks=blocks, body="tile"),
+            bsp.butterfly_update_sparse_batched_plain(
+                *args, ka, kb, blocks=blocks)), name
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["butterfly_update_batched[peel]"] == len(forms)
+    assert counts["butterfly_update_batched[tile]"] == len(forms)
+    assert (counts["butterfly_update_sparse_batched[peel]"]
+            == peel_launches - len(forms))
+    assert counts["butterfly_update_sparse_batched[tile]"] == len(forms)
+    assert sum(counts.values()) == peel_launches + 2 * len(forms)
+
+
+@pytest.mark.gpu
+def test_each_stack_body_counts_only_its_own_launches(card):
+    """Kernels 2, 3 and 5 count each body's launches under its own key
+    (``[peel]`` / ``[tile]``, ``[pairs]`` / ``[tile]``), every body gives
+    the plain version's bits, and a body a stack does not take raises
+    before any launch."""
+    gen = torch.Generator().manual_seed(4)
+    a = _stack_operands(gen, card, 3, 300, 1000)
+    ids = torch.arange(300, dtype=torch.int32, device=card).expand(
+        3, 300).contiguous()
+    s = (torch.rand(3, 300, generator=gen) < 0.5).float().to(card)
+    blocks = (16, 16, 32)
+    k = bsp.column_extents(a, 16, 32).to(torch.int32).contiguous()
+    want = bfly.butterfly_update_batched_plain(a, a, s, ids, ids)
+    want3 = bsp.b2_stack_plain(a, k, k, blocks=blocks)
+    ops.reset_launch_counts()
+    times = {"peel": 1, "tile": 2}
+    for body, reps in times.items():
+        for _ in range(reps):
+            assert torch.equal(bfly.butterfly_update_batched(
+                a, a, s, ids, ids, body=body), want)
+            assert torch.equal(bsp.butterfly_update_sparse_batched(
+                a, a, s, ids, ids, k, k, blocks=blocks, body=body), want)
+    times3 = {"pairs": 3, "tile": 1}
+    for body, reps in times3.items():
+        for _ in range(reps):
+            assert torch.equal(bsp.b2_stack(a, k, k, blocks=blocks,
+                                            body=body), want3)
+    for bad in ("count", "dense"):
+        with pytest.raises(ValueError, match="body"):
+            bfly.butterfly_update_batched(a, a, s, ids, ids, body=bad)
+        with pytest.raises(ValueError, match="body"):
+            bsp.butterfly_update_sparse_batched(a, a, s, ids, ids, k, k,
+                                                blocks=blocks, body=bad)
+        with pytest.raises(ValueError, match="body"):
+            bsp.b2_stack(a, k, k, blocks=blocks, body=bad)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for body, reps in times.items():
+        assert counts[f"butterfly_update_batched[{body}]"] == reps
+        assert counts[f"butterfly_update_sparse_batched[{body}]"] == reps
+    for body, reps in times3.items():
+        assert counts[f"b2_stack[{body}]"] == reps
+    assert sum(counts.values()) == (2 * sum(times.values())
+                                    + sum(times3.values()))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dispatch", ["subset", "graph"])
 def test_sparse_backend_on_card_matches_oracle(card, dispatch):
@@ -272,9 +448,11 @@ def test_sparse_backend_on_card_matches_oracle(card, dispatch):
     counts = ops.launch_counts()
     assert counts["butterfly_update_sparse[count]"] > 0
     assert counts["butterfly_update_sparse[peel]"] > 0
-    assert counts["butterfly_update_sparse_batched"] > 0
+    assert counts["butterfly_update_sparse_batched[peel]"] > 0
+    assert counts["b2_stack[pairs]"] > 0
     assert (counts["butterfly_update[count]"] == counts["butterfly_update[peel]"]
-            == counts["butterfly_update_batched"] == 0)
+            == counts["butterfly_update_batched[peel]"] == 0)
+    assert not any(counts[k] for k in counts if k.endswith("[tile]"))
 
 
 @pytest.mark.gpu
@@ -372,8 +550,9 @@ def test_main_path_on_card_matches_oracle(card, mode):
     counts = ops.launch_counts()
     assert counts["butterfly_update[count]"] > 0
     assert counts["butterfly_update[peel]"] > 0
-    assert counts["butterfly_update_batched"] > 0
-    assert (counts["b2_stack"] > 0) == (mode == "b2")
+    assert counts["butterfly_update_batched[peel]"] > 0
+    assert (counts["b2_stack[pairs]"] > 0) == (mode == "b2")
+    assert not any(counts[k] for k in counts if k.endswith("[tile]"))
 
 
 @pytest.mark.gpu

@@ -387,12 +387,15 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     assert tops.launch_counts() == {"butterfly_update[count]": 0,
                                     "butterfly_update[peel]": 0,
                                     "butterfly_update[tile]": 0,
-                                    "butterfly_update_batched": 0,
+                                    "butterfly_update_batched[peel]": 0,
+                                    "butterfly_update_batched[tile]": 0,
                                     "butterfly_update_sparse[count]": 0,
                                     "butterfly_update_sparse[peel]": 0,
                                     "butterfly_update_sparse[tile]": 0,
-                                    "butterfly_update_sparse_batched": 0,
-                                    "b2_stack": 0,
+                                    "butterfly_update_sparse_batched[peel]": 0,
+                                    "butterfly_update_sparse_batched[tile]": 0,
+                                    "b2_stack[pairs]": 0,
+                                    "b2_stack[tile]": 0,
                                     "butterfly_update_tiled[count]": 0,
                                     "butterfly_update_tiled[peel]": 0}
 
@@ -682,6 +685,23 @@ def test_peel_live_bound_matches_brute_force(n_valid, extents):
     s[rng.choice(n_b, n_valid, replace=False)] = 1.0
     ka = rng.integers(0, 6, -(-n_a // blocks[0])).astype(np.int32)
     kb = rng.integers(0, 6, -(-n_b // blocks[1])).astype(np.int32)
+    ops, want_bytes, live = _peel_brute_force(a, b, s, ka, kb, blocks,
+                                              extents)
+    args = (torch, _t(a), _t(b), _t(s))
+    if extents:
+        args += (_t(ka), _t(kb), blocks)
+    got_ops, got_bytes, got_live = cs.peel_live_work(*args)
+    assert got_ops == ops
+    assert got_bytes == want_bytes
+    assert got_live == live
+
+
+def _peel_brute_force(a, b, s, ka, kb, blocks, extents):
+    """The gathered peel form's operations, bytes and live columns, counted
+    over every (A row, gathered row, column)."""
+    n_a, n_v = a.shape
+    n_b = b.shape[0]
+    n_valid = int((s != 0).sum())
     live = (b[s != 0] != 0).any(axis=0)
 
     def lim(i, j):
@@ -699,13 +719,136 @@ def test_peel_live_bound_matches_brute_force(n_valid, extents):
     want_bytes = a_bytes + 4.0 * (n_valid * n_v + n_b + n_valid + 2 * n_a)
     if extents:
         want_bytes += 4.0 * (ka.size + kb.size)
-    args = (torch, _t(a), _t(b), _t(s))
-    if extents:
-        args += (_t(ka), _t(kb), blocks)
-    got_ops, got_bytes, got_live = cs.peel_live_work(*args)
+    return ops, want_bytes, live.sum()
+
+
+@pytest.mark.parametrize("extents", [False, True])
+def test_stack_peel_bound_matches_brute_force(extents):
+    """The stack form's bound (``chip_smoke.stack_peel_live_work``, kernels
+    2 and 5) is the gathered peel form's, counted over every (A row,
+    gathered row, column) of each group with the group's own extents,
+    summed over the groups: a group with no valid row, one with one, one
+    with several at random positions, invalid rows that keep their
+    content."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(21)
+    g_n, n_a, n_b, n_v = 3, 21, 9, 37
+    blocks = (4, 2, 8)
+    a = _adj(rng, g_n, n_a, n_v, density=0.2)
+    b = _adj(rng, g_n, n_b, n_v, density=0.15)
+    s = np.zeros((g_n, n_b), np.float32)
+    for g, n_valid in enumerate((0, 1, 5)):
+        s[g, rng.choice(n_b, n_valid, replace=False)] = 1.0
+    ka = rng.integers(0, 6, (g_n, -(-n_a // blocks[0]))).astype(np.int32)
+    kb = rng.integers(0, 6, (g_n, -(-n_b // blocks[1]))).astype(np.int32)
+    ops = nbytes = 0.0
+    for g in range(g_n):
+        o, n, _ = _peel_brute_force(a[g], b[g], s[g], ka[g], kb[g], blocks,
+                                    extents)
+        ops += o
+        nbytes += n
+    ext = (_t(ka), _t(kb), blocks) if extents else ()
+    got_ops, got_bytes = cs.stack_peel_live_work(torch, _t(a), _t(b), _t(s),
+                                                 *ext)
     assert got_ops == ops
-    assert got_bytes == want_bytes
-    assert got_live == live.sum()
+    assert got_bytes == nbytes
+
+
+@pytest.mark.parametrize("extents", [None, (4, 4, 8), (4, 8, 8), (5, 3, 3)])
+def test_b2_pair_bound_matches_brute_force(extents):
+    """Kernel 3's bound (``chip_smoke.b2_pair_ops``) against a count over
+    every pair x < y of distinct rows of each group that both hold a
+    nonzero: 2 operations per column some row of the group holds a
+    nonzero in, below min(lim_x, lim_y), lim_x = min(kmax_a[x / bi],
+    kmax_b[x / bj]) * bk (clipped at n_v); all-zero rows, an all-zero
+    column band and an all-zero group, a ragged last row tile, square
+    tiles and bi != bj."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(31)
+    g_n, m, n_v = 3, 23, 37
+    a = (rng.random((g_n, m, n_v)) < 0.3).astype(np.float32)
+    a[0, rng.choice(m, 6, replace=False)] = 0.0
+    a[:, m - 3:] = 0.0
+    a[:, :, 9:13] = 0.0
+    a[2] = 0.0
+    ka = kb = None
+    if extents is not None:
+        bi, bj, bk = extents
+        ka = rng.integers(0, 7, (g_n, -(-m // bi))).astype(np.int32)
+        kb = rng.integers(0, 7, (g_n, -(-m // bj))).astype(np.int32)
+    ops = 0
+    for g in range(g_n):
+        full = (a[g] != 0).any(axis=1)
+        live = (a[g] != 0).any(axis=0)
+
+        def lim(x):
+            if ka is None:
+                return n_v
+            return min(min(ka[g, x // bi], kb[g, x // bj]) * bk, n_v)
+
+        for x in range(m):
+            for y in range(x + 1, m):
+                if full[x] and full[y]:
+                    ops += 2 * int(live[:min(lim(x), lim(y))].sum())
+    ext = () if ka is None else (_t(ka), _t(kb), extents)
+    assert cs.b2_pair_ops(torch, _t(a), *ext) == ops
+
+
+def test_b2_and_stack_peel_scratch_sizes():
+    """Kernel 3's pairs body takes the s8 copy of the stack, each group
+    padded to 128-row tiles and a 128-byte pitch; the peel body over a
+    stack takes one flag per 32-column stripe of every group's 128-row
+    chunks (all rounded once to 16 bytes), then every chunk's s8 rows; a
+    one-graph launch is a stack of one."""
+    assert tbs.b2_scratch_bytes(1, 1, 1) == 128 * 128
+    assert tbs.b2_scratch_bytes(3, 777, 1000) == 3 * 896 * 1024
+    assert tbs.b2_scratch_bytes(16, 1024, 1024) == 16 * 1024 * 1024
+    assert tbf.peel_scratch_bytes(257, 1000) == 384 + 3 * 128 * 32 * 32
+    assert tbf.peel_scratch_bytes(257, 1000, 1) == \
+        tbf.peel_scratch_bytes(257, 1000)
+    # 3 groups x 3 chunks x 32 stripes of flags, 1,152 bytes
+    assert tbf.peel_scratch_bytes(257, 1000, 3) == 1152 + 9 * 128 * 32 * 32
+    # 3 groups x 1 chunk x 2 stripes of flags, 24 bytes rounded to 32
+    assert tbf.peel_scratch_bytes(1, 33, 3) == 32 + 3 * 128 * 2 * 32
+
+
+def test_stack_wrappers_check_their_body_on_every_device():
+    """Kernels 2 and 5 take the peel or the tile body, kernel 3 the pairs
+    or the tile body; any other body raises on CPU tensors too (it would
+    on the card, before any launch), and on CPU tensors every body named
+    takes the plain version, uncounted."""
+    rng = np.random.default_rng(13)
+    a = _t(_adj(rng, 2, 16, 12))
+    b = a[:, :5].contiguous()
+    s = torch.ones(2, 5)
+    ids = torch.arange(16, dtype=torch.int32).expand(2, 16).contiguous()
+    ids_b = ids[:, :5].contiguous()
+    ka = torch.full((2, 2), 2, dtype=torch.int32)
+    kb = torch.full((2, 1), 2, dtype=torch.int32)
+    blocks = (8, 8, 8)
+    tops.reset_launch_counts()
+    want = tbf.butterfly_update_batched_plain(a, b, s, ids, ids_b)
+    want5 = tbs.butterfly_update_sparse_batched_plain(a, b, s, ids, ids_b, ka,
+                                                      kb, blocks=blocks)
+    want3 = tbs.b2_stack_plain(a, ka, ka, blocks=blocks)
+    for body in tbf.STACK_BODIES:
+        assert torch.equal(tbf.butterfly_update_batched(
+            a, b, s, ids, ids_b, body=body), want)
+        assert torch.equal(tbs.butterfly_update_sparse_batched(
+            a, b, s, ids, ids_b, ka, kb, blocks=blocks, body=body), want5)
+    for body in tbs.B2_BODIES:
+        assert torch.equal(tbs.b2_stack(a, ka, ka, blocks=blocks, body=body),
+                           want3)
+    for bad in ("count", "pairs", "dense"):
+        with pytest.raises(ValueError, match="body"):
+            tbf.butterfly_update_batched(a, b, s, ids, ids_b, body=bad)
+        with pytest.raises(ValueError, match="body"):
+            tbs.butterfly_update_sparse_batched(a, b, s, ids, ids_b, ka, kb,
+                                                blocks=blocks, body=bad)
+    for bad in ("count", "peel", "dense"):
+        with pytest.raises(ValueError, match="body"):
+            tbs.b2_stack(a, ka, ka, blocks=blocks, body=bad)
+    assert sum(tops.launch_counts().values()) == 0
 
 
 @pytest.mark.parametrize("extents", [None, (4, 4, 8), (5, 5, 3)])

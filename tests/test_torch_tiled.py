@@ -130,11 +130,17 @@ def test_tiled_graph_rejects_bad_geometry():
 def test_build_tiled_matches_reference_layout(case):
     """``tiled_blocks`` is ``(max(bi, bj), bk)`` for every port backend,
     the reference's rule for its kernel backends, so ``build_tiled`` lays
-    the graph out as the reference's ``interpret`` backend does."""
+    the graph out as the reference's ``interpret`` backend does.  The
+    sparse backends take square row tiles only, as the reference's do, so
+    ``bi != bj`` is laid out through the dense backend and refused on the
+    sparse one."""
     g = GRAPH_CASES[case]()
+    with pytest.raises(ValueError, match="square row tiles"):
+        tpl.ReceiptConfig(backend="torch_sparse", kernel_blocks=(8, 16, 32))
     for blocks in [(8, 8, 8), (8, 16, 32)]:
         jcfg = JConfig(backend="interpret", kernel_blocks=blocks)
-        for backend in ("torch", "torch_sparse"):
+        square = blocks[0] == blocks[1]
+        for backend in ("torch", "torch_sparse") if square else ("torch",):
             tcfg = tpl.ReceiptConfig(backend=backend, kernel_blocks=blocks)
             assert ttiled.tiled_blocks(tcfg) == (max(blocks[:2]), blocks[2])
             jt = j_build_tiled(g, jcfg)
