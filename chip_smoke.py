@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py          # needs one CUDA card; 3 to 6 minutes
+    python3 chip_smoke.py          # needs one CUDA card; 4 to 8 minutes
 
 Phases (any failure exits nonzero; no phase is caught and ignored):
 
@@ -31,8 +31,13 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    3), then held on ragged (3, 777, 1000) stacks, kernel 3 also at
    bi != bj; kernel 6 against its count body at every alive row (its
    count launch, which takes the peel body too) and at 1, 16, 64 and 256
-   peeled rows.  Times are device time per call (a
-   CUDA graph of many calls, replayed between CUDA events); the new
+   peeled rows; kernels 2 and 5 also at ``Executor.map``'s counting
+   form, the map fleet's own (128, 1024, 512) stack with A = B and every
+   row alive (bound: 2 G m^2 n_v int8 operations or one read of the
+   stack, the larger), and kernel 3 at ``map``'s b2 form on that stack
+   (bound over its distinct nonzero row pairs, or the stack read and the
+   (128, 1024, 1024) output written once).  Times are device time per
+   call (a CUDA graph of many calls, replayed between CUDA events); the new
    bodies' eager time, host enqueue included, and their launches' device
    times (profiler) are printed beside;
    then the times of the tiled path's tile-list passes (the in-place
@@ -60,6 +65,27 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    ``torch.profiler`` (device time by kernel, busy share of the wall, and
    the device time of each call of kernels 2, 3 and 5) and ``cProfile``
    (host time by function);
+5b. the API layer (``repro_torch.api``, the port's entry point), each
+   path with the launch counts set to 0 just before and read just after:
+   ``Executor(EngineConfig(num_partitions=150, backend="cuda_sparse",
+   cd_dispatch="graph"))`` on the full-size graph, cold, then a cache
+   hit on a vertex-permuted copy, with the plan's ``describe()``, its
+   planning time, ``cache_stats``, host round trips and
+   ``plan.padded_bytes`` beside ``max_memory_allocated``; the config's
+   ``representation="auto"`` must pick dense; a memory budget between
+   the tile list's estimate and the dense matrix's bytes (64-wide tiles)
+   must route it tiled through kernel 6; ``Executor.map`` on a synthetic
+   fleet of 128 power-law graphs ``powerlaw_bipartite(1024, 512, 8192,
+   seed=100 + k)``, sized to fill one chunk of the default
+   ``map_stack_cells`` (one (1024, 512) bucket, one chunk) on ``"cuda"``,
+   ``"cuda_sparse"`` and ``"cuda_sparse"`` with ``fd_update_mode="b2"``,
+   then a warm fleet (``seed=500 + k``) whose cache hit rate (chunk
+   shapes seen before: kept for parity, nothing is reused) must be 1.0,
+   every member
+   equal to the exact oracle and members 0-3 to their own
+   ``Executor.decompose``; ``verify=True`` on phase 4's graphs and
+   sp_mid; phase 5's paths now run through the facade's Executor, and
+   their planning time, timed apart, is logged beside their walls;
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
    on the sp_mid and sp_large graphs of the reference's benchmark ladder
@@ -71,6 +97,7 @@ It imports nothing of ``repro`` (the JAX package) or ``jax``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import json
@@ -86,6 +113,14 @@ HBM_BYTES_PER_S = 3.35e12
 EXACT_LIMIT = 2 ** 24        # f32 integer regime (DESIGN.md section 8)
 
 FULL = dict(n_u=6486, n_v=12942, m=96662, seed=0, partitions=150)
+# Executor.map's fleet: MAP_GROUPS synthetic power-law graphs of this
+# shape (seeds 100 + k cold, 500 + k warm), sized so that the fleet fills
+# one chunk of the default map_stack_cells: one (1024, 512) bucket
+MAP_FLEET = (1024, 512, 8192)
+MAP_GROUPS = 128
+# the forced tiled route: 64-wide tiles, where the full-size graph's tile
+# list (its Planner estimate) fits below its dense matrix
+TILED_ADMISSION_BLOCKS = (64, 64, 64)
 
 
 def log(*args):
@@ -367,6 +402,20 @@ def vhub_graph(BipartiteGraph, n_u=300, n_v=60, n_hubs=6, seed=6):
     return BipartiteGraph.from_edges(n_u, n_v, eu, ev)
 
 
+def map_stack(np, fleet):
+    """The (G, 1024, 512) stack ``Executor.map`` builds for ``fleet``:
+    each graph degree-sorted, its degree-<2 columns dropped, scattered
+    into its slice (as ``Executor._map_task`` / ``_map_chunk``)."""
+    import torch
+
+    a = np.zeros((len(fleet), 1024, 512), np.float32)
+    for k, g in enumerate(fleet):
+        sub = g.relabel_by_degree().induced_on_u(np.arange(g.n_u),
+                                                 min_degree_v=2)[0]
+        a[k, sub.edges_u, sub.edges_v] = 1.0
+    return torch.from_numpy(a)
+
+
 STACK_LABEL = "stack launch "
 
 
@@ -474,6 +523,221 @@ def where_the_time_goes(torch, run, top: int = 8):
             log("  host " + line.strip().replace(root, ""))
 
 
+def counted(torch, ops, launches, pname, run):
+    """Drive one path with every launch count set to 0 just before and
+    read just after (into ``launches[pname]``); returns (result, wall s,
+    max_memory_allocated bytes of the run)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches[pname] = ops.launch_counts()
+    return out, wall, torch.cuda.max_memory_allocated()
+
+
+def executor_phase(torch, np, dev, g_full, want, fleet, launches,
+                   EngineConfig, Executor, exact_theta, bup_oracle, ops,
+                   small, powerlaw_bipartite):
+    """Phase 5b: the port's entry point, ``repro_torch.api``, on the card.
+
+    ``Executor.decompose`` at full size (cold, then a cache hit on a
+    vertex-permuted copy; the config's ``representation="auto"`` must
+    pick dense), the admission-forced tiled route, ``Executor.map`` on
+    MAP_GROUPS cohort graphs on three kernel routes (cold fleet, then a
+    warm one), and ``verify=True`` on phase 4's graphs and sp_mid.
+    Every theta is held to an exact oracle.
+    """
+    cfg = EngineConfig(num_partitions=FULL["partitions"],
+                       backend="cuda_sparse", cd_dispatch="graph")
+    ex = Executor(cfg)
+    if ex.device.type != "cuda":
+        raise AssertionError("Executor() without a device must run on the "
+                             "card")
+    t0 = time.perf_counter()
+    plan = ex.plan(g_full)
+    plan_s = time.perf_counter() - t0
+    log(f"executor: plan of the full-size graph in {plan_s:.4f} s "
+        f"(Executor.plan alone)\n" + plan.describe())
+    occ = plan.cost_model["tile_occupancy"]
+    if plan.representation != "dense":
+        raise AssertionError(f"representation='auto' routed "
+                             f"{plan.representation} at occupancy {occ}")
+    log(f"executor: representation='auto' -> dense (occupancy {occ:.4f} at "
+        f"{plan.cost_model['tile_blocks']} tiles; rule: tiled at <= "
+        f"{plan.cost_model['occupancy_crossover']} and >= "
+        f"{plan.cost_model['min_dense_cells']} dense cells)")
+    rng = np.random.default_rng(1)
+    pu, pv = rng.permutation(g_full.n_u), rng.permutation(g_full.n_v)
+    g_perm = type(g_full).from_edges(g_full.n_u, g_full.n_v,
+                                     pu[g_full.edges_u], pv[g_full.edges_v])
+    want_perm = np.empty_like(want)
+    want_perm[pu] = want
+    runs = (("executor_cold", g_full, want, plan),
+            ("executor_hit", g_perm, want_perm, None))
+    for pname, g, want_g, pl in runs:
+        if pl is None:
+            t0 = time.perf_counter()
+            pl = ex.plan(g)
+            plan_s = time.perf_counter() - t0
+        td, wall, peak = counted(torch, ops, launches, pname,
+                                 lambda: ex.decompose(g, plan=pl))
+        if not np.array_equal(td.theta, want_g):
+            raise AssertionError(f"{pname}: theta differs from the exact "
+                                 "oracle")
+        st = td.stats
+        log(f"{pname}: theta == exact oracle | planning {plan_s:.4f} s, "
+            f"wall {wall:.3f} s (time_cd {st.time_cd:.3f}, time_fd "
+            f"{st.time_fd:.3f}) | host_round_trips {st.host_round_trips} | "
+            f"rho_cd {st.rho_cd} rho_fd {st.rho_fd} wedges_cd "
+            f"{st.wedges_cd} wedges_fd {st.wedges_fd} dgm_device_compactions"
+            f" {st.dgm_device_compactions} | cache_stats {ex.cache_stats} | "
+            f"measured cd_peel_width {pl.measured.cd_peel_width}, "
+            f"{len(pl.measured.fd_level_widths)} FD widths, runs "
+            f"{pl.measured.runs}")
+        log(f"{pname}: plan.padded_bytes {pl.padded_bytes} | "
+            f"max_memory_allocated {peak} bytes (ratio "
+            f"{peak / pl.padded_bytes:.3f}) | launches {launches[pname]}")
+    if ex.cache_stats["hits"] != 1:
+        raise AssertionError(f"the permuted copy missed the cache: "
+                             f"{ex.cache_stats}")
+
+    # the forced tiled route: a budget between the tile list's estimate
+    # and the dense matrix's fixed bytes (at 64-wide tiles: at 128 x 512
+    # the estimate exceeds the dense bytes on this graph)
+    probe = Executor(dataclasses.replace(
+        cfg, kernel_blocks=TILED_ADMISSION_BLOCKS)).plan(g_full).cost_model
+    budget = (probe["tiled_bytes"] + probe["dense_fixed_bytes"]) // 2
+    ex_t = Executor(dataclasses.replace(
+        cfg, kernel_blocks=TILED_ADMISSION_BLOCKS,
+        memory_budget_bytes=int(budget)))
+    t0 = time.perf_counter()
+    pl = ex_t.plan(g_full)
+    plan_s = time.perf_counter() - t0
+    if pl.representation != "tiled":
+        raise AssertionError(f"admission did not route tiled:\n"
+                             f"{pl.describe()}")
+    td, wall, peak = counted(torch, ops, launches, "executor_tiled",
+                             lambda: ex_t.decompose(g_full, plan=pl))
+    if not np.array_equal(td.theta, want):
+        raise AssertionError("executor_tiled: theta differs from the exact "
+                             "oracle")
+    if launches["executor_tiled"]["butterfly_update_tiled[peel]"] <= 0:
+        raise AssertionError("executor_tiled: kernel 6 never launched")
+    log(f"executor_tiled: budget {budget} bytes between tiled "
+        f"{probe['tiled_bytes']} and dense fixed "
+        f"{probe['dense_fixed_bytes']} (blocks {TILED_ADMISSION_BLOCKS}, "
+        f"{probe['n_tiles']} tiles) -> {pl.representation}; theta == exact "
+        f"oracle | planning {plan_s:.4f} s, wall {wall:.3f} s, "
+        f"host_round_trips {td.stats.host_round_trips}, rho_fd "
+        f"{td.stats.rho_fd} | padded_bytes {pl.padded_bytes} | "
+        f"max_memory_allocated {peak} | launches "
+        f"{launches['executor_tiled']}")
+
+    # Executor.map: 128 cohort graphs, one (1024, 512) bucket, one chunk
+    t0 = time.perf_counter()
+    want_fleet = [exact_theta(g) for g in fleet]
+    warm = [powerlaw_bipartite(*MAP_FLEET, seed=500 + k)
+            for k in range(MAP_GROUPS)]
+    want_warm = [exact_theta(g) for g in warm]
+    log(f"map: exact oracles of {2 * MAP_GROUPS} graphs in "
+        f"{time.perf_counter() - t0:.1f} s; max support "
+        f"{max(w[1] for w in want_fleet + want_warm)}")
+    if max(w[1] for w in want_fleet + want_warm) >= EXACT_LIMIT:
+        raise AssertionError("a fleet support is past 2^24")
+    for pname, backend, mode in (("map_cuda", "cuda", "auto"),
+                                 ("map_cuda_sparse", "cuda_sparse", "auto"),
+                                 ("map_cuda_sparse_b2", "cuda_sparse",
+                                  "b2")):
+        exm = Executor(EngineConfig(backend=backend, fd_update_mode=mode))
+        mapped = {}
+        for what, graphs, wants in (("cold", fleet, want_fleet),
+                                    ("warm", warm, want_warm)):
+            key = pname if what == "cold" else f"{pname}_warm"
+            res, wall, peak = counted(torch, ops, launches, key,
+                                      lambda: exm.map(graphs, strict=True))
+            bad = [k for k, (r, w) in enumerate(zip(res, wants))
+                   if not np.array_equal(r.theta, w[0])]
+            if bad:
+                raise AssertionError(f"{key}: theta differs from the exact "
+                                     f"oracle on members {bad[:8]}")
+            mapped[what] = res
+            rep = exm.last_map_report
+            hit_rate = rep["cache_hits"] / max(
+                rep["cache_hits"] + rep["cache_misses"], 1)
+            if what == "warm" and hit_rate != 1.0:
+                raise AssertionError(f"{key}: cache hit rate {hit_rate}")
+            if rep["groups"] != 1 or rep["chunks"] != 1:
+                raise AssertionError(f"{key}: expected one bucket and one "
+                                     f"chunk, got {rep}")
+            log(f"{key}: {len(graphs)} graphs, theta == exact oracle | wall "
+                f"{wall:.3f} s | groups {rep['groups']} chunks "
+                f"{rep['chunks']} counting_dispatches "
+                f"{rep['counting_dispatches']} device_loop_calls "
+                f"{rep['device_loop_calls']} host_round_trips "
+                f"{rep['host_round_trips']} cache hit rate {hit_rate:.3f} "
+                f"(chunk shapes seen before; kept for parity, nothing is "
+                f"reused) | "
+                f"max rho_fd {max(r.stats.rho_fd for r in res)} | "
+                f"max_memory_allocated {peak} | launches "
+                + str({k: v for k, v in launches[key].items() if v}))
+            if what == "cold":
+                # where a fleet's time goes: two more runs, profiled
+                where_the_time_goes(torch, lambda: exm.map(graphs), top=5)
+        for k in range(4):
+            one = exm.decompose(fleet[k])
+            if not np.array_equal(one.theta, mapped["cold"][k].theta):
+                raise AssertionError(f"{pname}: member {k} differs from its "
+                                     "own Executor.decompose")
+        log(f"{pname}: members 0-3 bit-identical to their own "
+            "Executor.decompose")
+    del warm, want_warm, mapped, res
+
+    # verify mode: the host float64 checker (a dense A A^T per boundary)
+    # on phase 4's graphs and sp_mid, P = 8 (EngineConfig's default)
+    checks = {}
+    sp_mid = powerlaw_bipartite(4096, 4096, 24000, seed=14)
+    runs = [(gname, g, b) for gname, g in small.items()
+            for b in ("cuda", "cuda_sparse")]
+    runs.append(("sp_mid", sp_mid, "cuda_sparse"))
+    for gname, g, backend in runs:
+        t0 = time.perf_counter()
+        td = Executor(EngineConfig(backend=backend)).decompose(g,
+                                                               verify=True)
+        want_g = (exact_theta(g) if gname == "sp_mid" else bup_oracle(g))[0]
+        if not (td.stats.verified and np.array_equal(td.theta, want_g)):
+            raise AssertionError(f"verify {gname} {backend}: theta or the "
+                                 "verification failed")
+        checks[f"{gname}/{backend}"] = (
+            td.stats.verify_checks, round(time.perf_counter() - t0, 3))
+    log(f"verify=True, theta exact (checks, s with the check): {checks}")
+
+    # each path launched the bodies it should, and no f32 tile body
+    must = {"executor_cold": ("butterfly_update_sparse[count]",
+                              "butterfly_update_sparse[peel]",
+                              "butterfly_update_sparse_batched[peel]"),
+            "executor_tiled": ("butterfly_update_tiled[peel]",),
+            "map_cuda": ("butterfly_update_batched[peel]",),
+            "map_cuda_sparse": ("butterfly_update_sparse_batched[peel]",),
+            "map_cuda_sparse_b2": ("butterfly_update_sparse_batched[peel]",
+                                   "b2_stack[pairs]")}
+    for pname, keys in must.items():
+        idle = [k for k in keys if launches[pname][k] <= 0]
+        if idle:
+            raise AssertionError(f"{pname}: {idle} never launched")
+    for pname in ("executor_cold", "executor_hit", "executor_tiled",
+                  *(p_ + w for p_ in ("map_cuda", "map_cuda_sparse",
+                                      "map_cuda_sparse_b2")
+                    for w in ("", "_warm"))):
+        tile = [k for k, n in launches[pname].items()
+                if (k.endswith("[tile]") or k == "butterfly_update_tiled"
+                    "[count]") and n]
+        if tile:
+            raise AssertionError(f"{pname}: launched {tile}")
+
+
 def main() -> int:
     import torch
 
@@ -484,6 +748,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
 
+    from repro_torch.api import EngineConfig, Executor, Planner
     from repro_torch.core.engine import DeviceGraph, ReceiptConfig
     from repro_torch.core.engine.tiled import build_tiled
     from repro_torch.core.graph import (BipartiteGraph, paper_fig1_graph,
@@ -841,6 +1106,53 @@ def main() -> int:
                        + 4.0 * (2 * g_n * w + 2 * g_n * mm + kmax3.numel()
                                 + kb5.numel())))
     del a3, b3, st, b5
+    # kernels 2 and 5 at Executor.map's counting form: the fleet's own
+    # (128, 1024, 512) stack (phase 5b's cold fleet, degree-sorted and
+    # DGM-compacted as map builds it), A = B, every row alive; bound: the
+    # int8 tensor-core time of the full products (2 G m^2 n_v operations)
+    # or the HBM time of reading the stack once (and writing out),
+    # whichever is larger
+    fleet = [powerlaw_bipartite(*MAP_FLEET, seed=100 + k)
+             for k in range(MAP_GROUPS)]
+    am = map_stack(np, fleet).to(dev)
+    g_m, m_m, c_m = am.shape
+    sm = torch.ones(g_m, m_m, device=dev)
+    idsm = torch.arange(m_m, dtype=torch.int32, device=dev).expand(
+        g_m, m_m).contiguous()
+    kmm = bsp.tile_extents(bsp.row_extents_device(am, bk), bi).to(
+        torch.int32).contiguous()
+    ops_m = 2.0 * g_m * m_m * m_m * c_m
+    bytes_m = 4.0 * (am.numel() + 2 * sm.numel() + idsm.numel())
+    log(f"map counting form: stack {tuple(am.shape)}, "
+        f"{int(am.sum().item())} nonzeros, {ops_m:.4g} operations, "
+        f"{bytes_m:.4g} bytes")
+    measure("butterfly_update_batched[map_count]",
+            lambda: bfly.butterfly_update_batched(am, am, sm, idsm, idsm),
+            lambda: bfly.butterfly_update_batched_plain(am, am, sm, idsm,
+                                                        idsm),
+            lambda: torch.bmm(am, am.transpose(1, 2)), ops_m, bytes_m,
+            reps=10)
+    measure("butterfly_update_sparse_batched[map_count]",
+            lambda: bsp.butterfly_update_sparse_batched(
+                am, am, sm, idsm, idsm, kmm, kmm, blocks=blocks),
+            lambda: bsp.butterfly_update_sparse_batched_plain(
+                am, am, sm, idsm, idsm, kmm, kmm, blocks=blocks),
+            lambda: torch.bmm(am, am.transpose(1, 2)), ops_m, bytes_m,
+            reps=10)
+    # kernel 3 at map's b2 form (map_cuda_sparse_b2's level loop): the
+    # same stack and the extents ops.b2_stack derives from it, a 512 MB
+    # (128, 1024, 1024) output; bound over the distinct nonzero row pairs
+    # (b2_pair_ops) or the stack read once and the output written once
+    if not torch.equal(kmm, bsp.column_extents(am, bi, bk).to(torch.int32)):
+        raise AssertionError("map_b2: the extents differ from the ones "
+                             "ops.b2_stack derives")
+    bytes_mb2 = 4.0 * (am.numel() + g_m * m_m * m_m + 2 * kmm.numel())
+    measure("b2_stack[map_b2]",
+            lambda: bsp.b2_stack(am, kmm, kmm, blocks=blocks),
+            lambda: bsp.b2_stack_plain(am, kmm, kmm, blocks=blocks),
+            lambda: torch.bmm(am, am.transpose(1, 2)),
+            b2_pair_ops(torch, am, kmm, kmm, blocks), bytes_mb2, reps=10)
+    del am, sm, idsm, kmm
     # the ragged stacks the engine may hand kernels 2, 3 and 5 (m and n_v
     # not multiples of any tile, rows of 1,000 floats), kernel 3 also at
     # bi != bj, the B side's extents rebuilt at bj as ops.b2_stack does:
@@ -1057,6 +1369,13 @@ def main() -> int:
         return tip_decompose(g, cfg, side="U", device=dev)
 
     for pname, cfg in paths.items():
+        # the facade plans inside each run (api.decompose on a fresh
+        # Executor); the same planning, timed apart, is logged beside
+        plan_s = None
+        if pname != "parb":
+            t0 = time.perf_counter()
+            Planner(cfg, device=dev).plan(g_full)
+            plan_s = time.perf_counter() - t0
         shapes = []
         restore = stack_launches(torch, bfly, bsp, shapes)
         torch.cuda.synchronize()
@@ -1074,6 +1393,7 @@ def main() -> int:
                                  f"exact oracle on {bad} vertices")
         log(f"full size {pname}: theta == exact oracle (max theta "
             f"{int(theta.max())})")
+        log(f"full size {pname}: planning {plan_s} s (timed apart)")
         log(f"full size {pname}: wall {wall:.3f} s | time_count "
             f"{stats.time_count:.3f} time_cd {stats.time_cd:.3f} time_fd "
             f"{stats.time_fd:.3f} s")
@@ -1130,6 +1450,11 @@ def main() -> int:
                              f"{rho_parb}: the two run the same schedule")
     log(f"full size: tiled rho_fd {rho_tiled} == parb rho_cd {rho_parb}")
 
+    # ---- 5b. the API layer: Executor.decompose and Executor.map ------- #
+    executor_phase(torch, np, dev, g_full, want, fleet, launches,
+                   EngineConfig, Executor, exact_theta, bup_oracle, ops,
+                   small, powerlaw_bipartite)
+
     # ---- 6. crossover: staircase + graph against tiled ---------------- #
     # the full-size graph's walls are phase 5's timed runs: the kernels and
     # the allocator are warm by then (phases 3-4), and a second run there
@@ -1181,7 +1506,14 @@ def main() -> int:
         ("butterfly_update_batched[peel]", "butterfly_update_batched[peel]",
          "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
          "src/repro/kernels/butterfly.py:225"),
+        ("butterfly_update_batched[peel]",
+         "butterfly_update_batched[map_count]",
+         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
+         "src/repro/kernels/butterfly.py:225"),
         ("b2_stack[pairs]", "b2_stack[pairs]",
+         "src/repro_torch/kernels/csrc/b2_stack.cu",
+         "src/repro/kernels/butterfly_sparse.py:420"),
+        ("b2_stack[pairs]", "b2_stack[map_b2]",
          "src/repro_torch/kernels/csrc/b2_stack.cu",
          "src/repro/kernels/butterfly_sparse.py:420"),
         ("butterfly_update_sparse[count]", "butterfly_update_sparse[count]",
@@ -1192,12 +1524,16 @@ def main() -> int:
          "butterfly_update_sparse_batched[peel]",
          "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
          "src/repro/kernels/butterfly_sparse.py:318"),
+        ("butterfly_update_sparse_batched[peel]",
+         "butterfly_update_sparse_batched[map_count]",
+         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
+         "src/repro/kernels/butterfly_sparse.py:318"),
     ] + [("butterfly_update_tiled[peel]", f"butterfly_update_tiled[{form}]",
           *k6) for form in forms6]
     kernels = []
     for kname, key, source, replaces in table:
         r = results[key]
-        by_path = {p_: launches[p_][kname] for p_ in paths}
+        by_path = {p_: launches[p_][kname] for p_ in launches}
         kernels.append(dict(
             name=key, route="cuda", source=source,
             replaces=replaces, launches=sum(by_path.values()),

@@ -122,8 +122,9 @@ class PlanInfeasibleError(ReceiptError, ValueError):
 
 class KernelBackendError(ReceiptError, RuntimeError):
     """A kernel launch or device program failed (or an injected fault
-    fired at one).  The Executor's backend fallback chain retries these;
-    repeated failures quarantine the plan signature."""
+    fired at one).  The port's backend chain is the backend alone: the
+    Executor raises this naming it, and nothing is retried on another
+    backend or quarantined."""
 
 
 class PeelOverflowError(ReceiptError, RuntimeError):

@@ -64,12 +64,19 @@ __all__ = [
 
 def tip_decompose(
     g: BipartiteGraph, cfg: Optional[ReceiptConfig] = None,
-    *, side: str = "U", device=None,
+    *, side: str = "U", device=None, plan=None,
 ) -> Tuple[np.ndarray, RunStats]:
     """Full RECEIPT tip decomposition of one side of ``g``.
 
     side="V" peels the other vertex set, by transposing the bipartite
     graph (exact by symmetry).  ``device=None`` runs on the card.
+    ``plan``: a ``repro_torch.api.ExecutionPlan`` whose earlier
+    same-signature runs set the FD gather widths, and which receives this
+    run's measurements, padded shapes among them (recorded, never
+    changed; the hooks are listed in `cd.py`, `fd.py` and `tiled.py`);
+    ``None`` sizes everything from ``g``.  The representation is ``cfg.representation``: ``"tiled"``
+    runs the tiled engine, anything else the dense pipeline (the Planner
+    resolves ``"auto"`` before a run reaches here).
 
     Returns (theta int64[n_side], RunStats).
     """
@@ -100,13 +107,13 @@ def tip_decompose(
     if cfg.representation == "tiled":
         # blocked-sparse whole-graph level peel: the same theta (tip
         # numbers are canonical across exact schedules) without the dense
-        # biadjacency.  "auto" stays dense until the Planner is ported.
-        theta_work = receipt_tiled(g_work, cfg, stats, device=dev)
+        # biadjacency
+        theta_work = receipt_tiled(g_work, cfg, stats, device=dev, plan=plan)
     else:
         subset_id, init_support, bounds, _ = receipt_cd(g_work, cfg, stats,
-                                                        device=dev)
+                                                        device=dev, plan=plan)
         theta_work = receipt_fd(g_work, subset_id, init_support, bounds,
-                                cfg, stats, device=dev)
+                                cfg, stats, device=dev, plan=plan)
 
     theta = np.zeros(g.n_u, np.int64)
     theta[perm_u] = np.round(theta_work).astype(np.int64)

@@ -15,6 +15,13 @@ non-overlapping tip-number ranges by running the peel core
 
 The reference's peel-buffer overflow replay has no counterpart in either:
 the port sizes each gather to its peel set.
+
+With a ``plan`` (``repro_torch.api.ExecutionPlan``), every ``DeviceGraph``
+records its padded shape through the plan (``dgm_rows`` / ``dgm_cols``:
+the reference's shape hook, which changes no shape here), and the run
+records its widest CD gather with ``plan.note_cd_peel_width``.  That width is a measurement only:
+the reference pins its peel buffer to the measured width, while here every
+gather is sized to its own peel set, so nothing reads it back.
 """
 from __future__ import annotations
 
@@ -100,7 +107,7 @@ def _fresh_state(dg: DeviceGraph, sup_keep: np.ndarray, cfg: ReceiptConfig):
 
 def receipt_cd(
     g: BipartiteGraph, cfg: ReceiptConfig, stats: RunStats,
-    *, device, checkpoint_cb=None, resume_state=None,
+    *, device, checkpoint_cb=None, resume_state=None, plan=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, None]:
     """Partition U into subsets with non-overlapping tip-number ranges.
 
@@ -116,7 +123,8 @@ def receipt_cd(
 
     checkpoint_cb(state): called with a ``cd_checkpoint_state`` dict at
     every subset boundary.  resume_state: continue an interrupted run
-    from such a state.  Both need ``cd_dispatch="subset"``.
+    from such a state.  Both need ``cd_dispatch="subset"``.  ``plan``:
+    see the module docstring (``None`` sizes everything from the graph).
     """
     if cfg.max_sweeps < 1:
         raise ValueError(
@@ -132,7 +140,7 @@ def receipt_cd(
                 "and requires device_loop=True")
         if checkpoint_cb is not None or resume_state is not None:
             raise ValueError(_GRAPH_CHECKPOINT_ERROR)
-        return _receipt_cd_graph(g, cfg, stats, device=device)
+        return _receipt_cd_graph(g, cfg, stats, device=device, plan=plan)
     backend = kops.resolve_backend(cfg.backend, device)
     sparse = backend in kops.SPARSE_BACKENDS
     blocks = cfg.kernel_blocks
@@ -145,7 +153,8 @@ def receipt_cd(
         subset_id = np.asarray(st["subset_id"]).copy()
         init_support = np.asarray(st["init_support"]).copy()
         bounds = [float(b) for b in st["bounds"]]
-        dg = DeviceGraph(g, np.asarray(st["members"]), cfg, device=device)
+        dg = DeviceGraph(g, np.asarray(st["members"]), cfg, device=device,
+                         plan=plan)
         stats.wedges_pvbcnt = g.counting_wedge_bound()
         support, alive = _fresh_state(dg, st["support"][: dg.n_rows], cfg)
         dv = dg.dv0
@@ -160,7 +169,7 @@ def receipt_cd(
         init_support = np.zeros(n_u, np.float64)
         bounds = [0.0]
 
-        dg = DeviceGraph(g, np.arange(n_u), cfg, device=device)
+        dg = DeviceGraph(g, np.arange(n_u), cfg, device=device, plan=plan)
         stats.wedges_pvbcnt = g.counting_wedge_bound()
 
         # --- initial per-vertex counting (pvBcnt) ---------------------- #
@@ -183,6 +192,7 @@ def receipt_cd(
         lo = 0.0
         i = 0
 
+    widths = []
     while alive_np.any():
         if checkpoint_cb is not None:
             live = np.where(alive_np)[0]
@@ -223,6 +233,7 @@ def receipt_cd(
                     backend=backend, blocks=blocks, use_huc=cfg.use_huc,
                     max_sweeps=cfg.max_sweeps, minmode=False,
                     row_ext=dg.row_ext, kmax=dg.kmax, stats=stats,
+                    widths=widths,
                 )
                 stats.device_loop_calls += 1
                 peeled_np, alive_np, sup_np, d_wedges, d_covered = fetch(
@@ -280,7 +291,7 @@ def receipt_cd(
             live = np.where(alive_np)[0]
             new_members = dg.members[live]
             sup_keep = sup_np[live]
-            dg = DeviceGraph(g, new_members, cfg, device=device)
+            dg = DeviceGraph(g, new_members, cfg, device=device, plan=plan)
             stats.dgm_compactions += 1
             support, alive = _fresh_state(dg, sup_keep, cfg)
             dv = dg.dv0
@@ -293,6 +304,8 @@ def receipt_cd(
     stats.num_subsets = i
     stats.bounds = [float(b) for b in bounds]
     stats.time_cd = time.perf_counter() - t0
+    if plan is not None and widths:
+        plan.note_cd_peel_width(max(widths))
     # every vertex must be assigned
     if not (subset_id >= 0).all():
         raise RuntimeError("CD left unassigned vertices")
@@ -300,7 +313,7 @@ def receipt_cd(
 
 
 def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
-                      stats: RunStats, *, device):
+                      stats: RunStats, *, device, plan=None):
     """Whole-graph CD (reference ``_receipt_cd_graph``): count, then every
     subset in ``device_cd_graph_loop``, re-entered only on a
     ``max_sweeps`` cap-exit, then one fetch of the subset ids, the FD init
@@ -319,7 +332,7 @@ def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
     t0 = time.perf_counter()
     subset_id = np.full(n_u, -1, np.int64)
     init_support = np.zeros(n_u, np.float64)
-    dg = DeviceGraph(g, np.arange(n_u), cfg, device=device)
+    dg = DeviceGraph(g, np.arange(n_u), cfg, device=device, plan=plan)
     stats.wedges_pvbcnt = g.counting_wedge_bound()
 
     alive = torch.zeros(dg.rows_pad, dtype=torch.bool, device=device)
@@ -337,13 +350,15 @@ def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
     # buffer); every gather here is sized to its peel set
     fault_point("peel_buffer", dispatch="graph", backend=backend)
     state = cd_graph_state0(dg, support, alive, p_total)
+    widths = []
     while True:
         fault_point("kernel_launch", KernelBackendError,
                     dispatch="graph", backend=backend)
         state = device_cd_graph_loop(
             dg.ids, state, backend=backend, blocks=blocks,
             use_huc=cfg.use_huc, use_dgm=cfg.use_dgm,
-            max_iters=cfg.max_sweeps, p_total=p_total, stats=stats)
+            max_iters=cfg.max_sweeps, p_total=p_total, stats=stats,
+            widths=widths)
         stats.device_loop_calls += 1
         if state["done"]:
             break
@@ -369,6 +384,8 @@ def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
     stats.num_subsets = num_subsets
     stats.bounds = bounds
     stats.time_cd = time.perf_counter() - t0
+    if plan is not None and widths:
+        plan.note_cd_peel_width(max(widths))
     if not (subset_id >= 0).all():
         raise RuntimeError("CD left unassigned vertices")
     return subset_id, init_support, np.asarray(bounds), None

@@ -34,6 +34,16 @@ its B2 rows from the kernel-3 stack (which masks ragged edges itself, so
 unlike the reference no alignment test sends the stack to a plain
 version), ``"matvec"`` recomputes one B2 row per step.  The mesh path
 arrives with the distributed slice (ROADMAP.md, queue 1).
+
+With a ``plan`` (``repro_torch.api.ExecutionPlan``) the level stacks take
+the reference's two hooks: every stack dimension (``fd_rows``,
+``fd_cols``, ``fd_l1``, ``fd_groups``) is recorded through
+``plan.quantize_dim`` and left as built (no jit cache to keep warm), and
+the gather width of a stack shape is the one an earlier run measured
+(``plan.fd_width_hint``; a level that outgrows it takes the mask-form
+update).  Each drained group records its
+largest level back (``plan.note_fd_level``).  Theta is the same either
+way.
 """
 from __future__ import annotations
 
@@ -240,20 +250,29 @@ def _probe_peel_width(group: List[Dict]) -> int:
     return probe
 
 
-def build_level_stack(group: List[Dict], cfg: ReceiptConfig) -> Dict:
+def build_level_stack(group: List[Dict], cfg: ReceiptConfig,
+                      plan=None) -> Dict:
     """Assemble one shape group into the batched level-peel stacks (host
     work, overlapped with the previous group's device work).
 
     Two stacks per group: the SURVIVOR stack ``a`` (G, mm, cc) the level
     loop peels, and the first-level stack ``a_l1`` (G, w1, cc) whose delta
     the launcher applies through one kernel-2 call before entering the
-    loop.  Group tasks carry the ``pre_peel_tasks`` fields.
+    loop.  Group tasks carry the ``pre_peel_tasks`` fields.  ``plan``
+    records every stack dimension (the group count too) and supplies the
+    measured gather width of the stack shape; either way the stacks are
+    sized to the group.
     """
     row_align, col_align, w_align = _aligns(cfg)
     n_g = len(group)
     mm = _level_pad(max(len(t["surv"]) for t in group), row_align)
     cc = _level_pad(max(max(t["sub"].n_v, 1) for t in group), col_align)
     w1 = pad_to_multiple(max(len(t["l1"]) for t in group), w_align)
+    if plan is not None:
+        mm = plan.quantize_dim("fd_rows", mm)
+        cc = plan.quantize_dim("fd_cols", cc)
+        w1 = plan.quantize_dim("fd_l1", w1)
+        n_g = plan.quantize_dim("fd_groups", n_g)
 
     a = np.zeros((n_g, mm, cc), np.float32)
     a_l1 = np.zeros((n_g, w1, cc), np.float32)
@@ -292,8 +311,11 @@ def build_level_stack(group: List[Dict], cfg: ReceiptConfig) -> Dict:
     if cfg.peel_width is not None:
         peel_width = min(bucket(cfg.peel_width, w_align), mm)
     else:
-        peel_width = min(bucket(max(_probe_peel_width(group), w_align),
-                                w_align), mm)
+        # a width an earlier same-signature run measured at this stack
+        # shape, else the first-sweep level-size probe
+        hint = plan.fd_width_hint((mm, cc)) if plan is not None else None
+        probe = hint if hint is not None else _probe_peel_width(group)
+        peel_width = min(bucket(max(probe, w_align), w_align), mm)
 
     return dict(
         group=group, a=a, a_l1=a_l1, sup0=sup0, nmem=nmem, n_l1=n_l1,
@@ -306,13 +328,17 @@ def build_level_stack(group: List[Dict], cfg: ReceiptConfig) -> Dict:
     )
 
 
-def _note_group_run(built: Dict, max_level_seen: int,
-                    stats: RunStats) -> None:
-    """Fold one drained group's measured level shape into RunStats."""
+def _note_group_run(built: Dict, max_level_seen: int, stats: RunStats,
+                    plan) -> None:
+    """Fold one drained group's measured level shape into RunStats and
+    the plan."""
     stats.fd_peel_widths.append(int(built["peel_width"]))
     stats.fd_max_levels.append(int(max_level_seen))
     if max_level_seen > built["peel_width"]:
         stats.fd_mask_fallbacks += 1
+    if plan is not None:
+        plan.note_fd_level((built["mm"], built["cc"]), int(max_level_seen),
+                           int(built["peel_width"]))
 
 
 # ---------------------------------------------------------------------- #
@@ -327,8 +353,10 @@ def receipt_fd(
     stats: RunStats,
     *,
     device,
+    plan=None,
 ) -> np.ndarray:
-    """Exact tip numbers by independent peeling of induced subgraphs."""
+    """Exact tip numbers by independent peeling of induced subgraphs
+    (``plan``: the level stacks' hooks, module docstring)."""
     if cfg.fd_mode not in ("level", "b2", "matvec"):
         raise ValueError(f"unknown fd_mode {cfg.fd_mode!r}")
     if cfg.max_sweeps < 1:
@@ -341,7 +369,7 @@ def receipt_fd(
     tasks = build_fd_tasks(g, subset_id, bounds, stats)
     if cfg.fd_mode == "level":
         theta = _run_level_groups(tasks, init_support, cfg, backend, stats,
-                                  theta, device=device)
+                                  theta, device=device, plan=plan)
     else:
         stats.wedges_fd += int(sum(t["wedges"] for t in tasks))
         groups = pack_by_shape(
@@ -401,7 +429,7 @@ def _run_legacy_groups(groups, init_support, cfg, backend, stats, theta, *,
 
 
 def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
-                      device):
+                      device, plan=None):
     """Pre-peel first levels on the host, group the SURVIVOR subgraphs by
     padded shape, and peel each group with the batched level loop —
     double-buffering host stack assembly against device work."""
@@ -490,12 +518,12 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
             if not alive_h.any() or d_rho == 0:
                 break
             prev_alive = alive_h
-        _note_group_run(built, max_level_seen, stats)
+        _note_group_run(built, max_level_seen, stats, plan)
         for k, t in enumerate(built["group"]):
             theta[t["members"][t["surv"]]] = th_acc[k, : built["nmem"][k]]
 
     for group in groups:
-        built = build_level_stack(group, cfg)
+        built = build_level_stack(group, cfg, plan=plan)
         padded += built["padded_cells"]
         used += built["used_cells"]
         state = launch(built)                   # async launches

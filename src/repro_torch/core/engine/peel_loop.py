@@ -405,13 +405,14 @@ def _peel_sizes(support, alive, hi, stats):
 # ---------------------------------------------------------------------- #
 def _sweep_once(a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv,
                 wedges, covered, peel, n_peel, n_alive, *, backend, blocks,
-                use_huc, stats):
+                use_huc, stats, widths=None):
     """One non-empty peel sweep (reference ``_sweep_once``, vertex axis),
     shared by ``device_peel_loop`` and ``device_cd_graph_loop``: the
     terminal-sweep elision, the gather sized to the peel set, the HUC
     peel-vs-recount choice and the incremental residual-degree / wedge
     counter updates.  The caller has selected ``peel`` and read its sizes
     (``_peel_sizes``), and records theta / the peeled set itself.
+    ``widths`` (a list, or None) gets the row count of each gather.
 
     ``row_ext`` / ``kmax`` are the per-row and row-tile staircase extents
     of ``a`` (read on the sparse backends only); ``c_rcnt`` is the HUC
@@ -426,6 +427,8 @@ def _sweep_once(a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv,
                 covered + peel_cost(dv, dv), False, True)
 
     width = min(bucket(n_peel, blocks[1]), a.shape[0])
+    if widths is not None:
+        widths.append(width)
     rows, valid, a_peel = _gather_peel(a, peel, n_peel, width)
     # incremental residual degrees: peeled rows' column sums
     colsum = a_peel.sum(dim=0)
@@ -455,7 +458,8 @@ def _sweep_once(a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv,
 # ---------------------------------------------------------------------- #
 def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
                      sweeps0=0, *, backend, blocks, use_huc, max_sweeps,
-                     minmode, row_ext=None, kmax=None, stats=None):
+                     minmode, row_ext=None, kmax=None, stats=None,
+                     widths=None):
     """Run an entire peel-sweep loop over device tensors.
 
     * ``minmode=False`` (RECEIPT CD, Alg. 3): peel everything with
@@ -470,7 +474,7 @@ def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
     ``max_sweeps`` valve bounds ONE invocation, never the schedule: the
     callers re-enter on a cap-exit with peelable rows left.  ``row_ext`` /
     ``kmax`` are ``a``'s staircase extents, required on the sparse
-    backends.
+    backends.  ``widths`` (a list, or None) gets each gather's row count.
 
     Returns (support, alive, dv, theta, peeled, rho, wedges, hucs, elided,
     covered, sweeps, overflow) like the reference; ``wedges`` and
@@ -500,7 +504,7 @@ def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
         support, alive, dv, wedges, covered, rec, eli = _sweep_once(
             a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv, wedges,
             covered, peel, n_peel, n_alive, backend=backend, blocks=blocks,
-            use_huc=(use_huc and not minmode), stats=stats)
+            use_huc=(use_huc and not minmode), stats=stats, widths=widths)
         rho += 1
         hucs += int(rec)
         elided += int(eli)
@@ -604,7 +608,8 @@ def _graph_boundary(st: dict, done: bool, *, blocks, sparse, use_dgm,
 
 
 def device_cd_graph_loop(ids, state: dict, *, backend, blocks, use_huc,
-                         use_dgm, max_iters, p_total, stats=None) -> dict:
+                         use_dgm, max_iters, p_total, stats=None,
+                         widths=None) -> dict:
     """Run the whole CD phase — every subset — over device-resident state
     (reference ``device_cd_graph_loop``, DESIGN.md section 2.3).
 
@@ -624,7 +629,7 @@ def device_cd_graph_loop(ids, state: dict, *, backend, blocks, use_huc,
     construction-time ``DeviceGraph.a``.  Bounds may differ from the
     subset dispatch (fresh residual wedge counts, f32 findHi prefix sums,
     DGM at every boundary); tip numbers cannot (Theorem 1 holds for any
-    bounds).
+    bounds).  ``widths`` (a list, or None) gets each gather's row count.
     """
     sparse = backend in kops.SPARSE_BACKENDS
     st = dict(state)
@@ -640,7 +645,7 @@ def device_cd_graph_loop(ids, state: dict, *, backend, blocks, use_huc,
             st["a"], ids, st["row_ext"], st["kmax"], st["c_rcnt"], st["lo"],
             st["support"], st["alive"], st["dv"], st["wedges"],
             st["covered"], peel, n_peel, n_alive, backend=backend,
-            blocks=blocks, use_huc=use_huc, stats=stats)
+            blocks=blocks, use_huc=use_huc, stats=stats, widths=widths)
         st = dict(
             st, support=support, alive=alive, dv=dv, wedges=wedges,
             covered=covered, rho=st["rho"] + 1,
@@ -779,10 +784,14 @@ class DeviceGraph:
     the device from the uploaded matrix: ``row_ext`` per row and ``kmax``
     per ``bi``-row tile (None on the dense backends, which never read
     them).
+
+    With a ``plan`` (``repro_torch.api.ExecutionPlan``) the padded shape
+    is recorded through ``plan.quantize_dim("dgm_rows" / "dgm_cols")``,
+    the reference's shape hook, and left as built.
     """
 
     def __init__(self, g: BipartiteGraph, members: np.ndarray,
-                 cfg: ReceiptConfig, *, device):
+                 cfg: ReceiptConfig, *, device, plan=None):
         bi, bj, bk = cfg.kernel_blocks
         sparse = kops.resolve_backend(cfg.backend, device) in \
             kops.SPARSE_BACKENDS
@@ -801,6 +810,9 @@ class DeviceGraph:
         self.n_cols = max(int(sub.n_v), 1)
         self.rows_pad = bucket(self.n_rows, max(bi, bj))
         self.cols_pad = bucket(self.n_cols, bk)
+        if plan is not None:
+            self.rows_pad = plan.quantize_dim("dgm_rows", self.rows_pad)
+            self.cols_pad = plan.quantize_dim("dgm_cols", self.cols_pad)
 
         a = np.zeros((self.rows_pad, self.cols_pad), np.float32)
         a[eu, ev] = 1.0

@@ -36,8 +36,13 @@ list from the survivors on the host.  Supports are CARRIED across a
 rebuild, never recounted: they are the loop's values clamped at the
 running level, and a recount could fall below it.
 
-The reference's plan hooks (shape quantization through
-``plan.quantize_dim``) arrive with the Planner (ROADMAP.md, queue 4).
+With a ``plan`` (``repro_torch.api.ExecutionPlan``) every slot-list build
+records its padded rows and columns and its slot count through
+``plan.quantize_dim`` (``tiled_rows``, ``tiled_cols``, ``tiled_slots``).
+The reference pads these up to what an earlier same-signature run
+compiled, and the slot count to a bucket of 8 even on a cold plan, so
+that its jit cache hits; the port has no jit cache, so it builds exactly
+the slots the graph has, plan or not.
 """
 from __future__ import annotations
 
@@ -79,14 +84,22 @@ def tiled_blocks(cfg: ReceiptConfig) -> Tuple[int, int]:
     return max(bi, bj), bk
 
 
-def build_tiled(g: BipartiteGraph, cfg: ReceiptConfig) -> TiledGraph:
+def build_tiled(g: BipartiteGraph, cfg: ReceiptConfig,
+                plan=None) -> TiledGraph:
     """The engine's ``TiledGraph`` of ``g``: rows and columns padded to
-    power-of-two-ish buckets of the tile blocks (as the reference pads
-    without a plan)."""
+    power-of-two-ish buckets of the tile blocks, no filler slots; the
+    sizes are recorded in ``plan`` when one is given (module docstring)."""
     br, bc = tiled_blocks(cfg)
-    return TiledGraph.from_graph(
-        g, block_rows=br, block_k=bc, rows_pad=bucket(max(g.n_u, 1), br),
-        cols_pad=bucket(max(g.n_v, 1), bc))
+    rows_pad = bucket(max(g.n_u, 1), br)
+    cols_pad = bucket(max(g.n_v, 1), bc)
+    if plan is not None:
+        rows_pad = plan.quantize_dim("tiled_rows", rows_pad)
+        cols_pad = plan.quantize_dim("tiled_cols", cols_pad)
+    tg = TiledGraph.from_graph(g, block_rows=br, block_k=bc,
+                               rows_pad=rows_pad, cols_pad=cols_pad)
+    if plan is not None:
+        plan.quantize_dim("tiled_slots", tg.n_slots)
+    return tg
 
 
 def _tiled_update(td, lists, sl, s, n_s, backend):
@@ -160,8 +173,10 @@ def receipt_tiled(
     stats: RunStats,
     *,
     device,
+    plan=None,
 ) -> np.ndarray:
-    """Whole-graph tiled tip decomposition of the U side of ``g_work``.
+    """Whole-graph tiled tip decomposition of the U side of ``g_work``
+    (``plan``: records the slot-list builds' sizes, module docstring).
 
     Returns theta float64[n_u] in ``g_work`` labels (``tip_decompose``
     handles the side transposition and the degree-sort unmapping, as for
@@ -188,7 +203,7 @@ def receipt_tiled(
     while True:
         # (re)build the slot list of the current survivor graph; the peel
         # state carries over (supports carried, never recounted)
-        tg = build_tiled(sub, cfg)
+        tg = build_tiled(sub, cfg, plan=plan)
         td = up(tg.tile_data)
         lists = (up(tg.srow), up(tg.scol), up(tg.sptr), up(tg.pos))
         rows_pad, n_cur = tg.rows_pad, sub.n_u

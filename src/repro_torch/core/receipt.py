@@ -1,9 +1,10 @@
 """RECEIPT — facade over `core/engine/` (port of ``repro.core.receipt``).
 
-``tip_decompose`` calls the engine directly until the API layer
-(``api/config.py``, ``plan.py``, ``executor.py``) is ported; the
-reference's facade is pinned bit-identical to its engine
-(tests/test_api_compat.py), so nothing is lost.
+``tip_decompose`` keeps the engine's signature and routes through the API
+layer (``repro_torch.api.decompose``: plan, then execute on a fresh
+Executor, which reuses nothing across calls), so it is bit-identical to
+the engine.  ``parb_tip_decompose``, ``receipt_cd`` and ``receipt_fd``
+stay phase-level entry points.
 """
 from __future__ import annotations
 
@@ -11,7 +12,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from . import engine
 from .engine import (
     DeviceGraph,
     ReceiptConfig,
@@ -53,6 +53,10 @@ def tip_decompose(
     g: BipartiteGraph, cfg: Optional[ReceiptConfig] = None,
     *, side: str = "U", device=None,
 ) -> Tuple[np.ndarray, RunStats]:
-    """Full RECEIPT tip decomposition; see
-    ``repro_torch.core.engine.tip_decompose``."""
-    return engine.tip_decompose(g, cfg, side=side, device=device)
+    """Full RECEIPT tip decomposition through ``repro_torch.api``
+    (planning included); see ``repro_torch.core.engine.tip_decompose`` for
+    the knobs.  Returns (theta int64[n_side], RunStats)."""
+    from .. import api
+
+    td = api.decompose(g, cfg, side=side, device=device)
+    return td.theta, td.stats

@@ -1,16 +1,17 @@
 """Workload-aware scheduling for FD subsets (paper section 3.2.1).
 
-The port's copy of ``repro.core.scheduler.pack_by_shape``: subsets are
-grouped by their bucketed padded shape, so each batched stack wastes
-minimal padding, and sorted by wedge count descending (LPT order) inside a
-group.  ``lpt_assign`` / ``lpt_shard_plan`` arrive with the distributed
-slice.
+The port's copies of ``repro.core.scheduler.pack_by_shape`` and
+``lpt_assign``: subsets are grouped by their bucketed padded shape, so each
+batched stack wastes minimal padding, and sorted by wedge count descending
+(LPT order) inside a group; ``lpt_assign`` splits a group into balanced
+chunks (``Executor.map``).  ``lpt_shard_plan`` arrives with the
+distributed slice.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["pack_by_shape"]
+__all__ = ["pack_by_shape", "lpt_assign"]
 
 
 def pack_by_shape(
@@ -40,3 +41,26 @@ def pack_by_shape(
         grp = sorted(groups[key], key=weight_of, reverse=True)
         out.append(grp)
     return out
+
+
+def lpt_assign(weights: Sequence[float], k: int,
+               init_loads: Optional[Sequence[float]] = None,
+               ) -> List[List[int]]:
+    """Longest-Processing-Time assignment of tasks to ``k`` workers.
+
+    Returns per-worker lists of task indices.  Graham's classic
+    4/3-approximation [Graham 1969], the rule the paper's workload-aware
+    scheduling is modeled on (Fig. 3).  ``init_loads`` seeds the
+    per-worker loads (list scheduling on pre-loaded machines).
+    """
+    order = sorted(range(len(weights)), key=lambda i: -weights[i])
+    loads = (list(init_loads) if init_loads is not None else [0.0] * k)
+    if len(loads) != k:
+        raise ValueError(f"init_loads has {len(loads)} entries for {k} "
+                         "workers")
+    assign: List[List[int]] = [[] for _ in range(k)]
+    for i in order:
+        j = loads.index(min(loads))
+        assign[j].append(i)
+        loads[j] += weights[i]
+    return assign

@@ -22,6 +22,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
+from ..api.errors import KernelBackendError
+
 __all__ = ["SOURCES", "build_dir", "nvcc_command", "build_all", "library",
            "ptr", "stream_of", "check_launch"]
 
@@ -107,10 +109,11 @@ def stream_of(t) -> ctypes.c_void_p:
 
 
 def check_launch(err: int, what: str) -> None:
-    """Raise on the ``cudaGetLastError()`` code a launch function returned
-    (a refused launch never runs, and a later synchronize would not say)."""
+    """Raise ``KernelBackendError`` (a ``RuntimeError``) on the
+    ``cudaGetLastError()`` code a launch function returned (a refused
+    launch never runs, and a later synchronize would not say)."""
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+        raise KernelBackendError(f"{what} launch failed: CUDA error {err}")
 
 
 @functools.cache

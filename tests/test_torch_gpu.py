@@ -173,10 +173,14 @@ def test_peel_body_equals_plain(card, n_a, n_b, n_v, n_valid):
 def _count_operands(gen, card, n, n_v):
     """A counting form as hard as the engine's can be: a degree-sorted
     staircase with all-zero rows, s with zeros (dead rows on both sides
-    of a tile pair), distinct ids that are not the row positions."""
+    of a tile pair), distinct ids that are not the row positions.  The
+    density is 0.3, and 0.25 on the largest shape (1024 x 4097), whose
+    supports pass 2^24 at 0.3: every support stays below 2^24, where
+    float32 sums are exact in any order (DESIGN.md section 8)."""
     cut = torch.randint(0, n_v + 1, (n, 1), generator=gen).sort(
         dim=0, descending=True).values
-    a = _adj(gen, n, n_v) * (torch.arange(n_v) < cut)
+    density = 0.25 if n * n_v > 1 << 22 else 0.3
+    a = _adj(gen, n, n_v, density=density) * (torch.arange(n_v) < cut)
     a[torch.rand(n, generator=gen) < 0.1] = 0.0
     s = (torch.rand(n, generator=gen) < 0.7).float()
     ids = (torch.randperm(n, generator=gen) + 5).to(torch.int32)
@@ -197,6 +201,13 @@ def test_count_body_equals_plain(card, n, n_v):
     gen = torch.Generator().manual_seed(7 * n + n_v)
     a, s, ids = _count_operands(gen, card, n, n_v)
     want = bfly.butterfly_update_plain(a, a, s, ids, ids)
+    # the operands stay in the exact regime: the plain version equals a
+    # float64 count, every support below 2^24
+    w64 = a.double() @ a.double().T
+    b2 = (w64 * (w64 - 1) / 2).fill_diagonal_(0)
+    exact = (b2 * s.double()[None, :]).sum(dim=1)
+    assert float(exact.max()) < 2 ** 24
+    assert torch.equal(want.double(), exact)
     ops.reset_launch_counts()
     assert torch.equal(bfly.butterfly_update(a, a, s, ids, ids,
                                              body="count"), want)
@@ -686,3 +697,71 @@ def test_tiled_sweep_reads_only_through_fetch(card, monkeypatch):
     np.testing.assert_array_equal(theta, peeling.bup_oracle(g)[0])
     assert len(sweeps) > 16
     assert stats.host_round_trips == len(sweeps) + stats.device_loop_calls
+
+
+# ---------------------------------------------------------------------- #
+# the API layer on the card
+# ---------------------------------------------------------------------- #
+@pytest.mark.gpu
+@pytest.mark.parametrize("dispatch", ["subset", "graph"])
+@pytest.mark.parametrize("backend", ["cuda", "cuda_sparse"])
+def test_executor_decompose_on_card_matches_oracle(card, backend, dispatch):
+    """``Executor()`` with no device runs on the card; a cache hit on a
+    permuted copy stays exact, and each path launches the hand kernels."""
+    from repro_torch.api import EngineConfig, Executor
+
+    g = powerlaw_bipartite(300, 200, 2400, seed=3)
+    rng = np.random.default_rng(7)
+    pu, pv = rng.permutation(g.n_u), rng.permutation(g.n_v)
+    copy = graph_from_arrays(g.n_u, g.n_v, pu[g.edges_u], pv[g.edges_v])
+    ex = Executor(EngineConfig(backend=backend, cd_dispatch=dispatch,
+                               num_partitions=6))
+    assert ex.device.type == "cuda"
+    for gg in (g, copy):
+        ops.reset_launch_counts()
+        td = ex.decompose(gg, verify=True)
+        np.testing.assert_array_equal(td.theta, peeling.bup_oracle(gg)[0])
+        assert td.stats.verified and td.stats.backend_used == backend
+        assert sum(ops.launch_counts().values()) > 0
+    assert ex.cache_stats["hits"] == 1
+
+
+@pytest.mark.gpu
+def test_executor_kernel_fault_on_card_raises_without_reroute(card):
+    from repro_torch.api import EngineConfig, Executor
+    from repro_torch.api.errors import KernelBackendError
+
+    g = powerlaw_bipartite(120, 80, 700, seed=1)
+    ex = Executor(EngineConfig(fault_spec="kernel_launch@1"))
+    ops.reset_launch_counts()
+    with pytest.raises(KernelBackendError, match="chain failed: cuda "):
+        ex.decompose(g)
+    assert ex.decompose(g).stats.backend_used == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,mode", [("cuda", "auto"),
+                                          ("cuda", "kernel"),
+                                          ("cuda_sparse", "kernel"),
+                                          ("cuda_sparse", "b2")])
+def test_executor_map_on_card_matches_per_graph(card, backend, mode):
+    """A small fleet through the batched counting (kernel 2 or 5 over the
+    stack, every live row with mass) and the level loop."""
+    from repro_torch.api import EngineConfig, Executor
+
+    fleet = [powerlaw_bipartite(200, 100, 900, seed=s) for s in range(6)]
+    ex = Executor(EngineConfig(backend=backend, fd_update_mode=mode))
+    ops.reset_launch_counts()
+    tds = ex.map(fleet)
+    counts = ops.launch_counts()
+    stack = ("butterfly_update_sparse_batched[peel]"
+             if backend == "cuda_sparse" else
+             "butterfly_update_batched[peel]")
+    assert counts[stack] >= 1
+    if mode == "b2":
+        assert counts["b2_stack[pairs]"] >= 1
+    for g, td in zip(fleet, tds):
+        np.testing.assert_array_equal(td.theta, peeling.bup_oracle(g)[0])
+        np.testing.assert_array_equal(
+            td.theta, ex.decompose(g).theta)
+    assert ex.last_map_report["chunks"] == 1
