@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py          # needs one CUDA card; 4 to 8 minutes
+    python3 chip_smoke.py          # needs one CUDA card; about 10 minutes
 
 Phases (any failure exits nonzero; no phase is caught and ignored):
 
@@ -86,6 +86,22 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    ``Executor.decompose``; ``verify=True`` on phase 4's graphs and
    sp_mid; phase 5's paths now run through the facade's Executor, and
    their planning time, timed apart, is logged beside their walls;
+5c. the incremental re-peel: the full-size graph mutated at 1, 2 and 5%
+   of its edges (the reference benchmark's rule: k inserts at low-degree
+   endpoints and k deletes), ``Executor.repeel`` on ``"cuda"`` and
+   ``"cuda_sparse"`` from supports maintained by the count body and
+   ``vertex_support_edge_delta``, theta held to the exact oracle of the
+   mutated graph and timed beside a from-scratch decompose; then kernels
+   1 and 4 at the refresh's median peel set (the ``[peel_refresh]``
+   rows);
+5d. the edge axis: ``Executor(EngineConfig(workload="wing"))`` on sp_mid,
+   both CD dispatches, psi held to an exact host oracle (a level peel
+   with scipy int64 closed forms, ``exact_psi``), one profiled; the
+   closed form timed at the full-size graph's wing matrix and sp_mid's
+   FD stack against its float64 tensor-core bound; the wing refresh at
+   1%.  Every executor run of phases 5b-5d holds its peak above resident
+   to ``peak <= plan.padded_bytes <= 1.3 * peak``.  The host oracles of
+   5c-5d run meanwhile in three worker processes started before phase 2;
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
    on the sp_mid and sp_large graphs of the reference's benchmark ladder
@@ -101,14 +117,18 @@ import dataclasses
 import functools
 import gc
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
 import time
+import types
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 INT8_OPS_PER_S = 1979e12     # 0/1 operands, counts < 2^24: exact in int8
+FP64_FLOP_PER_S = 67e12      # FP64 tensor cores (the edge closed form)
 HBM_BYTES_PER_S = 3.35e12
 EXACT_LIMIT = 2 ** 24        # f32 integer regime (DESIGN.md section 8)
 
@@ -121,6 +141,12 @@ MAP_GROUPS = 128
 # the forced tiled route: 64-wide tiles, where the full-size graph's tile
 # list (its Planner estimate) fits below its dense matrix
 TILED_ADMISSION_BLOCKS = (64, 64, 64)
+# the incremental refresh: dirty fractions of the full-size graph's edges
+# (k = round(frac * m / 2) inserts and as many deletes, the reference
+# benchmark's rule), and of sp_mid's for the wing refresh
+REFRESH_FRACS = (0.01, 0.02, 0.05)
+WING_REFRESH_FRAC = 0.01
+SP_MID = (4096, 4096, 24000, 14)
 
 
 def log(*args):
@@ -526,8 +552,10 @@ def where_the_time_goes(torch, run, top: int = 8):
 def counted(torch, ops, launches, pname, run):
     """Drive one path with every launch count set to 0 just before and
     read just after (into ``launches[pname]``); returns (result, wall s,
-    max_memory_allocated bytes of the run)."""
+    max_memory_allocated bytes of the run, bytes resident before it)."""
     torch.cuda.synchronize()
+    gc.collect()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -535,7 +563,181 @@ def counted(torch, ops, launches, pname, run):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches[pname] = ops.launch_counts()
-    return out, wall, torch.cuda.max_memory_allocated()
+    return out, wall, torch.cuda.max_memory_allocated(), resident
+
+
+def exact_psi(n_u, n_v, edges_u, edges_v):
+    """Exact wing numbers by a host level peel (the ParButterfly schedule
+    on edges: every edge of the current minimum support level at once,
+    then every survivor recounted, floored at the level) with the closed
+    form b(u, v) = [A (A^T A)](u, v) - d_u - d_v + 1 from scipy sparse
+    int64 products.  Imports nothing of the port.  Returns (psi int64,
+    the largest support and the largest closed-form entry seen)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    eu = np.asarray(edges_u, np.int64)
+    ev = np.asarray(edges_v, np.int64)
+    alive = np.ones(eu.size, bool)
+    psi = np.zeros(eu.size, np.int64)
+    biggest = [0, 0]
+
+    def supports():
+        a = sp.csr_matrix((np.ones(int(alive.sum()), np.int64),
+                           (eu[alive], ev[alive])), shape=(n_u, n_v))
+        m3 = (a @ (a.T @ a)).tocsr()
+        du = np.asarray(a.sum(axis=1)).ravel()
+        dv = np.asarray(a.sum(axis=0)).ravel()
+        s = np.asarray(m3[eu, ev]).ravel() - du[eu] - dv[ev] + 1
+        biggest[1] = max(biggest[1], int(m3.max()) if m3.nnz else 0)
+        s = np.where(alive, s, 0)
+        biggest[0] = max(biggest[0], int(s.max(initial=0)))
+        return s
+
+    sup = supports()
+    k = 0
+    while alive.any():
+        k = max(k, int(sup[alive].min()))
+        peel = alive & (sup <= k)
+        psi[peel] = k
+        alive &= ~peel
+        if alive.any():
+            sup = supports()
+    return psi, biggest[0], biggest[1]
+
+
+def exact_theta_of(n_u, n_v, edges_u, edges_v):
+    """``exact_theta`` of a graph given as arrays (for a worker process)."""
+    return exact_theta(types.SimpleNamespace(
+        n_u=n_u, n_v=n_v, m=len(edges_u), edges_u=edges_u, edges_v=edges_v))
+
+
+def service_mutations(np, g, count, rng):
+    """``count`` inserts absent from ``g`` + ``count`` present deletes,
+    both at LOW-degree endpoints: the reference benchmark's mutation rule
+    (``benchmarks/bench_receipt.py``, ``_service_mutations``), copied.
+    Returns (inserted (count, 2) int64, deleted edge indices)."""
+    du = np.bincount(g.edges_u, minlength=g.n_u)
+    dv = np.bincount(g.edges_v, minlength=g.n_v)
+    u_pool = np.argsort(du)[: max(8, g.n_u // 4)]
+    v_pool = np.argsort(dv)[: max(8, g.n_v // 4)]
+    have = set((g.edges_u.astype(np.int64) * g.n_v + g.edges_v).tolist())
+    ins = []
+    while len(ins) < count:
+        u = int(rng.choice(u_pool))
+        v = int(rng.choice(v_pool))
+        k = u * g.n_v + v
+        if k not in have:
+            have.add(k)
+            ins.append((u, v))
+    drop = np.argsort(du[g.edges_u] + dv[g.edges_v])[:count]
+    return np.array(ins, np.int64).reshape(-1, 2), drop
+
+
+def ladder(bounds, floor):
+    """Ascending stop candidates strictly above ``floor``, ending in
+    ``inf``: the reference service's ``_ladder``, copied."""
+    rungs = sorted({float(b) for b in (bounds or [])
+                    if float(b) > floor + 0.5})
+    rungs.append(float("inf"))
+    return rungs
+
+
+def subsets_repeeled(bounds, stop):
+    """(re-peeled, total) stored CD subsets: a subset is re-peeled iff its
+    range starts below the stop (the reference service's
+    ``_mark_subsets``)."""
+    if bounds and len(bounds) >= 2:
+        total = len(bounds) - 1
+        return sum(1 for s in range(total) if bounds[s] < stop), total
+    return 1, 1
+
+
+def mutate(np, BipartiteGraph, g, frac, seed):
+    """The mutated graph at ``frac``: k = round(frac * m / 2) inserts and
+    k deletes (``service_mutations``).  Returns (g1, inserted, deleted
+    (k, 2))."""
+    k = max(1, int(round(frac * g.m / 2)))
+    ins, drop = service_mutations(np, g, k, np.random.default_rng(seed))
+    keep = np.ones(g.m, bool)
+    keep[drop] = False
+    g1 = BipartiteGraph.from_edges(
+        g.n_u, g.n_v, np.concatenate([g.edges_u[keep], ins[:, 0]]),
+        np.concatenate([g.edges_v[keep], ins[:, 1]]))
+    dels = np.stack([g.edges_u[drop], g.edges_v[drop]], axis=1)
+    return g1, ins, dels
+
+
+def tip_refresh_inputs(torch, np, ops, dev, g0, ins, dels, theta_old,
+                       bounds, backend):
+    """What the reference service hands ``Executor.repeel``: supports of
+    the base graph (kernel 1's or 4's count body), plus the inserts'
+    gains and less the deletes' losses on the union matrix
+    (``vertex_support_edge_delta``: two counting calls each), the stop
+    ladder above the deletion ceiling (seeded with the inserted endpoints'
+    stored numbers) and the inserted U endpoints as the watch set."""
+    a = torch.zeros((g0.n_u, g0.n_v), device=dev)
+    a[torch.as_tensor(g0.edges_u, device=dev).long(),
+      torch.as_tensor(g0.edges_v, device=dev).long()] = 1.0
+    from repro_torch.kernels.butterfly_sparse import column_extents
+
+    blocks = (128, 128, 512)
+    kmax = (column_extents(a, 128, 512) if backend == "cuda_sparse"
+            else None)
+    sup = ops.butterfly_support(a, torch.ones(g0.n_u, device=dev),
+                                backend=backend, blocks=blocks, kmax=kmax)
+    a[torch.as_tensor(ins[:, 0], device=dev),
+      torch.as_tensor(ins[:, 1], device=dev)] = 1.0
+    for rows, sign in ((ins, 1.0), (dels, -1.0)):
+        sup = sup + sign * ops.vertex_support_edge_delta(
+            a, torch.as_tensor(rows[:, 0], device=dev),
+            torch.as_tensor(rows[:, 1], device=dev),
+            torch.ones(len(rows), dtype=torch.bool, device=dev),
+            backend=backend, blocks=blocks)
+    t_known = float(theta_old[dels[:, 0]].max())
+    seed = max(t_known, float(theta_old[ins[:, 0]].max()))
+    return (sup.double().cpu().numpy(), ladder(bounds, seed),
+            np.unique(ins[:, 0]))
+
+
+def wing_refresh_inputs(torch, np, ops, dev, g0, g1, ins, dels, psi_base,
+                        bounds):
+    """The reference service's wing arm: supports of the union graph in
+    closed form, less the deleted slots' delta (before-minus-after), at
+    the kept slots; the ladder above the deletion ceiling; the inserted
+    edges as the watch set (their stored number a placeholder)."""
+    n_v = g0.n_v
+    k0 = g0.edges_u.astype(np.int64) * n_v + g0.edges_v
+    k1 = g1.edges_u.astype(np.int64) * n_v + g1.edges_v
+    ki = ins[:, 0] * n_v + ins[:, 1]
+    kd = dels[:, 0] * n_v + dels[:, 1]
+    ku = np.sort(np.concatenate([k0, ki]))
+    eu = torch.as_tensor(ku // n_v, device=dev)
+    ev = torch.as_tensor(ku % n_v, device=dev)
+    a = torch.zeros((g0.n_u, n_v), device=dev)
+    a[eu, ev] = 1.0
+    b = ops.edge_support_all(a, eu, ev)
+    d = ops.edge_support_delta(
+        a, eu, ev, torch.as_tensor(np.searchsorted(ku, kd), device=dev),
+        torch.ones(kd.size, dtype=torch.bool, device=dev))
+    sup = (b - d).double().cpu().numpy()[np.isin(ku, k1)]
+    psi_old = np.zeros(g1.m, np.int64)
+    in_base = np.isin(k1, k0)
+    psi_old[in_base] = psi_base[np.searchsorted(k0, k1[in_base])]
+    t_known = float(psi_base[np.searchsorted(k0, kd)].max())
+    return sup, psi_old, ladder(bounds, t_known), np.nonzero(
+        np.isin(k1, ki))[0]
+
+
+def check_admission(name, padded, peak):
+    """The run's peak (above what was resident) must sit at or below the
+    plan's estimate, and the estimate within 1.3x of it."""
+    log(f"{name}: plan.padded_bytes {padded} | peak above resident {peak} "
+        f"bytes | estimate / peak {padded / max(peak, 1):.3f}")
+    if not peak <= padded <= 1.3 * peak:
+        raise AssertionError(f"{name}: peak {peak} bytes against the "
+                             f"estimate {padded} (must be <= it, within "
+                             "1.3x)")
 
 
 def executor_phase(torch, np, dev, g_full, want, fleet, launches,
@@ -582,8 +784,8 @@ def executor_phase(torch, np, dev, g_full, want, fleet, launches,
             t0 = time.perf_counter()
             pl = ex.plan(g)
             plan_s = time.perf_counter() - t0
-        td, wall, peak = counted(torch, ops, launches, pname,
-                                 lambda: ex.decompose(g, plan=pl))
+        td, wall, peak, resident = counted(
+            torch, ops, launches, pname, lambda: ex.decompose(g, plan=pl))
         if not np.array_equal(td.theta, want_g):
             raise AssertionError(f"{pname}: theta differs from the exact "
                                  "oracle")
@@ -597,9 +799,9 @@ def executor_phase(torch, np, dev, g_full, want, fleet, launches,
             f"measured cd_peel_width {pl.measured.cd_peel_width}, "
             f"{len(pl.measured.fd_level_widths)} FD widths, runs "
             f"{pl.measured.runs}")
-        log(f"{pname}: plan.padded_bytes {pl.padded_bytes} | "
-            f"max_memory_allocated {peak} bytes (ratio "
-            f"{peak / pl.padded_bytes:.3f}) | launches {launches[pname]}")
+        log(f"{pname}: max_memory_allocated {peak} bytes | launches "
+            f"{launches[pname]}")
+        check_admission(pname, pl.padded_bytes, peak - resident)
     if ex.cache_stats["hits"] != 1:
         raise AssertionError(f"the permuted copy missed the cache: "
                              f"{ex.cache_stats}")
@@ -619,8 +821,9 @@ def executor_phase(torch, np, dev, g_full, want, fleet, launches,
     if pl.representation != "tiled":
         raise AssertionError(f"admission did not route tiled:\n"
                              f"{pl.describe()}")
-    td, wall, peak = counted(torch, ops, launches, "executor_tiled",
-                             lambda: ex_t.decompose(g_full, plan=pl))
+    td, wall, peak, resident = counted(
+        torch, ops, launches, "executor_tiled",
+        lambda: ex_t.decompose(g_full, plan=pl))
     if not np.array_equal(td.theta, want):
         raise AssertionError("executor_tiled: theta differs from the exact "
                              "oracle")
@@ -632,9 +835,9 @@ def executor_phase(torch, np, dev, g_full, want, fleet, launches,
         f"{probe['n_tiles']} tiles) -> {pl.representation}; theta == exact "
         f"oracle | planning {plan_s:.4f} s, wall {wall:.3f} s, "
         f"host_round_trips {td.stats.host_round_trips}, rho_fd "
-        f"{td.stats.rho_fd} | padded_bytes {pl.padded_bytes} | "
-        f"max_memory_allocated {peak} | launches "
+        f"{td.stats.rho_fd} | max_memory_allocated {peak} | launches "
         f"{launches['executor_tiled']}")
+    check_admission("executor_tiled", pl.padded_bytes, peak - resident)
 
     # Executor.map: 128 cohort graphs, one (1024, 512) bucket, one chunk
     t0 = time.perf_counter()
@@ -656,8 +859,9 @@ def executor_phase(torch, np, dev, g_full, want, fleet, launches,
         for what, graphs, wants in (("cold", fleet, want_fleet),
                                     ("warm", warm, want_warm)):
             key = pname if what == "cold" else f"{pname}_warm"
-            res, wall, peak = counted(torch, ops, launches, key,
-                                      lambda: exm.map(graphs, strict=True))
+            res, wall, peak, _ = counted(
+                torch, ops, launches, key,
+                lambda: exm.map(graphs, strict=True))
             bad = [k for k, (r, w) in enumerate(zip(res, wants))
                    if not np.array_equal(r.theta, w[0])]
             if bad:
@@ -738,6 +942,256 @@ def executor_phase(torch, np, dev, g_full, want, fleet, launches,
             raise AssertionError(f"{pname}: launched {tile}")
 
 
+def refresh_phase(torch, np, dev, g_full, want, launches, oracles,
+                  EngineConfig, Executor, ops, measure, mutations):
+    """Phase 5c: ``Executor.repeel`` on the full-size graph, mutated by the
+    reference benchmark's rule at each of ``REFRESH_FRACS`` (k inserts and
+    k deletes at low-degree endpoints), on ``"cuda"`` (subset dispatch)
+    and ``"cuda_sparse"`` (graph dispatch), P = 150: the base run's CD
+    bounds make the ladder, the maintained supports come from the count
+    body and ``vertex_support_edge_delta``; each refreshed theta is held
+    to the exact oracle of the mutated graph (from the worker pool) and
+    timed beside a from-scratch ``Executor.decompose`` of the same graph.
+    Then phase 3's rows at refresh's shape: the median peel set of the
+    smallest rung's refresh on its unsorted, column-compacted matrix,
+    kernel 1's and kernel 4's peel bodies against their plain versions.
+    """
+    from repro_torch.core.engine import peel_loop
+    from repro_torch.kernels import butterfly as bfly
+    from repro_torch.kernels import butterfly_sparse as bsp
+
+    calls = []
+    for backend, dispatch in (("cuda", "subset"), ("cuda_sparse", "graph")):
+        ex = Executor(EngineConfig(num_partitions=FULL["partitions"],
+                                   backend=backend, cd_dispatch=dispatch))
+        base = ex.decompose(g_full)
+        if not np.array_equal(base.theta, want):
+            raise AssertionError(f"refresh base {backend}: theta differs")
+        for frac in REFRESH_FRACS:
+            g1, ins, dels = mutations[frac]
+            pname = f"refresh_{backend}_{frac}"
+            record = backend == "cuda" and frac == REFRESH_FRACS[0]
+            real = peel_loop.support_delta
+
+            def watched(a, a_peel, valid, ids, rows, *args, **kwargs):
+                calls.append((a, rows, valid))
+                return real(a, a_peel, valid, ids, rows, *args, **kwargs)
+
+            def run():
+                sup, stops, watch = tip_refresh_inputs(
+                    torch, np, ops, dev, g_full, ins, dels, base.theta,
+                    base.stats.bounds, backend)
+                return ex.repeel(g1, sup0=sup, numbers_old=base.theta,
+                                 stops=stops, watch=watch), stops
+
+            if record:
+                peel_loop.support_delta = watched
+            try:
+                ((theta, st), stops), wall, peak, resident = counted(
+                    torch, ops, launches, pname, run)
+            finally:
+                peel_loop.support_delta = real
+            want1 = oracles[("tip", frac)].result()[0]
+            if not np.array_equal(theta, want1):
+                raise AssertionError(f"{pname}: theta differs from the "
+                                     "exact oracle of the mutated graph")
+            rep, total = subsets_repeeled(base.stats.bounds,
+                                          st.refresh_stop)
+            td, full_wall, full_peak, _ = counted(
+                torch, ops, launches, f"{pname}_full",
+                lambda: ex.decompose(g1))
+            if not np.array_equal(td.theta, want1):
+                raise AssertionError(f"{pname}: from-scratch theta differs")
+            log(f"{pname}: k={len(ins)} inserts + {len(dels)} deletes, "
+                f"theta == exact oracle | stop used {st.refresh_stop} "
+                f"(first rung {stops[0]}, ladder of {len(stops)}) | "
+                f"subsets re-peeled {rep} of {total} | sweeps {st.rho_fd} "
+                f"wedges {st.wedges_fd} | loop calls "
+                f"{st.device_loop_calls} host round trips "
+                f"{st.host_round_trips} | wall {wall:.3f} s (supports + "
+                f"repeel) vs from-scratch decompose {full_wall:.3f} s "
+                f"(x{full_wall / wall:.2f}) | max_memory_allocated {peak} "
+                f"(from scratch {full_peak}) | launches "
+                + str({k: v for k, v in launches[pname].items() if v}))
+            peel_key = ("butterfly_update_sparse[peel]"
+                        if backend == "cuda_sparse" else
+                        "butterfly_update[peel]")
+            count_key = peel_key.replace("[peel]", "[count]")
+            for key in (peel_key, count_key):
+                if launches[pname][key] <= 0:
+                    raise AssertionError(f"{pname}: {key} never launched")
+        del base
+    # phase 3's rows at refresh's shape: the median peel set (by rows) of
+    # the recorded refresh, its matrix unsorted and column-compacted
+    a, rows, valid = sorted(calls, key=lambda c: int(c[2].sum()))[
+        len(calls) // 2]
+    s = valid.float()
+    b = a[rows.long()] * s[:, None]
+    ids = torch.arange(a.shape[0], dtype=torch.int32, device=dev)
+    blocks = (128, 128, 512)
+    row_ext = bsp.row_extents_device(a, blocks[2])
+    kmax = bsp.tile_extents(row_ext, blocks[0]).to(torch.int32)
+    kb = bsp.gathered_tile_extents(row_ext, rows, valid, blocks[1])
+    ops1, bytes1, live1 = peel_live_work(torch, a, b, s)
+    log(f"butterfly_update[peel_refresh]: matrix {tuple(a.shape)} "
+        f"(unsorted, compacted), {len(calls)} sweeps recorded, median "
+        f"{int(valid.sum())} valid of {len(rows)} gathered rows, "
+        f"{live1:.0f} of {a.shape[1]} columns live")
+    measure("butterfly_update[peel_refresh]",
+            lambda: bfly.butterfly_update(a, b, s, ids, rows),
+            lambda: bfly.butterfly_update_plain(a, b, s, ids, rows),
+            lambda: torch.matmul(a, b.T), ops1, bytes1, reps=50)
+    ops4, bytes4, _ = peel_live_work(torch, a, b, s, kmax, kb, blocks)
+    measure("butterfly_update_sparse[peel_refresh]",
+            lambda: bsp.butterfly_update_sparse(a, b, s, ids, rows, kmax, kb,
+                                                blocks=blocks),
+            lambda: bsp.butterfly_update_sparse_plain(
+                a, b, s, ids, rows, kmax, kb, blocks=blocks),
+            lambda: torch.matmul(a, b.T), ops4, bytes4, reps=50)
+    del calls, a, b
+
+
+def wing_phase(torch, np, dev, g_full, launches, oracles, EngineConfig,
+               Executor, ops, sp_mid, mutation):
+    """Phase 5d: the edge axis on sp_mid, P = 8 (``EngineConfig``'s
+    default), ``cuda_sparse``, both CD dispatches, side U: psi held to the
+    exact host oracle (from the worker pool), the admission estimate to
+    the peak, one dispatch profiled; the closed form timed at the
+    full-size graph's wing matrix and at sp_mid's FD stack; then
+    ``Executor.repeel`` of the wing at 1% mutations against the oracle of
+    the mutated graph.  The edge path launches no hand kernel (the closed
+    form is two float64 matrix products): every launch count must stay
+    0.  Returns the timed rows of the closed form."""
+    from repro_torch.core.engine.wing import build_edge_state
+
+    psi_want, max_sup, max_m3 = oracles[("wing", 0.0)].result()
+    log(f"wing: sp_mid {sp_mid.n_u} x {sp_mid.n_v}, {sp_mid.m} edges; exact "
+        f"oracle: max psi {int(psi_want.max())}, max support {max_sup}, "
+        f"max closed-form entry {max_m3}")
+    if max(max_sup, max_m3) >= EXACT_LIMIT:
+        raise AssertionError("a wing support or closed-form entry is past "
+                             "2^24")
+    stats_of = {}
+    for dispatch in ("subset", "graph"):
+        pname = f"wing_{dispatch}"
+        ex = Executor(EngineConfig(workload="wing", backend="cuda_sparse",
+                                   cd_dispatch=dispatch))
+        plan = ex.plan(sp_mid)
+        wd, wall, peak, resident = counted(
+            torch, ops, launches, pname,
+            lambda: ex.decompose(sp_mid, plan=plan))
+        if not np.array_equal(wd.edge_wing, psi_want):
+            raise AssertionError(f"{pname}: psi differs from the exact "
+                                 "oracle")
+        if any(launches[pname].values()):
+            raise AssertionError(f"{pname}: launched {launches[pname]}")
+        st = wd.stats
+        stats_of[dispatch] = st
+        log(f"{pname}: psi == exact oracle | wall {wall:.3f} s (time_count "
+            f"{st.time_count:.3f} time_cd {st.time_cd:.3f} time_fd "
+            f"{st.time_fd:.3f}) | rho_cd {st.rho_cd} rho_fd {st.rho_fd} "
+            f"huc_recounts {st.huc_recounts} elided {st.elided_sweeps} "
+            f"wedges_cd {st.wedges_cd} wedges_fd {st.wedges_fd} "
+            f"subsets {st.num_subsets} fd_max_levels {st.fd_max_levels} | "
+            f"host_round_trips {st.host_round_trips} | "
+            f"max_memory_allocated {peak}")
+        check_admission(pname, plan.padded_bytes, peak - resident)
+        if dispatch == "graph":
+            where_the_time_goes(torch, lambda: ex.decompose(sp_mid,
+                                                            plan=plan))
+
+    # the closed form at the full graph's wing matrix and sp_mid's FD
+    # stack (the (8, R, C) stack of subsets >= s of the graph run)
+    rows = {}
+    es = build_edge_state(g_full, EngineConfig().to_receipt_config(),
+                          device=dev)
+    st_g = stats_of["graph"]
+    cuts = np.asarray(st_g.bounds)
+    a_full, eu_f, ev_f = es["a"], es["eu"], es["ev"]
+    rows["edge_support_all[full]"] = (a_full, eu_f, ev_f, g_full)
+    member = np.searchsorted(cuts[1:], psi_want, side="right")
+    stack = np.zeros((len(cuts) - 1, 4096, 4096), np.float32)
+    for k in range(stack.shape[0]):
+        keep = member >= k
+        stack[k, sp_mid.edges_u[keep], sp_mid.edges_v[keep]] = 1.0
+    eu_s = torch.as_tensor(sp_mid.edges_u, device=dev).long()
+    ev_s = torch.as_tensor(sp_mid.edges_v, device=dev).long()
+    rows["edge_support_all[sp_mid_fd]"] = (torch.from_numpy(stack).to(dev),
+                                           eu_s, ev_s, None)
+    del stack, es
+    out = {}
+    for key, (a, eu, ev, g_host) in rows.items():
+        got = ops.edge_support_all(a, eu, ev)
+        # held to an int64 host count (scipy sparse), member by member
+        mats = [a] if a.dim() == 2 else list(a)
+        for k, m in enumerate(mats):
+            want = sparse_edge_supports(np, m, eu, ev)
+            if not np.array_equal(got[k].cpu().numpy() if a.dim() == 3
+                                  else got.cpu().numpy(), want):
+                raise AssertionError(f"{key}: differs from the int64 count")
+        r, c = a.shape[-2:]
+        g_n = a.shape[0] if a.dim() == 3 else 1
+        flop = 4.0 * g_n * r * c * c
+        nbytes = 4.0 * a.numel() + 16.0 * eu.numel() + 4.0 * got.numel()
+        b_ms = max(flop / FP64_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = time_ms(torch, lambda: ops.edge_support_all(a, eu, ev), 3)
+        out[key] = dict(ms=ms, bound_ms=b_ms, bound_by=(
+            "operations" if flop / FP64_FLOP_PER_S
+            >= nbytes / HBM_BYTES_PER_S else "bytes"),
+            shape=tuple(a.shape), flop=flop)
+        log(f"{key}: {tuple(a.shape)}, {eu.numel()} slots: equal to the "
+            f"int64 count | ms={ms:.3f} bound_ms={b_ms:.3f} "
+            f"({out[key]['bound_by']}: {flop:.4e} float64 tensor-core flop "
+            f"at {FP64_FLOP_PER_S / 1e12:.0f} TFLOP/s) | "
+            f"{flop / ms / 1e9:.1f} TFLOP/s achieved; not a kernel (two "
+            "torch.matmul in float64), recorded beside the kernel table")
+        del got
+    del rows, a_full
+
+    # the wing refresh: 1% of sp_mid's edges mutated
+    g1, ins, dels = mutation
+    ex = Executor(EngineConfig(workload="wing", backend="cuda_sparse",
+                               cd_dispatch="graph"))
+    pname = f"refresh_wing_{WING_REFRESH_FRAC}"
+
+    def run():
+        sup, psi_old, stops, watch = wing_refresh_inputs(
+            torch, np, ops, dev, sp_mid, g1, ins, dels, psi_want,
+            st_g.bounds)
+        return ex.repeel(g1, sup0=sup, numbers_old=psi_old, stops=stops,
+                         watch=watch), stops
+
+    ((psi, st), stops), wall, peak, _ = counted(torch, ops, launches, pname,
+                                                run)
+    psi1 = oracles[("wing", WING_REFRESH_FRAC)].result()[0]
+    if not np.array_equal(psi, psi1):
+        raise AssertionError(f"{pname}: psi differs from the exact oracle "
+                             "of the mutated graph")
+    rep, total = subsets_repeeled(st_g.bounds, st.refresh_stop)
+    log(f"{pname}: k={len(ins)} inserts + {len(dels)} deletes, psi == exact "
+        f"oracle | stop used {st.refresh_stop} (first rung {stops[0]}) | "
+        f"subsets re-peeled {rep} of {total} | sweeps {st.rho_fd} | "
+        f"host round trips {st.host_round_trips} | wall {wall:.3f} s "
+        f"(supports + repeel) | max_memory_allocated {peak}")
+    return out
+
+
+def sparse_edge_supports(np, a, eu, ev):
+    """Closed-form edge supports of a card matrix at the slots, from a
+    scipy sparse int64 product on the host (the slots' absent cells 0)."""
+    import scipy.sparse as sp
+
+    dense = a.cpu().numpy()
+    r, c = np.nonzero(dense)
+    m = sp.csr_matrix((np.ones(r.size, np.int64), (r, c)), shape=dense.shape)
+    m3 = (m @ (m.T @ m)).tocsr()
+    du = np.asarray(m.sum(axis=1)).ravel()
+    dv = np.asarray(m.sum(axis=0)).ravel()
+    eu, ev = np.array(eu.cpu().numpy()), np.array(ev.cpu().numpy())
+    b = np.asarray(m3[eu, ev]).ravel() - du[eu] - dv[ev] + 1
+    return (b * (dense[eu, ev] > 0)).astype(np.float32)
+
+
 def main() -> int:
     import torch
 
@@ -748,17 +1202,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
 
-    from repro_torch.api import EngineConfig, Executor, Planner
-    from repro_torch.core.engine import DeviceGraph, ReceiptConfig
-    from repro_torch.core.engine.tiled import build_tiled
-    from repro_torch.core.graph import (BipartiteGraph, paper_fig1_graph,
-                                        powerlaw_bipartite)
-    from repro_torch.core.peeling import bup_oracle
-    from repro_torch.core.receipt import parb_tip_decompose, tip_decompose
-    from repro_torch.kernels import _build, butterfly as bfly
-    from repro_torch.kernels import butterfly_sparse as bsp
-    from repro_torch.kernels import butterfly_tiled as btl
-    from repro_torch.kernels import ops
+    from repro_torch.core.graph import BipartiteGraph, powerlaw_bipartite
 
     # the plain versions' float32 products stay full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -772,6 +1216,50 @@ def main() -> int:
     log(f"card: {name} | torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
 
+    # the host oracles of phases 5c and 5d (the level peel of sp_mid's
+    # edges takes about a minute): worker processes started now, read
+    # when their phase needs them, shut down on the way out
+    g_full = powerlaw_bipartite(FULL["n_u"], FULL["n_v"], FULL["m"],
+                                seed=FULL["seed"])
+    sp_mid = powerlaw_bipartite(*SP_MID[:3], seed=SP_MID[3])
+    mutations = {frac: mutate(np, BipartiteGraph, g_full, frac, seed=k)
+                 for k, frac in enumerate(REFRESH_FRACS)}
+    wing_mutation = mutate(np, BipartiteGraph, sp_mid, WING_REFRESH_FRAC,
+                           seed=7)
+
+    def arrays(g):
+        return g.n_u, g.n_v, g.edges_u, g.edges_v
+
+    pool = ProcessPoolExecutor(max_workers=3,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        oracles = {("wing", 0.0): pool.submit(exact_psi, *arrays(sp_mid)),
+                   ("wing", WING_REFRESH_FRAC): pool.submit(
+                       exact_psi, *arrays(wing_mutation[0]))}
+        for frac in REFRESH_FRACS:
+            oracles[("tip", frac)] = pool.submit(
+                exact_theta_of, *arrays(mutations[frac][0]))
+        return run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
+                          wing_mutation, oracles)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
+               wing_mutation, oracles) -> int:
+    """Phases 2-7 (module docstring)."""
+    from repro_torch.api import EngineConfig, Executor, Planner
+    from repro_torch.core.engine import DeviceGraph, ReceiptConfig
+    from repro_torch.core.engine.tiled import build_tiled
+    from repro_torch.core.graph import (BipartiteGraph, paper_fig1_graph,
+                                        powerlaw_bipartite)
+    from repro_torch.core.peeling import bup_oracle
+    from repro_torch.core.receipt import parb_tip_decompose, tip_decompose
+    from repro_torch.kernels import _build, butterfly as bfly
+    from repro_torch.kernels import butterfly_sparse as bsp
+    from repro_torch.kernels import butterfly_tiled as btl
+    from repro_torch.kernels import ops
+
     # ---- 2. build ----------------------------------------------------- #
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -784,8 +1272,6 @@ def main() -> int:
                     log("  ptxas:", line.strip())
 
     # ---- 3. kernel vs plain at the main paths' shapes ----------------- #
-    g_full = powerlaw_bipartite(FULL["n_u"], FULL["n_v"], FULL["m"],
-                                seed=FULL["seed"])
     paths = {
         "dense_subset": ReceiptConfig(num_partitions=FULL["partitions"]),
         "sparse_graph": ReceiptConfig(num_partitions=FULL["partitions"],
@@ -1455,11 +1941,20 @@ def main() -> int:
                    EngineConfig, Executor, exact_theta, bup_oracle, ops,
                    small, powerlaw_bipartite)
 
+    # ---- 5c. the incremental re-peel at full size --------------------- #
+    refresh_phase(torch, np, dev, g_full, want, launches, oracles,
+                  EngineConfig, Executor, ops, measure, mutations)
+
+    # ---- 5d. the edge axis (wing) on sp_mid ---------------------------- #
+    edge_rows = wing_phase(torch, np, dev, g_full, launches, oracles,
+                           EngineConfig, Executor, ops, sp_mid,
+                           wing_mutation)
+
     # ---- 6. crossover: staircase + graph against tiled ---------------- #
     # the full-size graph's walls are phase 5's timed runs: the kernels and
     # the allocator are warm by then (phases 3-4), and a second run there
     # measured no faster (PERF.md)
-    ladder = {"sp_mid": powerlaw_bipartite(4096, 4096, 24000, seed=14),
+    ladder = {"sp_mid": sp_mid,
               "sp_large": powerlaw_bipartite(8192, 8192, 32000, seed=15),
               "full": g_full}
     for gname, g in ladder.items():
@@ -1503,6 +1998,7 @@ def main() -> int:
          k1[1]),
         ("butterfly_update[peel]", "butterfly_update[peel]", *k1),
         ("butterfly_update[peel]", "butterfly_update[peel_parb]", *k1),
+        ("butterfly_update[peel]", "butterfly_update[peel_refresh]", *k1),
         ("butterfly_update_batched[peel]", "butterfly_update_batched[peel]",
          "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
          "src/repro/kernels/butterfly.py:225"),
@@ -1520,6 +2016,8 @@ def main() -> int:
          count_cu, k4[1]),
         ("butterfly_update_sparse[peel]", "butterfly_update_sparse[peel]",
          *k4),
+        ("butterfly_update_sparse[peel]",
+         "butterfly_update_sparse[peel_refresh]", *k4),
         ("butterfly_update_sparse_batched[peel]",
          "butterfly_update_sparse_batched[peel]",
          "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
@@ -1544,6 +2042,8 @@ def main() -> int:
             product_only_ms=r["product_only_ms"],
             int8_product_only_ms=r["int8_product_only_ms"],
             old_body_ms=r["old_body_ms"]))
+    log("edge closed form (not a kernel: no Pallas body in the reference; "
+        "two float64 torch.matmul): " + json.dumps(edge_rows))
     log(json.dumps({"kernels": kernels}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

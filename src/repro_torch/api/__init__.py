@@ -1,5 +1,5 @@
 """`repro_torch.api` — the plan/execute service layer, the port's entry
-point (port of ``repro.api``, tip workload).
+point (port of ``repro.api``).
 
 1. **Ingestion** — ``repro_torch.core.graph.BipartiteGraph.from_edges`` /
    ``from_dense``; ``EngineConfig`` (frozen, serializable, strictly
@@ -11,7 +11,9 @@ point (port of ``repro.api``, tip workload).
 3. **Execution** — ``Executor`` runs plans through a cache keyed by the
    plan's signature (measured sizing reused across same-shaped graphs) and
    batches fleets of small graphs (``Executor.map``); results are
-   ``TipDecomposition`` objects.
+   ``TipDecomposition`` (``workload="tip"``) or ``WingDecomposition``
+   (``workload="wing"``) objects; ``Executor.repeel`` refreshes either
+   exactly after an edge-mutation batch.
 
 The hardened runtime: ``errors`` (the ``ReceiptError`` taxonomy),
 ``faults`` (deterministic fault injection), fleet isolation in
@@ -23,8 +25,7 @@ card unless given ``device="cpu"``::
     td = ex.decompose(g)
     td.theta, td.max_theta(), td.subgraph_at(5)
 
-The wing workload (``WingDecomposition``, ``verify_wing_decomposition``)
-arrives with the wing slice.  This initializer is LAZY (PEP 562): the
+This initializer is LAZY (PEP 562): the
 stdlib-only ``errors`` and ``faults`` modules are imported by the engine
 and the kernel layer, and must not pull the executor in.
 """
@@ -39,8 +40,10 @@ __all__ = [
     "Executor",
     "Decomposition",
     "TipDecomposition",
+    "WingDecomposition",
     "decompose",
     "verify_tip_decomposition",
+    "verify_wing_decomposition",
     "ReceiptError",
     "GraphValidationError",
     "PlanInfeasibleError",
@@ -65,8 +68,10 @@ _LAZY = {
     "Executor": "executor",
     "Decomposition": "executor",
     "TipDecomposition": "executor",
+    "WingDecomposition": "executor",
     "decompose": "executor",
     "verify_tip_decomposition": "executor",
+    "verify_wing_decomposition": "executor",
     "ReceiptError": "errors",
     "GraphValidationError": "errors",
     "PlanInfeasibleError": "errors",

@@ -43,8 +43,8 @@ class EngineConfig:
 
     Field semantics match ``ReceiptConfig`` (DESIGN.md §2.2 "Knobs") plus
     ``side``: which vertex set to peel (``"V"`` transposes the graph —
-    exact by symmetry), ``workload`` (``"tip"``; ``"wing"`` validates but
-    is planned only once the wing slice lands), and the hardened-runtime
+    exact by symmetry), ``workload`` (``"tip"`` peels vertices,
+    ``"wing"`` edges; wing runs dense only), and the hardened-runtime
     knobs below.
     """
 

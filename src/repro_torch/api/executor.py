@@ -1,6 +1,6 @@
-"""Execution stage: ``Executor`` (plan cache + multi-graph map) and the
-``TipDecomposition`` result object (port of ``repro.api.executor``, tip
-workload).
+"""Execution stage: ``Executor`` (plan cache + multi-graph map + the
+incremental re-peel) and the ``TipDecomposition`` / ``WingDecomposition``
+result objects (port of ``repro.api.executor``).
 
 **The cache.**  The Executor keys a cache entry on
 ``ExecutionPlan.signature`` (bucketed matrix shape + full config) and
@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..core.engine import tip_decompose as _engine_tip_decompose
+from ..core.engine import wing_decompose_engine as _engine_wing_decompose
 from ..core.engine.peel_loop import (
     ReceiptConfig,
     RunStats,
@@ -74,8 +75,9 @@ from .errors import (
 )
 from .plan import ExecutionPlan, Planner, check_no_mesh
 
-__all__ = ["Executor", "Decomposition", "TipDecomposition", "decompose",
-           "verify_tip_decomposition"]
+__all__ = ["Executor", "Decomposition", "TipDecomposition",
+           "WingDecomposition", "decompose", "verify_tip_decomposition",
+           "verify_wing_decomposition"]
 
 # the device-program failures taken for a kernel failure: the taxonomy's
 # KernelBackendError (refused launches, injected faults) only
@@ -170,6 +172,56 @@ class TipDecomposition(Decomposition):
         return sub, members, v_ids
 
 
+@dataclasses.dataclass
+class WingDecomposition(Decomposition):
+    """Result of one wing (bitruss) decomposition: per-EDGE wing numbers
+    + run evidence + hierarchy queries.
+
+    ``edge_wing[e]`` is the wing number psi of edge ``e`` in the graph's
+    canonical edge order (``graph.edges_u[e], graph.edges_v[e]``),
+    whatever ``side`` (wing numbers are side-symmetric).
+    ``subgraph_at(k)`` keeps the edges with psi >= k (the k-wing).
+    """
+
+    graph: BipartiteGraph            # the ingested (un-transposed) graph
+    side: str
+    edge_wing: np.ndarray            # int64[m], canonical edge order
+    stats: RunStats
+    plan: Optional[ExecutionPlan] = None
+
+    workload = "wing"
+    axis = "edge"
+
+    @property
+    def numbers(self) -> np.ndarray:
+        return self.edge_wing
+
+    @property
+    def m(self) -> int:
+        return int(self.edge_wing.size)
+
+    def edge_psi(self, e: int) -> int:
+        """Wing number of one edge (alias of ``numbers[e]``)."""
+        if not 0 <= e < self.edge_wing.size:
+            raise IndexError(
+                f"edge {e} out of range (m={self.edge_wing.size})")
+        return int(self.edge_wing[e])
+
+    def max_psi(self) -> int:
+        """Alias of ``max_level()``."""
+        return self.max_level()
+
+    def subgraph_at(self, psi_min: float):
+        """The psi_min-wing: the edges with wing number >= ``psi_min``,
+        vertex sets kept at original ids.  Returns ``(subgraph,
+        edge_ids)``, the ids indexing ``graph.edges_u``/``edges_v``."""
+        keep = np.where(self.edge_wing >= psi_min)[0]
+        sub = BipartiteGraph.from_edges(
+            self.graph.n_u, self.graph.n_v,
+            self.graph.edges_u[keep], self.graph.edges_v[keep])
+        return sub, keep
+
+
 # --------------------------------------------------------------------- #
 # cache
 # --------------------------------------------------------------------- #
@@ -256,33 +308,90 @@ class Executor:
     # ------------------------------------------------------------------ #
     def decompose(self, graph: BipartiteGraph,
                   plan: Optional[ExecutionPlan] = None, *,
-                  verify: bool = False) -> TipDecomposition:
-        """Full RECEIPT tip decomposition of one graph through the cache.
+                  verify: bool = False) -> Decomposition:
+        """Full RECEIPT decomposition of one graph through the cache:
+        ``workload="tip"`` returns a ``TipDecomposition`` (theta per
+        peeled-side vertex), ``workload="wing"`` a ``WingDecomposition``
+        (psi per edge).
 
         ``verify=True`` re-derives the paper's invariants from the result
-        (``verify_tip_decomposition``, on the host in float64) and records
-        the check count in ``RunStats``; a violation raises
-        ``VerificationError``.
+        (``verify_tip_decomposition`` / ``verify_wing_decomposition``, on
+        the host in float64) and records the check count in ``RunStats``;
+        a violation raises ``VerificationError``.
         """
         if plan is None:
             plan = self.plan(graph)
         entry = self._seed(plan)
-        theta, stats = self._execute(graph, plan)
+        numbers, stats = self._execute(graph, plan)
         self._absorb(plan, entry)
+        if self.workload == "wing":
+            if verify:
+                stats.verify_checks = verify_wing_decomposition(
+                    graph, numbers, bounds=stats.bounds,
+                    plan_signature=plan.signature)
+                stats.verified = True
+            return WingDecomposition(graph=graph, side=self.side,
+                                     edge_wing=numbers, stats=stats,
+                                     plan=plan)
         if verify:
             stats.verify_checks = verify_tip_decomposition(
-                graph, self.side, theta, bounds=stats.bounds,
+                graph, self.side, numbers, bounds=stats.bounds,
                 plan_signature=plan.signature)
             stats.verified = True
-        return TipDecomposition(graph=graph, side=self.side, theta=theta,
+        return TipDecomposition(graph=graph, side=self.side, theta=numbers,
                                 stats=stats, plan=plan)
 
-    def repeel(self, *args, **kwargs):
-        """Incremental re-peel of the serving layer: not ported yet."""
-        raise NotImplementedError(
-            "Executor.repeel (exact incremental refresh) arrives with the "
-            "refresh slice (ROADMAP.md, queue 1, item 4; it needs the wing "
-            "slice's edge state, item 3); refresh by a full decompose")
+    # ------------------------------------------------------------------ #
+    # incremental re-peel (the serving layer's refresh)
+    # ------------------------------------------------------------------ #
+    def repeel(self, graph: BipartiteGraph, *, sup0: np.ndarray,
+               numbers_old: np.ndarray, stops: Sequence[float],
+               watch: np.ndarray,
+               plan: Optional[ExecutionPlan] = None
+               ) -> Tuple[np.ndarray, RunStats]:
+        """Exact incremental refresh: prefix re-peel of the POST-mutation
+        ``graph`` from delta-maintained supports, stopping at the first
+        rung of ``stops`` that clears the mutation ceiling
+        (``core.engine.refresh``).
+
+        ``sup0``/``numbers_old`` are the maintained whole-graph supports
+        and the pre-mutation levels on the peeled axis in canonical order
+        (per vertex for tip — ``side="V"`` transposes, as ``decompose``
+        does — per edge for wing); ``stops`` the ascending ladder (first
+        rung above the deletion ceiling); ``watch`` the inserted elements.
+
+        Runs on the plan's one backend; plans routed to the tiled
+        representation are rejected (the refresh loops are dense).
+        Returns ``(numbers_new int64, stats)`` with ``refresh_mode`` and
+        ``refresh_stop`` set — bit-identical to
+        ``decompose(graph).numbers``.
+        """
+        from ..core.engine.refresh import (repeel_tip_prefix,
+                                           repeel_wing_prefix)
+
+        if plan is None:
+            plan = self.plan(graph)
+        if plan.representation == "tiled":
+            raise PlanInfeasibleError(
+                "incremental re-peel runs on the dense geometry; this "
+                "plan routed to the tiled representation — refresh by "
+                "full recompute instead", plan_signature=plan.signature,
+                dispatch="repeel")
+        entry = self._seed(plan)
+        rcfg = self._run_cfg(plan.backend, plan)
+        if self.workload == "tip" and self.side == "V":
+            graph = graph.transposed()
+        stats = RunStats()
+        stats.refresh_mode = "delta"
+        repeel = (repeel_wing_prefix if self.workload == "wing"
+                  else repeel_tip_prefix)
+        with self._fault_scope():
+            numbers, _stop = repeel(graph, sup0, numbers_old, stops, watch,
+                                    rcfg, stats, device=self.device,
+                                    plan=plan)
+        stats.backend_used = plan.backend
+        self._absorb(plan, entry)
+        return numbers, stats
 
     def _run_cfg(self, backend: str, plan: ExecutionPlan) -> ReceiptConfig:
         """Engine config of one execution attempt: the plan's backend,
@@ -321,8 +430,11 @@ class Executor:
 
     def _engine_run(self, graph: BipartiteGraph, cfg: ReceiptConfig,
                     plan: ExecutionPlan):
-        return _engine_tip_decompose(graph, cfg, side=self.side,
-                                     device=self.device, plan=plan)
+        """One engine invocation of the plan's workload."""
+        engine = (_engine_wing_decompose if self.workload == "wing"
+                  else _engine_tip_decompose)
+        return engine(graph, cfg, side=self.side, device=self.device,
+                      plan=plan)
 
     def _seed(self, plan: ExecutionPlan) -> _CacheEntry:
         entry = self._entries.get(plan.signature)
@@ -376,9 +488,9 @@ class Executor:
         if self.workload != "tip":
             raise PlanInfeasibleError(
                 "Executor.map batches VERTEX-axis (tip) decompositions; "
-                f"workload={self.workload!r} is not mappable (and the wing "
-                "slice is not ported yet: ROADMAP.md, queue 1, item 3)",
-                dispatch="map")
+                f"workload={self.workload!r} is not mappable — use "
+                "Executor.decompose per graph (the wing FD stack already "
+                "batches its subsets)", dispatch="map")
         if cfg.fd_mode != "level":
             raise ValueError(
                 "Executor.map batches graphs through the level-peel "
@@ -728,18 +840,114 @@ def verify_tip_decomposition(graph: BipartiteGraph, side: str,
     return checks
 
 
+def _edge_supports_host(g: BipartiteGraph, keep: np.ndarray) -> np.ndarray:
+    """Butterfly supports of the ``keep`` edges in the subgraph they
+    induce, recomputed on the host with an independent route (float64
+    wedge matrix ``W = A @ A.T``; the support of edge (u, v) is
+    ``(W @ A)[u, v] - du[u] - dv[v] + 1``) — no code shared with the
+    kernels it checks."""
+    eu, ev = g.edges_u[keep], g.edges_v[keep]
+    a = np.zeros((g.n_u, g.n_v), np.float64)
+    a[eu, ev] = 1.0
+    s = (a @ a.T) @ a
+    du = a.sum(axis=1)
+    dvv = a.sum(axis=0)
+    return s[eu, ev] - du[eu] - dvv[ev] + 1.0
+
+
+def verify_wing_decomposition(graph: BipartiteGraph, psi: np.ndarray, *,
+                              bounds: Optional[Sequence[float]] = None,
+                              max_boundaries: int = 8,
+                              plan_signature=None) -> int:
+    """Check a claimed wing decomposition against RECEIPT's invariants
+    (the edge-axis ``verify_tip_decomposition``); returns the number of
+    checks performed, raises ``VerificationError`` on the first
+    violation.
+
+    1. shape/domain: ``psi`` covers the canonical edge list, no
+       negatives;
+    2. support bound: ``psi[e] <= B0[e]``;
+    3. bound monotonicity: CD subset bounds non-decreasing and
+       ``psi.max() < bounds[-1]``;
+    4. psi containment at each boundary ``b``: every edge of
+       ``{e : psi[e] >= b}`` has support >= b INDUCED ON THE SET.
+
+    ``psi`` is side-agnostic, so supports are recomputed on the graph's
+    canonical edge order (``_edge_supports_host``, dense float64: meant
+    for graphs of a few thousand vertices).
+    """
+    g = graph
+    ps = np.asarray(psi)
+    checks = 0
+
+    def _fail(msg, **ctx):
+        raise VerificationError(msg, plan_signature=plan_signature, **ctx)
+
+    if ps.shape != (g.m,):
+        _fail(f"psi shape {ps.shape} != canonical edge list ({g.m},)")
+    checks += 1
+    if ps.size == 0:
+        return checks
+    if np.any(ps < 0):
+        _fail(f"negative wing numbers at "
+              f"{np.where(ps < 0)[0][:4].tolist()}")
+    checks += 1
+
+    sup0 = _edge_supports_host(g, np.arange(g.m))
+    bad = np.where(ps > sup0 + 0.5)[0]
+    if bad.size:
+        e = int(bad[0])
+        _fail(f"psi exceeds initial butterfly support: psi[{e}]="
+              f"{int(ps[e])} > B0[{e}]={sup0[e]:.0f} "
+              f"({bad.size} violation(s))")
+    checks += 1
+
+    if bounds:
+        bs = [float(b) for b in bounds]
+        if any(b2 < b1 for b1, b2 in zip(bs, bs[1:])):
+            _fail(f"CD subset bounds not monotone: {bs}")
+        checks += 1
+        if float(ps.max()) >= bs[-1]:
+            _fail(f"psi.max()={int(ps.max())} >= terminal bound "
+                  f"{bs[-1]} (bounds[-1] must exceed psi_max)")
+        checks += 1
+        levels = sorted({b for b in bs if 0.0 < b < np.inf})
+    else:
+        uniq = np.unique(ps[ps > 0]).astype(np.float64)
+        if uniq.size > max_boundaries:
+            pick = np.linspace(0, uniq.size - 1, max_boundaries)
+            uniq = uniq[np.round(pick).astype(int)]
+        levels = [float(b) for b in uniq]
+
+    for b in levels:
+        keep = np.where(ps >= b)[0]
+        if keep.size == 0:
+            continue
+        sup = _edge_supports_host(g, keep)
+        low = np.where(sup < b - 0.5)[0]
+        if low.size:
+            e = int(keep[low[0]])
+            _fail(f"psi containment violated at boundary {b:.0f}: edge "
+                  f"{e} ({int(g.edges_u[e])},{int(g.edges_v[e])}) "
+                  f"(psi={int(ps[e])}) has induced support "
+                  f"{sup[low[0]]:.0f} < {b:.0f}", boundary=b)
+        checks += 1
+    return checks
+
+
 # --------------------------------------------------------------------- #
 # one-shot convenience (the facade's entry point)
 # --------------------------------------------------------------------- #
 def decompose(graph: BipartiteGraph, config=None, *,
               side: Optional[str] = None, device=None, mesh=None,
               plan: Optional[ExecutionPlan] = None,
-              verify: bool = False) -> TipDecomposition:
+              verify: bool = False) -> Decomposition:
     """Plan + execute one decomposition on a fresh Executor.
 
     ``config`` may be an ``EngineConfig``, a legacy ``ReceiptConfig`` or
     None.  A fresh Executor means no cross-call reuse — exactly the
     engine's own sizing; hold an ``Executor`` to reuse measurements.
+    ``EngineConfig(workload="wing")`` returns a ``WingDecomposition``.
     ``device=None`` runs on the card.
     """
     return Executor(config, side=side, device=device, mesh=mesh).decompose(

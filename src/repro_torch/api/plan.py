@@ -36,6 +36,23 @@ only record:
   set, so nothing reads the width back, and ``cd_peel_width0`` is the
   reference's planned width, kept for parity.
 
+**Device memory** (``padded_bytes``) is the port's own count of what a
+run holds at its peak, a formula in the plan's shapes
+(``_dense_cd_bytes``, ``_fd_group_bytes``, ``_tiled_bytes``,
+``_wing_member_bytes``, ``_wing_closed_form_bytes``): the matrices the
+engine keeps, the kernels' scratch (the count body's s8 copy, the peel
+body's gathered rows, kernel 3's s8 stack copy, kernel 6's window
+scratch) and the largest temporaries, checked against
+``torch.cuda.max_memory_allocated`` above what was resident, on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``).  What the process holds
+for its life is not the run's: the CUDA context, and cuBLAS's workspace
+(32 MiB per stream on an H100, allocated at the process's first matrix
+product and kept).  It differs by design from the reference's, which
+counts the dense matrix, one peel buffer and the FD stacks (or one wing
+stack member per partition); the admission rules are the reference's
+(downshift P, route tiled, reject), so an outcome that follows from the
+bytes may differ too.
+
 There is no jit cache here, so the reuse is of plans and the FD gather
 widths, not of compiled programs.  The plan's host-sync bound differs by design:
 the port's CD loops read the peel-set size once per sweep (and once per
@@ -50,8 +67,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.engine.peel_loop import ReceiptConfig, bucket
+from ..core.engine.peel_loop import ReceiptConfig, bucket, cd_gather_width
 from ..core.graph import BipartiteGraph
+from ..kernels import butterfly as kbfly
+from ..kernels import butterfly_tiled as ktiled
 from ..kernels import ops as kops
 from .config import EngineConfig
 from .errors import PlanInfeasibleError
@@ -75,6 +94,81 @@ __all__ = ["ExecutionPlan", "PlanMeasurements", "Planner",
 # ---------------------------------------------------------------------- #
 TILED_OCCUPANCY_CROSSOVER = 0.03
 TILED_MIN_DENSE_CELLS = 1 << 24
+
+
+# ---------------------------------------------------------------------- #
+# device-memory model (bytes a run holds at its peak; module docstring)
+# ---------------------------------------------------------------------- #
+_F32_BYTES = 4
+_F64_BYTES = 8
+# per-row and per-column bytes of the sweep state (supports, masks, theta,
+# ids, extents, column sums and the like), and per-edge-slot bytes of the
+# wing state (supports, masks, theta, int64 endpoints, the closed form's
+# float64 gathers)
+_ROW_STATE_BYTES = 64
+_COL_STATE_BYTES = 32
+_EDGE_STATE_BYTES = 96
+
+
+def _dense_cd_bytes(rows_pad: int, cols_pad: int, block_rows: int,
+                    graph_dispatch: bool) -> int:
+    """Peak of the dense CD phase: the (R, C) f32 matrix and, at most one
+    at a time, the count body's s8 copy (counting, HUC recounts), a peel
+    update's gather of ``cd_gather_width`` rows and the peel body's
+    scratch, or — graph dispatch — the on-device DGM compaction, which
+    holds the old and the compacted matrix, then the compacted one and
+    its ``min(du, dv)`` product."""
+    d = _F32_BYTES * rows_pad * cols_pad
+    w0 = cd_gather_width(rows_pad, block_rows)
+    peak = max(kbfly.count_scratch_bytes(rows_pad, cols_pad),
+               _F32_BYTES * w0 * cols_pad
+               + kbfly.peel_scratch_bytes(w0, cols_pad))
+    if graph_dispatch:
+        peak = max(peak, d)
+    return (d + peak + _ROW_STATE_BYTES * rows_pad
+            + _COL_STATE_BYTES * cols_pad)
+
+
+def _fd_group_bytes(n_g: int, mm: int, cc: int, w1: int,
+                    b2_mode: bool) -> int:
+    """One FD shape group on the card: the survivor stack, the first-level
+    stack, and the level loop's update: the B2 stack and kernel 3's s8
+    copy, or a gather of up to every row and kernel 2's scratch."""
+    stacks = _F32_BYTES * n_g * (mm + w1) * cc
+    if b2_mode:
+        update = (_F32_BYTES * n_g * mm * mm
+                  + n_g * kbfly.count_scratch_bytes(mm, cc))
+    else:
+        update = (_F32_BYTES * n_g * mm * cc
+                  + kbfly.peel_scratch_bytes(mm, cc, n_g))
+    return stacks + update + _ROW_STATE_BYTES * n_g * (mm + cc)
+
+
+def _tiled_bytes(n_tiles: int, br: int, bc: int, n_rt: int, n_ct: int,
+                 rows_pad: int, cols_pad: int) -> int:
+    """Peak of the tiled route: one tile payload (a rebuild drops the old
+    list before uploading the new one), kernel 6's window scratch (its
+    count launch, every row with mass, capped at the payload's size) or
+    the liveness pass's bool copy, the slot lists, and the per-slot
+    temporaries of the column sums and the regather."""
+    payload = _F32_BYTES * n_tiles * br * bc
+    scratch = min(ktiled.peel_scratch_bytes(rows_pad, n_ct, bc), payload)
+    lists = _F32_BYTES * (3 * n_tiles + n_rt + 1 + n_rt * n_ct)
+    return int(payload + max(scratch, payload // 4) + lists
+               + 3 * _F32_BYTES * n_tiles * (br + bc)
+               + _ROW_STATE_BYTES * rows_pad + _COL_STATE_BYTES * cols_pad)
+
+
+def _wing_member_bytes(rows_pad: int, cols_pad: int, m_pad: int) -> int:
+    """One (R, C) member of the wing engine's matrix or FD stack on the
+    card: the f32 matrix and its edge-slot state."""
+    return _F32_BYTES * rows_pad * cols_pad + _EDGE_STATE_BYTES * m_pad
+
+
+def _wing_closed_form_bytes(rows_pad: int, cols_pad: int) -> int:
+    """The closed form's float64 temporaries, one member at a time: the
+    matrix, ``A^T A`` and ``A (A^T A)``."""
+    return _F64_BYTES * (2 * rows_pad * cols_pad + cols_pad * cols_pad)
 
 
 def check_no_mesh(mesh) -> None:
@@ -282,15 +376,11 @@ class Planner:
         graph.validate()
         cfg = self.rcfg
         backend = kops.resolve_backend(cfg.backend, self.device)
-        if self.workload == "wing":
-            raise PlanInfeasibleError(
-                "workload='wing' (edge-axis wing decomposition) is not "
-                "ported yet: it arrives with the wing slice (ROADMAP.md, "
-                "queue 1, item 3); use workload='tip'",
-                dispatch=cfg.cd_dispatch, backend=backend)
         g = graph.transposed() if self.side == "V" else graph
         bi, bj, bk = cfg.kernel_blocks
         mesh_shards = 0
+        if self.workload == "wing":
+            return self._plan_wing(g, cfg, backend, mesh_shards)
 
         # --- ingestion-derived shapes (the DeviceGraph bucket math) ---- #
         dv = g.degrees_v()
@@ -300,20 +390,17 @@ class Planner:
         if cfg.peel_width is not None:
             width0 = min(bucket(cfg.peel_width, bj), rows_pad)
         else:
-            width0 = min(bucket(max(bj, rows_pad // 4), bj), rows_pad)
+            width0 = cd_gather_width(rows_pad, bj)
 
         # --- FD shape-group estimate (wedge-mass equipartition) -------- #
         est_groups, est_waste = self._estimate_fd_groups(g, cfg)
 
-        # --- memory estimate ------------------------------------------- #
-        itemsize = 4                                    # f32 regime
-        fixed_bytes = itemsize * (
-            rows_pad * cols_pad                         # CD biadjacency
-            + width0 * cols_pad                         # CD peel buffer
-        )
-        stack_cells = sum(g_["count"] * g_["rows"] * g_["cols"]
-                          for g_ in est_groups)
-        padded_bytes = fixed_bytes + itemsize * stack_cells
+        # --- memory estimate (the port's own; module docstring) -------- #
+        # the CD phase's peak, then the FD phase's; the CD matrix is gone
+        # before FD starts
+        fixed_bytes = _dense_cd_bytes(rows_pad, cols_pad, bj,
+                                      cfg.cd_dispatch == "graph")
+        padded_bytes = max(fixed_bytes, self._estimate_fd_bytes(g, cfg))
 
         # --- representation routing ------------------------------------ #
         req_rep = cfg.representation
@@ -367,9 +454,10 @@ class Planner:
         elif budget is not None and padded_bytes > budget:
             if fixed_bytes > budget:
                 raise PlanInfeasibleError(
-                    f"the CD device matrix alone needs {fixed_bytes} "
-                    f"padded bytes ({rows_pad} x {cols_pad} biadjacency + "
-                    f"{width0}-row peel buffer), over the "
+                    f"the CD phase alone needs {fixed_bytes} bytes "
+                    f"({rows_pad} x {cols_pad} biadjacency, its kernels' "
+                    f"scratch and {cd_gather_width(rows_pad, bj)}-row "
+                    f"gathers), over the "
                     f"memory_budget_bytes={budget} admission budget — no "
                     "FD downshift can help; raise the budget, shrink the "
                     "graph/blocks, or route representation='tiled'",
@@ -388,9 +476,8 @@ class Planner:
             for p_try in cands:
                 groups_try, waste_try = self._estimate_fd_groups(
                     g, cfg, num_partitions=p_try)
-                cells = sum(g_["count"] * g_["rows"] * g_["cols"]
-                            for g_ in groups_try)
-                bytes_try = fixed_bytes + itemsize * cells
+                bytes_try = max(fixed_bytes, self._estimate_fd_bytes(
+                    g, cfg, num_partitions=p_try))
                 if bytes_try < best[0]:
                     best = (bytes_try, p_try, groups_try, waste_try)
                 if bytes_try <= budget:
@@ -443,14 +530,95 @@ class Planner:
         )
 
     # ------------------------------------------------------------------ #
+    def _plan_wing(self, g: BipartiteGraph, cfg: ReceiptConfig,
+                   backend: str, mesh_shards: int) -> ExecutionPlan:
+        """Edge-axis (wing) plan (reference ``_plan_wing``).
+
+        Shapes mirror ``engine.wing.build_edge_state``: the biadjacency
+        keeps every ``n_v`` column (the edge axis peels matrix entries),
+        the supports live on ``m_pad`` edge slots.  FD is one stack of P
+        members of the biadjacency's shape.  Memory counts what the card
+        holds: each member's f32 matrix and edge-slot state
+        (``_wing_member_bytes``) and, once, the closed form's float64
+        temporaries (``_wing_closed_form_bytes``: one member at a time);
+        the CD phase holds one member, FD all P, so admission downshifts
+        the partition count by the per-member cost before it rejects.
+        """
+        bi, bj, bk = cfg.kernel_blocks
+        rows_pad = bucket(max(g.n_u, 1), max(bi, bj))
+        cols_pad = bucket(max(g.n_v, 1), bk)
+        m_pad = bucket(max(g.m, 1), bj)
+        if cfg.peel_width is not None:
+            width0 = min(bucket(cfg.peel_width, bj), m_pad)
+        else:
+            width0 = min(bucket(max(bj, m_pad // 8), bj), m_pad)
+
+        member = _wing_member_bytes(rows_pad, cols_pad, m_pad)
+        temps = _wing_closed_form_bytes(rows_pad, cols_pad)
+        fixed_bytes = member + temps        # the CD phase's peak
+        budget = self.memory_budget
+        admitted_p = max(cfg.num_partitions, 1)
+        degraded_from = None
+        padded_bytes = member * admitted_p + temps
+        if budget is not None and padded_bytes > budget:
+            if fixed_bytes > budget:
+                raise PlanInfeasibleError(
+                    f"the wing device matrix alone needs {fixed_bytes} "
+                    f"bytes ({rows_pad} x {cols_pad} biadjacency with its "
+                    f"closed form's float64 temporaries, {m_pad} edge "
+                    f"slots), over the memory_budget_bytes={budget} "
+                    "admission budget — no partition downshift can help; "
+                    "raise the budget or shrink the graph/blocks",
+                    dispatch=cfg.cd_dispatch, backend=backend,
+                    padded_bytes=fixed_bytes, budget=budget)
+            degraded_from = cfg.num_partitions
+            admitted_p = max(int((budget - temps) // member), 1)
+            padded_bytes = member * admitted_p + temps
+        est_groups = [dict(rows=rows_pad, cols=cols_pad, count=admitted_p)]
+        est_waste = (1.0 - g.m / float(admitted_p * rows_pad * cols_pad)
+                     if g.m else 0.0)
+        cost_model = {
+            "requested": cfg.representation,
+            "dense_bytes": padded_bytes,
+            "dense_fixed_bytes": fixed_bytes,
+            "dense_cells": rows_pad * cols_pad,
+            "edge_slots": m_pad,
+        }
+        cfg_items = tuple(sorted(
+            (f.name, _freeze(getattr(cfg, f.name)))
+            for f in dataclasses.fields(cfg)))
+        signature = (rows_pad, cols_pad, self.side, backend, mesh_shards,
+                     admitted_p, "dense", cfg_items, self.workload)
+        return ExecutionPlan(
+            signature=signature, workload="wing", m_pad=m_pad,
+            side=self.side, n_u=g.n_u, n_v=g.n_v, m=g.m,
+            backend=backend, kernel_route=kops.route_label(backend),
+            kernel_blocks=tuple(cfg.kernel_blocks),
+            cd_dispatch=cfg.cd_dispatch,
+            num_partitions=admitted_p,
+            rows_pad=rows_pad, cols_pad=cols_pad,
+            cd_peel_width0=width0,
+            cd_host_syncs_bound=None,
+            fd_mode=cfg.fd_mode, fd_update_policy="kernel",
+            est_fd_groups=est_groups, est_fd_padding_waste=est_waste,
+            mesh_shards=mesh_shards,
+            degree_sort=False,          # the edge axis never relabels
+            device_loop=cfg.device_loop,
+            padded_bytes=padded_bytes,
+            representation="dense",
+            cost_model=cost_model,
+            memory_budget_bytes=budget,
+            degraded_from_partitions=degraded_from,
+        )
+
+    # ------------------------------------------------------------------ #
     def _estimate_tiled(self, g: BipartiteGraph,
                         cfg: ReceiptConfig) -> Dict[str, Any]:
         """Host-side estimate of the tiled representation's footprint,
         mirroring what ``engine.tiled.receipt_tiled`` builds: the DGM
         pre-compaction (degree-<2 V columns drop out), the degree-sort
         relabeling, then the occupied ``block_rows x block_k`` tiles.
-        ``tiled_bytes`` budgets the tile payloads ~3x (the peel loop's
-        regather/peel-masked copies) plus the reverse map."""
+        ``tiled_bytes`` is the route's peak (``_tiled_bytes``)."""
         from ..core.engine.tiled import tiled_blocks
 
         br, bc = tiled_blocks(cfg)
@@ -479,8 +647,8 @@ class Planner:
             n_tiles = int(occupied.size) + int(empty_bands)
         else:
             n_tiles = n_rt                      # one filler slot per band
-        tiled_bytes = 4 * (3 * n_tiles * br * bc + n_rt * n_ct
-                           + 4 * rows_pad_t)
+        tiled_bytes = _tiled_bytes(n_tiles, br, bc, n_rt, n_ct, rows_pad_t,
+                                   cols_pad_t)
         return {
             "tiled_bytes": int(tiled_bytes),
             "n_tiles": n_tiles,
@@ -491,6 +659,46 @@ class Planner:
         }
 
     # ------------------------------------------------------------------ #
+    def _estimate_fd_bytes(self, g: BipartiteGraph, cfg: ReceiptConfig,
+                           num_partitions: Optional[int] = None) -> int:
+        """Peak of the FD phase: the wedge-equipartition subsets of
+        ``_estimate_fd_groups``, each stacked at its own rows and the
+        columns its members touch (as ``fd.build_fd_tasks`` induces them),
+        grouped by padded shape; the two largest groups are on the card at
+        once (the double-buffered dispatch)."""
+        from ..core.engine.fd import _aligns, _level_pad
+
+        row_align, col_align, w_align = _aligns(cfg)
+        w = g.wedge_counts_u().astype(np.float64)
+        total = float(w.sum())
+        p = max(num_partitions if num_partitions is not None
+                else cfg.num_partitions, 1)
+        if g.n_u == 0 or total <= 0:
+            return 0
+        order = np.argsort(w, kind="stable")
+        cum = np.cumsum(w[order])
+        cuts = np.searchsorted(cum, total / p * np.arange(1, p + 1))
+        ends = np.unique(np.minimum(cuts + 1, g.n_u))
+        sizes = np.diff(np.concatenate([[0], ends]))
+        subset_of = np.empty(g.n_u, np.int64)
+        subset_of[order] = np.repeat(np.arange(sizes.size), sizes)
+        cells = np.unique(subset_of[g.edges_u] * max(g.n_v, 1)
+                          + g.edges_v)
+        n_cols = np.bincount(cells // max(g.n_v, 1), minlength=sizes.size)
+        shapes: Dict[Tuple[int, int], int] = {}
+        for size, cols in zip(sizes, n_cols):
+            key = (_level_pad(int(size), row_align),
+                   _level_pad(max(int(cols), 1), col_align))
+            shapes[key] = shapes.get(key, 0) + 1
+        per_group = []
+        for (mm, cc), n_g in shapes.items():
+            b2_mode = (cfg.fd_update_mode == "b2"
+                       or (cfg.fd_update_mode == "auto"
+                           and n_g * mm * mm <= cfg.fd_b2_cells))
+            per_group.append(_fd_group_bytes(n_g, mm, cc, w_align, b2_mode))
+        per_group.sort(reverse=True)
+        return int(sum(per_group[: 2 if cfg.fd_overlap else 1]))
+
     def _estimate_fd_groups(self, g: BipartiteGraph, cfg: ReceiptConfig,
                             num_partitions: Optional[int] = None):
         """Wedge-equipartition ESTIMATE of the FD shape groups: sorting U

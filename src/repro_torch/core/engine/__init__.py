@@ -8,6 +8,10 @@
   legacy sequential ``fd_mode="b2"`` / ``"matvec"`` engines
 * `tiled.py`     — the whole-graph level peel over the nonzero-tile list
   (``representation="tiled"``)
+* `wing.py`      — wing (bitruss) decomposition on the EDGE axis (the
+  same loops with the edge delta rule, ``DELTA_RULES``)
+* `refresh.py`   — the exact incremental re-peel after edge mutations
+  (``repeel_tip_prefix`` / ``repeel_wing_prefix``)
 * `baselines.py` — the ParButterfly min-peel baseline
 
 ``tip_decompose`` below is the top-level entry point (CD then FD, or the
@@ -25,6 +29,7 @@ from .baselines import parb_tip_decompose
 from .cd import cd_checkpoint_state, find_hi_np, receipt_cd
 from .fd import build_fd_tasks, build_level_stack, receipt_fd
 from .peel_loop import (
+    DELTA_RULES,
     DeviceGraph,
     ReceiptConfig,
     RunStats,
@@ -36,7 +41,17 @@ from .peel_loop import (
     host_sweep,
     resolve_device,
 )
+from .refresh import (repeel_tip_prefix, repeel_wing_prefix,
+                      synthesize_bounds)
 from .tiled import build_tiled, receipt_tiled, tiled_blocks
+from .wing import (
+    build_edge_state,
+    device_wing_graph_loop,
+    receipt_wing_cd,
+    receipt_wing_fd,
+    wing_decompose_engine,
+    wing_graph_state0,
+)
 
 __all__ = [
     "ReceiptConfig",
@@ -48,6 +63,16 @@ __all__ = [
     "tiled_blocks",
     "build_tiled",
     "parb_tip_decompose",
+    "wing_decompose_engine",
+    "receipt_wing_cd",
+    "receipt_wing_fd",
+    "device_wing_graph_loop",
+    "wing_graph_state0",
+    "build_edge_state",
+    "repeel_tip_prefix",
+    "repeel_wing_prefix",
+    "synthesize_bounds",
+    "DELTA_RULES",
     "cd_checkpoint_state",
     "find_hi_np",
     "build_fd_tasks",

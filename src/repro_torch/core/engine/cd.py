@@ -291,6 +291,9 @@ def receipt_cd(
             live = np.where(alive_np)[0]
             new_members = dg.members[live]
             sup_keep = sup_np[live]
+            # the old matrix goes before the new one is uploaded: the
+            # card never holds two
+            dg = support = alive = dv = None
             dg = DeviceGraph(g, new_members, cfg, device=device, plan=plan)
             stats.dgm_compactions += 1
             support, alive = _fresh_state(dg, sup_keep, cfg)
@@ -350,6 +353,7 @@ def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
     # buffer); every gather here is sized to its peel set
     fault_point("peel_buffer", dispatch="graph", backend=backend)
     state = cd_graph_state0(dg, support, alive, p_total)
+    dg.a = support = alive = None       # the state owns them now
     widths = []
     while True:
         fault_point("kernel_launch", KernelBackendError,

@@ -1,4 +1,4 @@
-"""The peel core, vertex axis (port of ``repro.core.engine.peel_loop``).
+"""The peel core (port of ``repro.core.engine.peel_loop``).
 
 One sweep engine drives the peel schedules:
 
@@ -42,6 +42,16 @@ the sparse backends, with the staircase extents ``row_ext``/``kmax``) for
 the single-graph loops, kernel 2 (kernel 5 on the sparse backends) and
 kernel 3 (``b2_stack``) for the batched loop.
 
+**The edge axis** (wing peeling, DESIGN.md section 10) plugs into the same
+loops through ``DELTA_RULES``: the support vector is per EDGE SLOT, the
+geometry ``{"a", "eu", "ev"}`` carries the residual biadjacency (peeling
+rewrites it), and a sweep either recounts every survivor in closed form
+(``kernels.ops.edge_support_all``) or applies the before-minus-after
+delta of the peeled set (``kernels.ops.edge_support_delta``), by the
+reference's HUC rule.  The edge HUC choice compares host values (the
+peel-set size read anyway against ``c_rcnt``), so an edge sweep costs one
+read, as a level sweep does.
+
 Exactness: supports, wedge counts and the f32 wedge/covered accumulators
 are integers below 2^24 and exact in float32 (DESIGN.md section 8), as in
 the reference.  PyTorch may run a float32 matrix product on the tensor
@@ -70,6 +80,10 @@ __all__ = [
     "ReceiptConfig",
     "RunStats",
     "bucket",
+    "cd_gather_width",
+    "peel_delta",
+    "DELTA_RULES",
+    "DeltaRule",
     "fetch",
     "resolve_device",
     "DeviceGraph",
@@ -381,15 +395,50 @@ def peel_cost(colsum, dv):
     return (colsum * torch.clamp(dv - 1.0, min=0.0)).sum(dim=-1)
 
 
-def _gather_peel(a, peel, n_peel: int, width: int):
-    """The peel rows of ``a`` gathered into a (width, n_v) matrix, in row
-    order (a stable sort puts them first), padding rows zeroed; returns
-    (rows int32, valid bool, a_peel)."""
-    order = torch.argsort((~peel).to(torch.int8), stable=True)[:width]
-    valid = torch.arange(width, device=a.device) < n_peel
-    rows = torch.where(valid, order, 0).to(torch.int32)
-    a_peel = a[rows] * valid[:, None].to(a.dtype)
+def cd_gather_width(rows_pad: int, block_rows: int) -> int:
+    """The widest gather of a single-graph peel update: the reference's
+    initial CD peel width (``ExecutionPlan.cd_peel_width0``).  A peel set
+    wider than this is updated in chunks of it (``peel_delta``), so no
+    sweep holds more than a (width, n_v) gather: the bound the Planner's
+    memory estimate counts."""
+    return min(bucket(max(block_rows, rows_pad // 4), block_rows), rows_pad)
+
+
+def _gather_peel(a, order, n: int, width: int):
+    """Rows ``order[:n]`` of ``a`` gathered into one (width, n_v) buffer,
+    padding rows zeroed in place; returns (rows int32, valid bool,
+    a_peel)."""
+    valid = torch.arange(width, device=a.device) < n
+    rows = torch.zeros(width, dtype=torch.int32, device=a.device)
+    rows[:n] = order[:n]
+    a_peel = a.index_select(0, rows)
+    a_peel[n:] = 0.0
     return rows, valid, a_peel
+
+
+def peel_delta(a, peel, n_peel: int, ids, row_ext, kmax, *, backend,
+               blocks):
+    """The peel update ``delta[u'] = sum_{u in S} C(W[u, u'], 2)`` of the
+    peel set ``S`` (``n_peel`` rows, read by the caller): its rows
+    gathered in row order (a stable sort puts them first) and handed to
+    kernel 1's peel body (kernel 4's on the sparse backends, with the
+    gathered rows' tile extents), ``cd_gather_width`` rows per call; the
+    chunks' deltas are summed (integers below 2^24: exact in f32)."""
+    sparse = backend in kops.SPARSE_BACKENDS
+    chunk = cd_gather_width(a.shape[0], blocks[1])
+    order = torch.argsort((~peel).to(torch.int8), stable=True)[:n_peel]
+    delta = None
+    for start in range(0, n_peel, chunk):
+        n = min(chunk, n_peel - start)
+        width = min(bucket(n, blocks[1]), a.shape[0])
+        rows, valid, a_peel = _gather_peel(a, order[start:], n, width)
+        kb = (ksparse.gathered_tile_extents(row_ext, rows, valid, blocks[1])
+              if sparse else None)
+        d = support_delta(a, a_peel, valid, ids, rows,
+                          kmax if sparse else None, kb, backend=backend,
+                          blocks=blocks)
+        delta = d if delta is None else delta + d
+    return delta
 
 
 def _peel_sizes(support, alive, hi, stats):
@@ -408,11 +457,12 @@ def _sweep_once(a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv,
                 use_huc, stats, widths=None):
     """One non-empty peel sweep (reference ``_sweep_once``, vertex axis),
     shared by ``device_peel_loop`` and ``device_cd_graph_loop``: the
-    terminal-sweep elision, the gather sized to the peel set, the HUC
-    peel-vs-recount choice and the incremental residual-degree / wedge
-    counter updates.  The caller has selected ``peel`` and read its sizes
-    (``_peel_sizes``), and records theta / the peeled set itself.
-    ``widths`` (a list, or None) gets the row count of each gather.
+    terminal-sweep elision, the HUC peel-vs-recount choice, the peel
+    update over gathers sized to the peel set (``peel_delta``) and the
+    incremental residual-degree / wedge counter updates.  The caller has
+    selected ``peel`` and read its sizes (``_peel_sizes``), and records
+    theta / the peeled set itself.  ``widths`` (a list, or None) gets the
+    row count of the sweep's widest gather.
 
     ``row_ext`` / ``kmax`` are the per-row and row-tile staircase extents
     of ``a`` (read on the sparse backends only); ``c_rcnt`` is the HUC
@@ -426,12 +476,12 @@ def _sweep_once(a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv,
         return (support, alive & ~peel, torch.zeros_like(dv), wedges,
                 covered + peel_cost(dv, dv), False, True)
 
-    width = min(bucket(n_peel, blocks[1]), a.shape[0])
     if widths is not None:
-        widths.append(width)
-    rows, valid, a_peel = _gather_peel(a, peel, n_peel, width)
-    # incremental residual degrees: peeled rows' column sums
-    colsum = a_peel.sum(dim=0)
+        widths.append(min(bucket(n_peel, blocks[1]),
+                          cd_gather_width(a.shape[0], blocks[1])))
+    # incremental residual degrees: peeled rows' column sums (a product
+    # of 0/1 operands: exact in f32 and TF32 alike)
+    colsum = peel.to(a.dtype) @ a
     c_peel = peel_cost(colsum, dv)
     use_rec = use_huc and bool(fetch(stats, c_peel > c_rcnt)[0])
     if use_rec:
@@ -441,16 +491,94 @@ def _sweep_once(a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv,
         support2 = torch.where(alive2, torch.maximum(s2, cap), _INF)
         wedges = wedges + c_rcnt
     else:
-        kb = (ksparse.gathered_tile_extents(row_ext, rows, valid, blocks[1])
-              if sparse else None)
-        delta = support_delta(a, a_peel, valid, ids, rows,
-                              kmax if sparse else None, kb,
-                              backend=backend, blocks=blocks)
+        delta = peel_delta(a, peel, n_peel, ids, row_ext, kmax,
+                           backend=backend, blocks=blocks)
         s2, alive2 = apply_delta(support, alive, peel, delta, cap)
         support2 = torch.where(alive2, s2, _INF)
         wedges = wedges + c_peel
     return (support2, alive2, dv - colsum, wedges, covered + c_peel, use_rec,
             False)
+
+
+def _zero_edges(a, eu, ev, peel):
+    """Zero the peeled edge slots' cells of ``a`` IN PLACE (a (R, C)
+    matrix with ``peel`` (E,), or a stack (G, R, C) with (G, E)) and
+    return the peeled edges' column hits (padding slots alias cell
+    (0, 0) with peel False, so they remove and add nothing)."""
+    kops.zero_cells_(a, eu, ev, peel)
+    colsum = torch.zeros(a.shape[:-2] + a.shape[-1:], dtype=_F32,
+                         device=a.device)
+    if a.dim() == 3:
+        gidx = torch.arange(a.shape[0], device=a.device)[:, None]
+        colsum.index_put_((gidx, ev), peel.to(_F32), accumulate=True)
+    else:
+        colsum.index_put_((ev,), peel.to(_F32), accumulate=True)
+    return colsum
+
+
+def _sweep_once_edge(geom, c_rcnt, cap, support, alive, dv, wedges, covered,
+                     peel, n_peel, n_alive, *, backend, blocks, use_huc,
+                     peel_width):
+    """One non-empty edge-axis sweep (reference ``_sweep_once_edge``).
+
+    ``support``/``alive``/``peel`` are per edge slot, ``dv`` the residual
+    V degrees, ``geom = {"a", "eu", "ev"}`` the residual biadjacency and
+    the slot endpoints (``eu``/``ev`` int64); the peeled edges are zeroed
+    out of ``geom["a"]`` IN PLACE.  A sweep that peels every survivor is
+    elided; otherwise the reference's HUC rule picks the update:
+    ``use_huc`` recounts when the peel set passes the reference's gather
+    width ``peel_width`` or ``n_peel > c_rcnt`` (compared in f32, as the
+    reference does), else applies the peel set's delta, before-minus-after
+    of the closed form (``kernels.ops.edge_support_delta``'s computation,
+    the after-count being the recount's); ``use_huc=False`` always
+    recounts (policy, not counted in ``hucs``).  ``c_rcnt`` is a host
+    float; ``wedges``/``covered`` f32 device scalars.
+
+    Returns (geom, support, alive, dv, wedges, covered, recounted,
+    elided).
+    """
+    a, eu, ev = geom["a"], geom["eu"], geom["ev"]
+    if n_peel == n_alive:
+        colsum = _zero_edges(a, eu, ev, peel)
+        return (geom, support, alive & ~peel, dv - colsum, wedges,
+                covered + float(n_peel), False, True)
+    if use_huc:
+        rec = (n_peel > peel_width
+               or np.float32(n_peel) > np.float32(c_rcnt))
+    else:
+        rec = True
+    before = (None if rec else
+              kops.edge_support_all(a, eu, ev, backend=backend,
+                                    blocks=blocks))
+    colsum = _zero_edges(a, eu, ev, peel)
+    after = kops.edge_support_all(a, eu, ev, backend=backend, blocks=blocks)
+    alive2 = alive & ~peel
+    if rec:
+        support2 = torch.where(alive2, torch.maximum(after, cap), _INF)
+        wedges = wedges + np.float32(c_rcnt).item()
+    else:
+        s2, alive2 = apply_delta(support, alive, peel, before - after, cap)
+        support2 = torch.where(alive2, s2, _INF)
+        wedges = wedges + float(n_peel)
+    return (geom, support2, alive2, dv - colsum, wedges,
+            covered + float(n_peel), rec and use_huc, False)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaRule:
+    """One peel axis of the engine (reference ``DeltaRule``): whether a
+    sweep rewrites the carried geometry (edge peeling deletes matrix
+    entries; vertex peeling only masks rows).  The loops branch on it to
+    their axis's sweep body (``_sweep_once`` / ``_sweep_once_edge``)."""
+
+    axis: str
+    mutable_geom: bool
+
+
+DELTA_RULES = {
+    "vertex": DeltaRule(axis="vertex", mutable_geom=False),
+    "edge": DeltaRule(axis="edge", mutable_geom=True),
+}
 
 
 # ---------------------------------------------------------------------- #
@@ -459,7 +587,7 @@ def _sweep_once(a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv,
 def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
                      sweeps0=0, *, backend, blocks, use_huc, max_sweeps,
                      minmode, row_ext=None, kmax=None, stats=None,
-                     widths=None):
+                     widths=None, axis="vertex", peel_width=None):
     """Run an entire peel-sweep loop over device tensors.
 
     * ``minmode=False`` (RECEIPT CD, Alg. 3): peel everything with
@@ -480,7 +608,19 @@ def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
     covered, sweeps, overflow) like the reference; ``wedges`` and
     ``covered`` are f32 device scalars (exact below 2^24), the counts are
     Python ints and ``overflow`` is always False.
+
+    ``axis="edge"`` runs the edge rule (``DELTA_RULES``): ``a`` is the
+    geometry dict ``{"a", "eu", "ev"}``, ``peel_width`` the reference's
+    gather width (its HUC rule reads it), ``ids``/``row_ext``/``kmax``
+    are unused, and the return tuple gains the updated geometry in
+    front, as the reference's.
     """
+    if DELTA_RULES[axis].mutable_geom:
+        return _device_peel_loop_edge(
+            a, support, alive, dv, theta, hi, lo, c_rcnt, sweeps0,
+            backend=backend, blocks=blocks, use_huc=use_huc,
+            max_sweeps=max_sweeps, minmode=minmode, peel_width=peel_width,
+            stats=stats)
     dev = support.device
     hi = _f32_scalar(hi, dev)
     lo = _f32_scalar(lo, dev)
@@ -511,6 +651,45 @@ def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
         sweeps += 1
     return (support, alive, dv, theta, peeled, rho, wedges, hucs, elided,
             covered, sweeps, False)
+
+
+def _device_peel_loop_edge(geom, support, alive, dv, theta, hi, lo, c_rcnt,
+                           sweeps0, *, backend, blocks, use_huc, max_sweeps,
+                           minmode, peel_width, stats):
+    """The edge-axis ``device_peel_loop`` (reference ``axis="edge"``
+    branch): one read per sweep (the peel-set and alive sizes), the HUC
+    choice on the host.  Returns (geom, support, alive, dv, theta,
+    peeled, rho, wedges, hucs, elided, covered, sweeps, overflow)."""
+    dev = support.device
+    hi = _f32_scalar(hi, dev)
+    lo = _f32_scalar(lo, dev)
+    peeled = torch.zeros_like(alive)
+    wedges = torch.zeros((), dtype=_F32, device=dev)
+    covered = torch.zeros((), dtype=_F32, device=dev)
+    rho = hucs = elided = 0
+    sweeps = int(sweeps0)
+    while sweeps < max_sweeps:
+        if minmode:
+            hi_cur, cap = level_threshold(support, alive, lo)
+        else:
+            hi_cur, cap = hi, lo
+        peel, n_peel, n_alive = _peel_sizes(support, alive, hi_cur, stats)
+        if n_peel == 0:
+            break
+        if minmode:
+            theta = record_theta(theta, peel, cap)
+        peeled = peeled | peel
+        geom, support, alive, dv, wedges, covered, rec, eli = \
+            _sweep_once_edge(
+                geom, c_rcnt, cap, support, alive, dv, wedges, covered,
+                peel, n_peel, n_alive, backend=backend, blocks=blocks,
+                use_huc=(use_huc and not minmode), peel_width=peel_width)
+        rho += 1
+        hucs += int(rec)
+        elided += int(eli)
+        sweeps += 1
+    return (geom, support, alive, dv, theta, peeled, rho, wedges, hucs,
+            elided, covered, sweeps, False)
 
 
 # ---------------------------------------------------------------------- #
@@ -553,11 +732,17 @@ def _compact_residual(st: dict, blocks, sparse: bool) -> dict:
     prefix with a stable sort (the degree-sort order kept inside it),
     permute ``dv`` along, re-tighten the staircase extents and re-estimate
     the HUC bound ``c_rcnt = sum_E min(du, dv)`` on the compacted graph.
-    Rows keep their places, so supports and subset stamps are untouched."""
-    a0 = st["a"] * st["alive"][:, None].to(st["a"].dtype)
+    Rows keep their places, so supports and subset stamps are untouched.
+    ``st`` is updated in place, the old matrix dropped before the
+    compacted one is masked, so the card holds at most two (R, C)
+    matrices here."""
+    a = st.pop("a")
     live_col = st["dv"] >= 2.0
     perm = torch.argsort((~live_col).to(torch.int8), stable=True)
-    a2 = a0[:, perm] * live_col[perm][None, :].to(a0.dtype)
+    a2 = a.index_select(1, perm)
+    del a                       # the state held the only other reference
+    a2.mul_(st["alive"][:, None].to(a2.dtype))
+    a2.mul_(live_col[perm][None, :].to(a2.dtype))
     dv = torch.where(live_col, st["dv"], 0.0)[perm]
     if sparse:
         row_ext, kmax = kops.tighten_extents_device(
@@ -565,18 +750,19 @@ def _compact_residual(st: dict, blocks, sparse: bool) -> dict:
     else:
         row_ext, kmax = st["row_ext"], st["kmax"]
     du = a2.sum(dim=1)
-    c_rcnt = (a2 * torch.minimum(du[:, None], dv[None, :])).sum()
-    return dict(st, a=a2, dv=dv, row_ext=row_ext, kmax=kmax, c_rcnt=c_rcnt)
+    c_rcnt = torch.minimum(du[:, None], dv[None, :]).mul_(a2).sum()
+    st.update(a=a2, dv=dv, row_ext=row_ext, kmax=kmax, c_rcnt=c_rcnt)
 
 
 def _graph_boundary(st: dict, done: bool, *, blocks, sparse, use_dgm,
-                    p_total) -> dict:
+                    p_total) -> None:
     """Close subset ``i`` (none on the first entry, i = -1) and, unless no
     row is alive, open subset ``i + 1``: on-device DGM, the ``init_sup``
     snapshot, fresh residual wedge counts ``w = a @ max(dv - 1, 0)`` and
-    the next ``hi`` from ``find_hi_device``.  No host read."""
+    the next ``hi`` from ``find_hi_device``.  No host read; ``st`` is
+    updated in place."""
     i = st["i"]
-    st = dict(st, iters=st["iters"] + 1)
+    st["iters"] += 1
     if i >= 0:
         st["bounds"][i + 1] = st["hi"]
         st["rho_sub"] = st["rho_sub"] + [st["rho"] - st["rho_start"]]
@@ -588,9 +774,10 @@ def _graph_boundary(st: dict, done: bool, *, blocks, sparse, use_dgm,
         if use_dgm:
             st["dgm"] += 1
     if done:
-        return dict(st, done=True)
+        st["done"] = True
+        return
     if use_dgm:
-        st = _compact_residual(st, blocks, sparse)
+        _compact_residual(st, blocks, sparse)
     i2 = i + 1
     st["init_sup"] = torch.where(st["alive"], st["support"], st["init_sup"])
     w = residual_wedges(st["a"], st["dv"])
@@ -601,10 +788,9 @@ def _graph_boundary(st: dict, done: bool, *, blocks, sparse, use_dgm,
         rem = torch.where(st["alive"], w, 0.0).sum()
         tgt = torch.clamp(rem / float(max(p_total - i2, 1)) * st["scale"],
                           min=1.0)
-    return dict(
-        st, i=i2, tgt=tgt,
-        hi=kops.find_hi_device(st["support"], st["alive"], w, tgt),
-        covered=torch.zeros_like(st["covered"]), rho_start=st["rho"])
+    st.update(i=i2, tgt=tgt,
+              hi=kops.find_hi_device(st["support"], st["alive"], w, tgt),
+              covered=torch.zeros_like(st["covered"]), rho_start=st["rho"])
 
 
 def device_cd_graph_loop(ids, state: dict, *, backend, blocks, use_huc,
@@ -632,22 +818,21 @@ def device_cd_graph_loop(ids, state: dict, *, backend, blocks, use_huc,
     bounds).  ``widths`` (a list, or None) gets each gather's row count.
     """
     sparse = backend in kops.SPARSE_BACKENDS
-    st = dict(state)
+    st = state
     while not st["done"] and st["iters"] < max_iters:
         peel, n_peel, n_alive = _peel_sizes(st["support"], st["alive"],
                                             st["hi"], stats)
         if n_peel == 0:
-            st = _graph_boundary(st, n_alive == 0, blocks=blocks,
-                                 sparse=sparse, use_dgm=use_dgm,
-                                 p_total=p_total)
+            _graph_boundary(st, n_alive == 0, blocks=blocks, sparse=sparse,
+                            use_dgm=use_dgm, p_total=p_total)
             continue
         support, alive, dv, wedges, covered, rec, eli = _sweep_once(
             st["a"], ids, st["row_ext"], st["kmax"], st["c_rcnt"], st["lo"],
             st["support"], st["alive"], st["dv"], st["wedges"],
             st["covered"], peel, n_peel, n_alive, backend=backend,
             blocks=blocks, use_huc=use_huc, stats=stats, widths=widths)
-        st = dict(
-            st, support=support, alive=alive, dv=dv, wedges=wedges,
+        st.update(
+            support=support, alive=alive, dv=dv, wedges=wedges,
             covered=covered, rho=st["rho"] + 1,
             hucs=st["hucs"] + int(rec), elided=st["elided"] + int(eli),
             subset_of=torch.where(peel, st["i"], st["subset_of"]),
@@ -660,7 +845,8 @@ def device_cd_graph_loop(ids, state: dict, *, backend, blocks, use_huc,
 # ---------------------------------------------------------------------- #
 def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
                        peel_width, max_sweeps, update_mode="kernel",
-                       row_ext=None, stats=None):
+                       row_ext=None, stats=None, eu=None, ev=None,
+                       axis="vertex"):
     """Peel a stack of G independent subsets by whole support levels.
 
     Each sweep peels, in EVERY still-live group, the entire
@@ -689,7 +875,20 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
     Returns (support, alive, dv, theta, rho, wedges, max_level, sweeps)
     as the reference does: ``theta`` (G, M), per-group ``rho`` (int32),
     ``wedges`` (f32) and ``max_level`` (int32) tensors, ``sweeps`` int.
+
+    ``axis="edge"`` (wing FD): ``support``/``alive`` are per edge slot
+    (G, E), ``eu``/``ev`` the slots' endpoints (int64, (E,) or (G, E))
+    into the stacked biadjacency, and every sweep zeroes the peeled level
+    out of ``a`` (in place: the caller's stack is the carried one) and
+    recounts every survivor in closed form (no gather, no update mode).
+    Returns the reference's 9-tuple with the carried biadjacency in
+    front: (a, support, alive, dv, theta, rho, wedges, max_level,
+    sweeps); ``wedges`` counts peeled edges.
     """
+    if DELTA_RULES[axis].mutable_geom:
+        return _batched_level_loop_edge(
+            a, support, alive, dv, lo, eu, ev, backend=backend,
+            blocks=blocks, max_sweeps=max_sweeps, stats=stats)
     g_n, mm, _cc = a.shape
     dev = a.device
     sparse = backend in kops.SPARSE_BACKENDS
@@ -767,6 +966,43 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
         max_level = torch.maximum(max_level, n_peel.to(torch.int32))
         sweeps += 1
     return support, alive, dv, theta, rho, wedges, max_level, sweeps
+
+
+def _batched_level_loop_edge(a, support, alive, dv, lo, eu, ev, *, backend,
+                             blocks, max_sweeps, stats):
+    """The edge-axis ``batched_level_loop`` (reference ``axis="edge"``
+    branch): per sweep one read (which groups have an alive slot), the
+    level zeroed out of ``a`` in place and a closed-form recount of the
+    groups that had one (a drained group's supports are masked to +inf
+    anyway, so the reference's recount of it is skipped)."""
+    g_n = a.shape[0]
+    dev = a.device
+    lo = _f32_scalar(lo, dev)
+    theta = torch.zeros(support.shape, dtype=_F32, device=dev)
+    rho = torch.zeros(g_n, dtype=torch.int32, device=dev)
+    wedges = torch.zeros(g_n, dtype=_F32, device=dev)
+    max_level = torch.zeros(g_n, dtype=torch.int32, device=dev)
+    sweeps = 0
+    while sweeps < max_sweeps:
+        act = alive.any(dim=-1)                           # (G,)
+        live = np.flatnonzero(fetch(stats, act)[0])
+        if not live.size:
+            break
+        hi, cap = level_threshold(support, alive, lo)     # (G,), (G,)
+        peel = select_peel(support, alive, hi)            # (G, E)
+        n_peel = peel.sum(dim=-1)
+        colsum = _zero_edges(a, eu, ev, peel)
+        theta = record_theta(theta, peel, cap)
+        alive = alive & ~peel
+        s2 = kops.edge_support_all(a, eu, ev, backend=backend,
+                                   blocks=blocks, members=live.tolist())
+        support = torch.where(alive, torch.maximum(s2, cap[:, None]), _INF)
+        dv = dv - colsum
+        rho = rho + act.to(torch.int32)
+        wedges = wedges + torch.where(act, n_peel.to(_F32), 0.0)
+        max_level = torch.maximum(max_level, n_peel.to(torch.int32))
+        sweeps += 1
+    return a, support, alive, dv, theta, rho, wedges, max_level, sweeps
 
 
 # ---------------------------------------------------------------------- #
@@ -877,14 +1113,8 @@ def host_sweep(dg, cfg: ReceiptConfig, stats: RunStats,
         stats.huc_recounts += 1
         stats.wedges_cd += int(dg.c_rcnt)
     else:
-        width = min(bucket(n_peel, blocks[1]), dg.rows_pad)
-        rows, valid, a_peel = _gather_peel(dg.a, peel, n_peel, width)
-        kb = (ksparse.gathered_tile_extents(dg.row_ext, rows, valid,
-                                            blocks[1])
-              if sparse else None)
-        delta = support_delta(dg.a, a_peel, valid, dg.ids, rows,
-                              dg.kmax if sparse else None, kb,
-                              backend=backend, blocks=blocks)
+        delta = peel_delta(dg.a, peel, n_peel, dg.ids, dg.row_ext, dg.kmax,
+                           backend=backend, blocks=blocks)
         support, alive = apply_delta(support, alive, peel, delta, lo_t)
         support = torch.where(alive, support, _INF)
         stats.wedges_cd += int(c_peel)

@@ -253,6 +253,9 @@ def receipt_tiled(
                 cur_ids = cur_ids[keep]
                 sub, _v_map = sub.induced_on_u(keep, min_degree_v=2)
                 stats.dgm_compactions += 1
+                # the old tile list goes before the new one is uploaded:
+                # the card never holds two
+                st = td = lists = sl = support = alive = None
                 break
         if done:
             break

@@ -8,6 +8,11 @@ updates and HUC recounts are all these ops with different masks/rows;
 nonzero-tile list of the tiled representation.
 ``find_hi_device`` and ``tighten_extents_device`` are the whole-graph CD
 loop's on-device range choice and staircase refresh (plain tensor code).
+``edge_support_all`` / ``edge_support_delta`` are the edge axis's closed
+form and its peel delta (wing peeling; no Pallas body in the reference,
+so two plain matrix products here), and ``vertex_support_edge_delta`` the
+refresh's per-vertex delta of an edge mutation (two counting calls:
+kernel 1's count body, kernel 4's on the sparse backends).
 
 Backends:
     "cuda"          the hand-written sm_90a kernels (``kernels/csrc``), on
@@ -55,6 +60,9 @@ __all__ = [
     "butterfly_update_tiled",
     "find_hi_device",
     "tighten_extents_device",
+    "edge_support_all",
+    "edge_support_delta",
+    "vertex_support_edge_delta",
     "default_backend",
     "resolve_backend",
     "route_label",
@@ -310,3 +318,122 @@ def tighten_extents_device(a, n_live_cols, *, block_rows, block_k):
     cap = (n_live + block_k - 1) // block_k
     ext = torch.minimum(ext, cap.to(torch.int32))
     return ext, _sparse.tile_extents(ext, block_rows)
+
+
+# ---------------------------------------------------------------------- #
+# edge-axis entry points (wing peeling; the refresh's vertex delta)
+# ---------------------------------------------------------------------- #
+def edge_support_all(a, eu, ev, *, backend=None, blocks=DEFAULT_BLOCKS,
+                     members=None):
+    """Per-edge butterfly supports of a residual graph, closed form:
+
+        b(u, v) = [A (A^T A)](u, v) - d_u(u) - d_v(v) + 1   (alive edges)
+
+    gathered at the edge slots ``(eu, ev)``; absent cells (peeled edges,
+    padding slots) report 0.  ``a`` is (R, C) with ``eu``/``ev`` (E,), or
+    a stack (G, R, C) with ``eu``/``ev`` (E,) or (G, E), taken member by
+    member (so the float64 temporaries are one member's); ``members``
+    (host ints), when given, limits the count to those members and the
+    others report 0 (the FD loop skips the drained ones).  Returns f32
+    shaped like the slots broadcast over the stack.
+
+    The two products are plain matrix products (the reference has no
+    Pallas body here), computed in float64 whatever the caller's float32
+    matmul precision: ``A^T A`` holds co-degrees past 2048, which a TF32
+    product would round, and float64 holds every integer below 2^53 (the
+    supports themselves stay below 2^24, DESIGN.md section 8); the card
+    runs them on its FP64 tensor cores.  ``backend``/``blocks`` are
+    validated for signature parity.
+    """
+    resolve_backend(backend, a.device)
+    if a.dim() == 2:
+        return _edge_supports(a, eu, ev)
+    g_n = a.shape[0]
+    eu = eu.expand(g_n, -1) if eu.dim() == 1 else eu
+    ev = ev.expand(g_n, -1) if ev.dim() == 1 else ev
+    out = torch.zeros(eu.shape, dtype=torch.float32, device=a.device)
+    for g in (range(g_n) if members is None else members):
+        out[g] = _edge_supports(a[g], eu[g], ev[g])
+    return out
+
+
+def _edge_supports(a, eu, ev):
+    """The closed form of one (R, C) matrix at its slots (float64 products
+    and sums, f32 out)."""
+    a64 = a.to(torch.float64)
+    ata = a64.transpose(0, 1) @ a64
+    m3 = a64 @ ata
+    del ata
+    eu, ev = eu.long(), ev.long()
+    b = m3[eu, ev] - a64.sum(dim=1)[eu] - a64.sum(dim=0)[ev] + 1.0
+    return (b * a64[eu, ev]).to(torch.float32)
+
+
+def zero_cells_(a, rows, cols, on):
+    """Zero the cells ``(rows[i], cols[i])`` of ``a`` IN PLACE where
+    ``on[i]`` (``a`` contiguous; a stack (G, R, C) takes (G, E) or
+    broadcast (E,) indices per member).  A bool mask is set at the cells'
+    flat offsets, the others parked on a spare slot, so slots that repeat
+    a cell or alias one with ``on`` False are harmless.  Returns ``a``."""
+    r, c = a.shape[-2:]
+    flat = rows.long() * c + cols.long()
+    if a.dim() == 3:
+        flat = flat + torch.arange(a.shape[0], device=a.device)[:, None] * (
+            r * c)
+    hit = torch.zeros(a.numel() + 1, dtype=torch.bool, device=a.device)
+    hit[torch.where(on.to(torch.bool), flat, a.numel())] = True
+    a.view(-1).masked_fill_(hit[:-1], 0.0)
+    return a
+
+
+def edge_support_delta(a, eu, ev, rows, valid, *, backend=None,
+                       blocks=DEFAULT_BLOCKS):
+    """Support decrease of every edge slot after removing the edge set
+    ``rows`` (slot indices into ``eu``/``ev``, ``valid`` masking the real
+    entries) from ``a``, as before-minus-after of ``edge_support_all``.
+
+    The reference composes the per-edge masked-matvec / rank-1 deltas
+    sequentially (a ``fori_loop`` of a dozen full-matrix passes per edge)
+    and states that the sum equals before-minus-after of the closed form;
+    here that difference is computed directly, two closed forms for any
+    size of set.  Equal on every slot the engine reads: alive edges
+    outside the set, absent cells (0 both ways) and padding slots that
+    alias a surviving cell.  By design they may differ on the removed
+    slots themselves (``apply_delta`` masks those) and on sets that name
+    a slot twice or an absent cell, which the reference's composition
+    charges and the engine never passes (its sets are the alive peel set).
+    Returns f32 shaped like ``eu``.
+    """
+    resolve_backend(backend, a.device)
+    e = rows.long()
+    after = zero_cells_(a.clone(), eu.long()[e], ev.long()[e], valid)
+    return edge_support_all(a, eu, ev) - edge_support_all(after, eu, ev)
+
+
+def vertex_support_edge_delta(a, mu, mv, valid, *, backend=None,
+                              blocks=DEFAULT_BLOCKS):
+    """Butterfly-support decrease of every U row after removing the edges
+    ``(mu[i], mv[i])`` (``valid`` masking padding entries) from ``a``:
+    count(before) - count(after), two counting calls (kernel 1's count
+    body on the card, kernel 4's on the sparse backends, whose extents
+    are ``a``'s: removing edges never widens a row).
+
+    The reference composes per-edge masked matvecs sequentially and
+    states that the sum equals before-minus-after of the counting
+    kernel; the difference is taken here directly, and agrees on every
+    row: a slot that repeats an edge, names an absent cell or is padding
+    removes nothing, as the reference's gate on ``a[u, v]`` makes it.
+    Run it on the union graph with the inserted set for per-vertex gains,
+    with the deleted set for losses.  Returns f32 (n_u,), >= 0.
+    """
+    backend = resolve_backend(backend, a.device)
+    bi, _bj, bk = blocks
+    a = _f32(a)
+    after = zero_cells_(a.clone(), mu, mv, valid)
+    kmax = (_sparse.column_extents(a, bi, bk).to(torch.int32)
+            if backend in SPARSE_BACKENDS else None)
+    ones = torch.ones(a.shape[0], dtype=torch.float32, device=a.device)
+    before = butterfly_support(a, ones, backend=backend, blocks=blocks,
+                               kmax=kmax)
+    return before - butterfly_support(after, ones, backend=backend,
+                                      blocks=blocks, kmax=kmax)
