@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py          # needs one CUDA card; about 10 minutes
+    python3 chip_smoke.py          # needs one CUDA card; about 10-12 minutes
 
 Phases (any failure exits nonzero; no phase is caught and ignored):
 
@@ -102,6 +102,19 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    1%.  Every executor run of phases 5b-5d holds its peak above resident
    to ``peak <= plan.padded_bytes <= 1.3 * peak``.  The host oracles of
    5c-5d run meanwhile in three worker processes started before phase 2;
+5e. the decomposition service (``repro_torch.service``) on the card:
+   ``DecompositionService(EngineConfig(num_partitions=150),
+   ServiceConfig(refresh_dirty_threshold=0.12))`` on the full-size graph
+   at each rung of 5c (ingest and flush, 5c's mutation, a timed flush:
+   the delta path, theta exact, stop / subsets / sweeps equal to 5c's
+   ``cuda`` rows), the same with the background worker (a read right
+   after the 1% mutation returns the old version without blocking, the
+   drained read is exact), phase 5b's cold fleet in one flush (one
+   ``Executor.map`` fleet) and 16 members refreshed at 2%, an eviction
+   under a 64-byte cache budget and its exact recompute, a counted worker
+   crash under ``refresh_worker@2``, the wing on sp_mid with 5d's 1%
+   mutation (stop and sweeps equal to 5d's), and
+   ``repro_torch.launch.serve.main`` with the reference's CI lines;
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
    on the sp_mid and sp_large graphs of the reference's benchmark ladder
@@ -634,25 +647,6 @@ def service_mutations(np, g, count, rng):
     return np.array(ins, np.int64).reshape(-1, 2), drop
 
 
-def ladder(bounds, floor):
-    """Ascending stop candidates strictly above ``floor``, ending in
-    ``inf``: the reference service's ``_ladder``, copied."""
-    rungs = sorted({float(b) for b in (bounds or [])
-                    if float(b) > floor + 0.5})
-    rungs.append(float("inf"))
-    return rungs
-
-
-def subsets_repeeled(bounds, stop):
-    """(re-peeled, total) stored CD subsets: a subset is re-peeled iff its
-    range starts below the stop (the reference service's
-    ``_mark_subsets``)."""
-    if bounds and len(bounds) >= 2:
-        total = len(bounds) - 1
-        return sum(1 for s in range(total) if bounds[s] < stop), total
-    return 1, 1
-
-
 def mutate(np, BipartiteGraph, g, frac, seed):
     """The mutated graph at ``frac``: k = round(frac * m / 2) inserts and
     k deletes (``service_mutations``).  Returns (g1, inserted, deleted
@@ -675,7 +669,10 @@ def tip_refresh_inputs(torch, np, ops, dev, g0, ins, dels, theta_old,
     gains and less the deletes' losses on the union matrix
     (``vertex_support_edge_delta``: two counting calls each), the stop
     ladder above the deletion ceiling (seeded with the inserted endpoints'
-    stored numbers) and the inserted U endpoints as the watch set."""
+    stored numbers; the service's ``_ladder``) and the inserted U
+    endpoints as the watch set."""
+    from repro_torch.service.refresh import _ladder
+
     a = torch.zeros((g0.n_u, g0.n_v), device=dev)
     a[torch.as_tensor(g0.edges_u, device=dev).long(),
       torch.as_tensor(g0.edges_v, device=dev).long()] = 1.0
@@ -696,7 +693,7 @@ def tip_refresh_inputs(torch, np, ops, dev, g0, ins, dels, theta_old,
             backend=backend, blocks=blocks)
     t_known = float(theta_old[dels[:, 0]].max())
     seed = max(t_known, float(theta_old[ins[:, 0]].max()))
-    return (sup.double().cpu().numpy(), ladder(bounds, seed),
+    return (sup.double().cpu().numpy(), _ladder(bounds, seed),
             np.unique(ins[:, 0]))
 
 
@@ -706,6 +703,8 @@ def wing_refresh_inputs(torch, np, ops, dev, g0, g1, ins, dels, psi_base,
     closed form, less the deleted slots' delta (before-minus-after), at
     the kept slots; the ladder above the deletion ceiling; the inserted
     edges as the watch set (their stored number a placeholder)."""
+    from repro_torch.service.refresh import _ladder
+
     n_v = g0.n_v
     k0 = g0.edges_u.astype(np.int64) * n_v + g0.edges_v
     k1 = g1.edges_u.astype(np.int64) * n_v + g1.edges_v
@@ -725,7 +724,7 @@ def wing_refresh_inputs(torch, np, ops, dev, g0, g1, ins, dels, psi_base,
     in_base = np.isin(k1, k0)
     psi_old[in_base] = psi_base[np.searchsorted(k0, k1[in_base])]
     t_known = float(psi_base[np.searchsorted(k0, kd)].max())
-    return sup, psi_old, ladder(bounds, t_known), np.nonzero(
+    return sup, psi_old, _ladder(bounds, t_known), np.nonzero(
         np.isin(k1, ki))[0]
 
 
@@ -750,7 +749,8 @@ def executor_phase(torch, np, dev, g_full, want, fleet, launches,
     pick dense), the admission-forced tiled route, ``Executor.map`` on
     MAP_GROUPS cohort graphs on three kernel routes (cold fleet, then a
     warm one), and ``verify=True`` on phase 4's graphs and sp_mid.
-    Every theta is held to an exact oracle.
+    Every theta is held to an exact oracle.  Returns the cold fleet's
+    oracle thetas (every map route was held equal to them).
     """
     cfg = EngineConfig(num_partitions=FULL["partitions"],
                        backend="cuda_sparse", cd_dispatch="graph")
@@ -940,6 +940,7 @@ def executor_phase(torch, np, dev, g_full, want, fleet, launches,
                     "[count]") and n]
         if tile:
             raise AssertionError(f"{pname}: launched {tile}")
+    return [w[0] for w in want_fleet]
 
 
 def refresh_phase(torch, np, dev, g_full, want, launches, oracles,
@@ -955,12 +956,15 @@ def refresh_phase(torch, np, dev, g_full, want, launches, oracles,
     Then phase 3's rows at refresh's shape: the median peel set of the
     smallest rung's refresh on its unsorted, column-compacted matrix,
     kernel 1's and kernel 4's peel bodies against their plain versions.
+    Returns each refresh's stop, subsets, sweeps and walls by (backend,
+    frac).
     """
     from repro_torch.core.engine import peel_loop
     from repro_torch.kernels import butterfly as bfly
     from repro_torch.kernels import butterfly_sparse as bsp
+    from repro_torch.service.refresh import _mark_subsets
 
-    calls = []
+    calls, found = [], {}
     for backend, dispatch in (("cuda", "subset"), ("cuda_sparse", "graph")):
         ex = Executor(EngineConfig(num_partitions=FULL["partitions"],
                                    backend=backend, cd_dispatch=dispatch))
@@ -995,13 +999,17 @@ def refresh_phase(torch, np, dev, g_full, want, launches, oracles,
             if not np.array_equal(theta, want1):
                 raise AssertionError(f"{pname}: theta differs from the "
                                      "exact oracle of the mutated graph")
-            rep, total = subsets_repeeled(base.stats.bounds,
-                                          st.refresh_stop)
+            _mark_subsets(st, base.stats.bounds)
+            rep, total = (st.refresh_subsets_repeeled,
+                          st.refresh_subsets_total)
             td, full_wall, full_peak, _ = counted(
                 torch, ops, launches, f"{pname}_full",
                 lambda: ex.decompose(g1))
             if not np.array_equal(td.theta, want1):
                 raise AssertionError(f"{pname}: from-scratch theta differs")
+            found[(backend, frac)] = dict(
+                stop=st.refresh_stop, repeeled=rep, total=total,
+                sweeps=st.rho_fd, wall=wall, full_wall=full_wall)
             log(f"{pname}: k={len(ins)} inserts + {len(dels)} deletes, "
                 f"theta == exact oracle | stop used {st.refresh_stop} "
                 f"(first rung {stops[0]}, ladder of {len(stops)}) | "
@@ -1049,6 +1057,7 @@ def refresh_phase(torch, np, dev, g_full, want, launches, oracles,
                 a, b, s, ids, rows, kmax, kb, blocks=blocks),
             lambda: torch.matmul(a, b.T), ops4, bytes4, reps=50)
     del calls, a, b
+    return found
 
 
 def wing_phase(torch, np, dev, g_full, launches, oracles, EngineConfig,
@@ -1061,8 +1070,10 @@ def wing_phase(torch, np, dev, g_full, launches, oracles, EngineConfig,
     ``Executor.repeel`` of the wing at 1% mutations against the oracle of
     the mutated graph.  The edge path launches no hand kernel (the closed
     form is two float64 matrix products): every launch count must stay
-    0.  Returns the timed rows of the closed form."""
+    0.  Returns the timed rows of the closed form and the wing refresh's
+    stop, subsets and sweeps."""
     from repro_torch.core.engine.wing import build_edge_state
+    from repro_torch.service.refresh import _mark_subsets
 
     psi_want, max_sup, max_m3 = oracles[("wing", 0.0)].result()
     log(f"wing: sp_mid {sp_mid.n_u} x {sp_mid.n_v}, {sp_mid.m} edges; exact "
@@ -1167,13 +1178,315 @@ def wing_phase(torch, np, dev, g_full, launches, oracles, EngineConfig,
     if not np.array_equal(psi, psi1):
         raise AssertionError(f"{pname}: psi differs from the exact oracle "
                              "of the mutated graph")
-    rep, total = subsets_repeeled(st_g.bounds, st.refresh_stop)
+    _mark_subsets(st, st_g.bounds)
+    rep, total = st.refresh_subsets_repeeled, st.refresh_subsets_total
     log(f"{pname}: k={len(ins)} inserts + {len(dels)} deletes, psi == exact "
         f"oracle | stop used {st.refresh_stop} (first rung {stops[0]}) | "
         f"subsets re-peeled {rep} of {total} | sweeps {st.rho_fd} | "
         f"host round trips {st.host_round_trips} | wall {wall:.3f} s "
         f"(supports + repeel) | max_memory_allocated {peak}")
-    return out
+    return out, dict(stop=st.refresh_stop, repeeled=rep, total=total,
+                     sweeps=st.rho_fd, wall=wall)
+
+
+def service_phase(torch, np, dev, g_full, want, sp_mid, fleet, want_fleet,
+                  launches, oracles, mutations, wing_mutation, refresh_rows,
+                  wing_refresh, EngineConfig, BipartiteGraph, ops):
+    """Phase 5e: the decomposition service (``repro_torch.service``) on
+    the card, each arm logged on its own line.
+
+    1. tip, inline, full size: per rung of ``REFRESH_FRACS``, ingest
+       (``replace=True``) and flush (a full decompose, its estimate held
+       to its peak), phase 5c's inserts and deletes, then a timed flush:
+       theta equal to the mutated graph's oracle on the delta path, the
+       stop, the subsets re-peeled and the sweeps equal to phase 5c's
+       ``refresh_cuda_{frac}``;
+    2. tip, background: a read right after the 1% mutation returns the
+       old version without blocking, then the drained read is fresh and
+       exact, and ``close()`` joins the worker;
+    3. the fleet: phase 5b's 128 cold graphs in one flush (one
+       ``Executor.map`` fleet), then 16 members mutated at 2% and
+       refreshed on the delta path, each equal to its host oracle;
+    4. a cache budget below one result (an eviction, then an exact
+       recompute) and ``refresh_worker@2`` with the worker on (a counted
+       crash and restart, exact numbers), on fleet members;
+    5. wing on sp_mid with phase 5d's 1% mutation: psi equal to the
+       oracle on the delta path, stop and sweeps equal to phase 5d's;
+    6. ``repro_torch.launch.serve.main`` with the reference's CI lines
+       (two selftests, the background soak, the soak under
+       ``RECEIPT_FAULT=refresh_worker@2``), each returning 0.
+    """
+    import os
+
+    from repro_torch.api import faults
+    from repro_torch.launch import serve
+    from repro_torch.service import (DatasetState, DecompositionService,
+                                     ServiceConfig, classify_refresh)
+
+    threshold = 0.12
+
+    # ---- arm 1: tip, inline, full size ----
+    svc = DecompositionService(
+        EngineConfig(num_partitions=FULL["partitions"]),
+        ServiceConfig(refresh_dirty_threshold=threshold))
+    if svc.device.type != "cuda":
+        raise AssertionError("DecompositionService() must run on the card")
+    walls = {}
+    for frac in REFRESH_FRACS:
+        g1, ins, dels = mutations[frac]
+        pname = f"service_tip_{frac}"
+
+        def full():
+            svc.ingest("marvel", g_full, replace=True)
+            return svc.flush()
+
+        rep, full_wall, peak, resident = counted(
+            torch, ops, launches, f"{pname}_full", full)
+        dec = svc.query("marvel")
+        if rep["full"] != 1 or not np.array_equal(dec.numbers, want):
+            raise AssertionError(f"{pname}_full: {rep}, or theta differs "
+                                 "from the exact oracle")
+        check_admission(f"{pname}_full", dec.plan.padded_bytes,
+                        peak - resident)
+        svc.insert_edges("marvel", ins[:, 0], ins[:, 1])
+        svc.delete_edges("marvel", dels[:, 0], dels[:, 1])
+        rep, wall, peak, _ = counted(torch, ops, launches, pname, svc.flush)
+        dec = svc.query("marvel")
+        st = dec.stats
+        if rep["refreshed"] != 1 or st.refresh_mode != "delta":
+            raise AssertionError(f"{pname}: not a delta refresh: {rep}")
+        if not np.array_equal(dec.numbers,
+                              oracles[("tip", frac)].result()[0]):
+            raise AssertionError(f"{pname}: theta differs from the exact "
+                                 "oracle of the mutated graph")
+        row = refresh_rows[("cuda", frac)]
+        got = dict(stop=st.refresh_stop, repeeled=st.refresh_subsets_repeeled,
+                   total=st.refresh_subsets_total, sweeps=st.rho_fd)
+        if any(got[k] != row[k] for k in got):
+            raise AssertionError(f"{pname}: {got} differs from phase 5c's "
+                                 f"refresh_cuda_{frac} {row}")
+        walls[frac] = wall
+        log(f"{pname}: delta refresh, theta == exact oracle | stop "
+            f"{st.refresh_stop} subsets re-peeled "
+            f"{st.refresh_subsets_repeeled} of {st.refresh_subsets_total} "
+            f"sweeps {st.rho_fd} (phase 5c's refresh_cuda_{frac} the same) "
+            f"| dirty edges {st.refresh_dirty_edges} t_hi {st.refresh_t_hi} "
+            f"| host round trips {st.host_round_trips} | refresh flush wall "
+            f"{wall:.3f} s vs the full flush {full_wall:.3f} s and phase "
+            f"5c's from-scratch decompose of the mutated graph "
+            f"{row['full_wall']:.3f} s (Executor.repeel there "
+            f"{row['wall']:.3f} s) | max_memory_allocated {peak} | launches "
+            + str({k: v for k, v in launches[pname].items() if v}))
+    del svc
+
+    # ---- arm 2: tip, background worker, full size ----
+    g1, ins, dels = mutations[REFRESH_FRACS[0]]
+    bg = DecompositionService(
+        EngineConfig(num_partitions=FULL["partitions"]),
+        ServiceConfig(refresh_dirty_threshold=threshold, background=True))
+    try:
+        bg.ingest("marvel", g_full)
+        first = bg.query("marvel", wait=True, timeout=600)
+        if not np.array_equal(first.numbers, want):
+            raise AssertionError("service_background: base theta differs")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with bg._lock:                   # one mutation batch, atomically
+            bg.insert_edges("marvel", ins[:, 0], ins[:, 1])
+            bg.delete_edges("marvel", dels[:, 0], dels[:, 1])
+        t0 = time.perf_counter()
+        dec, info = bg.query("marvel", with_info=True)
+        stale_s = time.perf_counter() - t0
+        if info["fresh"] or dec is not first:
+            raise AssertionError(f"service_background: the read right after "
+                                 f"the mutation was not the old version: "
+                                 f"{info}")
+        t0 = time.perf_counter()
+        if not bg.wait_until_idle(timeout=600):
+            raise AssertionError("service_background: the worker did not "
+                                 "drain")
+        drain_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches["service_background"] = ops.launch_counts()
+        dec, info2 = bg.query("marvel", with_info=True)
+        if not (info2["fresh"] and dec.stats.refresh_mode == "delta"
+                and np.array_equal(dec.numbers,
+                                   oracles[("tip", REFRESH_FRACS[0])]
+                                   .result()[0])):
+            raise AssertionError(f"service_background: the fresh read is not "
+                                 f"the exact delta refresh: {info2}")
+        w = bg.report()["worker"]
+        # what a drain cycle's route classification costs at this size
+        # (the scheduler runs it off the service lock)
+        probe = DatasetState(name="probe", workload="tip", version=3,
+                             graph=bg._datasets["marvel"].graph,
+                             base_graph=first.graph, result=first,
+                             result_version=1)
+        t0 = time.perf_counter()
+        route = classify_refresh(probe, bg.service_config)
+        classify_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        bg.close()
+    if bg.worker._thread.is_alive():
+        raise AssertionError("service_background: close() left the worker "
+                             "thread running")
+    log(f"service_background: stale read {stale_s * 1e3:.3f} ms (version "
+        f"{info['result_version']} of {info['version']}, stale_by "
+        f"{info['stale_by']}) while the worker refreshed; wait_until_idle "
+        f"{drain_s:.3f} s, arm 1's 1% refresh flush {walls[REFRESH_FRACS[0]]:.3f}"
+        f" s; fresh read theta == exact oracle | a cycle's route "
+        f"classification ({route}) {classify_ms:.3f} ms on the host, off "
+        f"the service lock | worker cycles "
+        f"{w['cycles']} crashes {w['crashes']} | launches "
+        + str({k: v for k, v in launches["service_background"].items()
+               if v}))
+
+    # ---- arm 3: the fleet through one Executor.map, then 16 refreshes ----
+    fl = DecompositionService(EngineConfig(), ServiceConfig(
+        refresh_dirty_threshold=threshold))
+    for k, g in enumerate(fleet):
+        fl.ingest(f"m{k}", g)
+    rep, wall, peak, _ = counted(torch, ops, launches, "service_fleet",
+                                 fl.flush)
+    bad = [k for k in range(len(fleet))
+           if not np.array_equal(fl.query(f"m{k}").numbers, want_fleet[k])]
+    if rep["fleets"] != 1 or rep["mapped"] != len(fleet) or bad:
+        raise AssertionError(f"service_fleet: {rep}; members {bad[:8]} "
+                             "differ from phase 5b's")
+    log(f"service_fleet: {len(fleet)} ingests, one flush: fleets "
+        f"{rep['fleets']} mapped {rep['mapped']}, every member == phase 5b's "
+        f"map result (held to the exact oracle there) | wall {wall:.3f} s | "
+        f"max_memory_allocated {peak} | launches "
+        + str({k: v for k, v in launches["service_fleet"].items() if v}))
+    t0 = time.perf_counter()
+    want_mut = {}
+    for k in range(16):
+        g1k, insk, delsk = mutate(np, BipartiteGraph, fleet[k], 0.02,
+                                  seed=1000 + k)
+        fl.insert_edges(f"m{k}", insk[:, 0], insk[:, 1])
+        fl.delete_edges(f"m{k}", delsk[:, 0], delsk[:, 1])
+        want_mut[k] = exact_theta(g1k)[0]
+    oracle_s = time.perf_counter() - t0
+    rep, wall, peak, _ = counted(torch, ops, launches,
+                                 "service_fleet_refresh", fl.flush)
+    modes = {k: fl.query(f"m{k}").stats.refresh_mode for k in want_mut}
+    bad = [k for k in want_mut
+           if not np.array_equal(fl.query(f"m{k}").numbers, want_mut[k])]
+    if (rep["refreshed"] != 16 or rep["repeel_fleets"] < 1 or bad
+            or set(modes.values()) != {"delta"}):
+        raise AssertionError(f"service_fleet_refresh: {rep}, modes {modes}, "
+                             f"members {bad} differ from their oracles")
+    log(f"service_fleet_refresh: 16 members mutated at 2% (host oracles "
+        f"{oracle_s:.2f} s), one flush: refreshed {rep['refreshed']} "
+        f"repeel_fleets {rep['repeel_fleets']}, every member delta and == "
+        f"its exact oracle | wall {wall:.3f} s | launches "
+        + str({k: v for k, v in launches["service_fleet_refresh"].items()
+               if v}))
+    del fl
+
+    # ---- arm 4: the cache governor, then crash isolation ----
+    gov = DecompositionService(EngineConfig(), ServiceConfig(
+        cache_budget_bytes=64))
+    gov.ingest("a", fleet[0])
+    gov.ingest("b", fleet[1])
+    gov.query("a")
+    gov.query("b")                       # evicts a: the budget < a result
+    cache = gov.cache_report()
+    if cache["evicted_total"] < 1 or gov._datasets["a"].result is not None:
+        raise AssertionError(f"service_governor: no eviction: {cache}")
+    dec = gov.query("a")                 # recompute on demand
+    ds = gov._datasets["a"]
+    if not (np.array_equal(dec.numbers, want_fleet[0])
+            and ds.evictions >= 1 and ds.full_recomputes >= 2):
+        raise AssertionError("service_governor: the evicted dataset did not "
+                             "recompute exactly")
+    log(f"service_governor: budget 64 bytes: evicted_total "
+        f"{gov.cache_report()['evicted_total']}, the evicted dataset "
+        f"recomputed (full_recomputes {ds.full_recomputes}), theta == exact "
+        "oracle")
+    g1c, insc, delsc = mutate(np, BipartiteGraph, fleet[2], 0.02, seed=2000)
+    crash = DecompositionService(
+        EngineConfig(fault_spec="refresh_worker@2"),
+        ServiceConfig(refresh_dirty_threshold=threshold, background=True,
+                      worker_poll_s=0.01, worker_backoff_s=0.0))
+    try:
+        crash.ingest("c", fleet[2])
+        crash.query("c", wait=True, timeout=300)
+        with crash._lock:
+            crash.insert_edges("c", insc[:, 0], insc[:, 1])
+            crash.delete_edges("c", delsc[:, 0], delsc[:, 1])
+        dec = crash.query("c", wait=True, timeout=300)
+        w = crash.report()["worker"]
+    finally:
+        crash.close()
+    if not (w["crashes"] >= 1 and w["restarts"] >= 1 and w["failure_log"]
+            and np.array_equal(dec.numbers, exact_theta(g1c)[0])):
+        raise AssertionError(f"service_crash: {w}, or theta differs")
+    log(f"service_crash: refresh_worker@2: crashes {w['crashes']} restarts "
+        f"{w['restarts']} dead {w['dead']} failure log "
+        f"{[e['type'] for e in w['failure_log']]}; refresh "
+        f"{dec.stats.refresh_mode}, theta == exact oracle")
+
+    # ---- arm 5: wing on sp_mid ----
+    wsvc = DecompositionService(
+        EngineConfig(backend="cuda_sparse", cd_dispatch="graph"),
+        ServiceConfig(refresh_dirty_threshold=threshold))
+    wsvc.ingest("sp_mid", sp_mid, workload="wing")
+    rep, full_wall, peak, resident = counted(
+        torch, ops, launches, "service_wing_full", wsvc.flush)
+    dec = wsvc.query("sp_mid")
+    if not np.array_equal(dec.numbers, oracles[("wing", 0.0)].result()[0]):
+        raise AssertionError("service_wing_full: psi differs")
+    check_admission("service_wing_full", dec.plan.padded_bytes,
+                    peak - resident)
+    g1w, insw, delsw = wing_mutation
+    wsvc.insert_edges("sp_mid", insw[:, 0], insw[:, 1])
+    wsvc.delete_edges("sp_mid", delsw[:, 0], delsw[:, 1])
+    pname = f"service_wing_{WING_REFRESH_FRAC}"
+    rep, wall, peak, _ = counted(torch, ops, launches, pname, wsvc.flush)
+    dec = wsvc.query("sp_mid")
+    st = dec.stats
+    got = dict(stop=st.refresh_stop, repeeled=st.refresh_subsets_repeeled,
+               total=st.refresh_subsets_total, sweeps=st.rho_fd)
+    if (st.refresh_mode != "delta" or any(got[k] != wing_refresh[k]
+                                          for k in got)
+            or not np.array_equal(
+                dec.numbers,
+                oracles[("wing", WING_REFRESH_FRAC)].result()[0])):
+        raise AssertionError(f"{pname}: {st.refresh_mode} {got} against "
+                             f"phase 5d's {wing_refresh}, or psi differs")
+    log(f"{pname}: delta refresh, psi == exact oracle | stop "
+        f"{st.refresh_stop} subsets re-peeled {got['repeeled']} of "
+        f"{got['total']} sweeps {st.rho_fd} (phase 5d's the same) | host "
+        f"round trips {st.host_round_trips} | refresh flush wall {wall:.3f} s"
+        f" vs the full flush {full_wall:.3f} s | max_memory_allocated "
+        f"{peak}")
+    del wsvc
+
+    # ---- arm 6: the CLI, the reference's CI lines ----
+    soak = ["--soak", "--background", "--datasets", "2", "--mutations", "2"]
+    for argv, fault in ((["--selftest", "--workload", "tip"], None),
+                        (["--selftest", "--workload", "wing"], None),
+                        (soak, None), (soak, "refresh_worker@2")):
+        old = os.environ.pop(faults.ENV_VAR, None)
+        if fault:
+            os.environ[faults.ENV_VAR] = fault
+        faults.reset()
+        try:
+            t0 = time.perf_counter()
+            rc = serve.main(argv)
+            cli_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop(faults.ENV_VAR, None)
+            if old is not None:
+                os.environ[faults.ENV_VAR] = old
+            faults.reset()
+        line = " ".join(argv) + (f" with RECEIPT_FAULT={fault}" if fault
+                                 else "")
+        if rc != 0:
+            raise AssertionError(f"service_cli: {line} returned {rc}")
+        log(f"service_cli: python -m repro_torch.launch.serve {line}: "
+            f"returned 0 in {cli_s:.2f} s")
 
 
 def sparse_edge_supports(np, a, eu, ev):
@@ -1193,6 +1506,7 @@ def sparse_edge_supports(np, a, eu, ev):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     # ---- 1. card ------------------------------------------------------ #
@@ -1240,13 +1554,13 @@ def main() -> int:
             oracles[("tip", frac)] = pool.submit(
                 exact_theta_of, *arrays(mutations[frac][0]))
         return run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
-                          wing_mutation, oracles)
+                          wing_mutation, oracles, t_start)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
 def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
-               wing_mutation, oracles) -> int:
+               wing_mutation, oracles, t_start) -> int:
     """Phases 2-7 (module docstring)."""
     from repro_torch.api import EngineConfig, Executor, Planner
     from repro_torch.core.engine import DeviceGraph, ReceiptConfig
@@ -1937,18 +2251,26 @@ def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
     log(f"full size: tiled rho_fd {rho_tiled} == parb rho_cd {rho_parb}")
 
     # ---- 5b. the API layer: Executor.decompose and Executor.map ------- #
-    executor_phase(torch, np, dev, g_full, want, fleet, launches,
-                   EngineConfig, Executor, exact_theta, bup_oracle, ops,
-                   small, powerlaw_bipartite)
+    want_fleet = executor_phase(
+        torch, np, dev, g_full, want, fleet, launches, EngineConfig,
+        Executor, exact_theta, bup_oracle, ops, small, powerlaw_bipartite)
 
     # ---- 5c. the incremental re-peel at full size --------------------- #
-    refresh_phase(torch, np, dev, g_full, want, launches, oracles,
-                  EngineConfig, Executor, ops, measure, mutations)
+    refresh_rows = refresh_phase(
+        torch, np, dev, g_full, want, launches, oracles, EngineConfig,
+        Executor, ops, measure, mutations)
 
     # ---- 5d. the edge axis (wing) on sp_mid ---------------------------- #
-    edge_rows = wing_phase(torch, np, dev, g_full, launches, oracles,
-                           EngineConfig, Executor, ops, sp_mid,
-                           wing_mutation)
+    edge_rows, wing_refresh = wing_phase(
+        torch, np, dev, g_full, launches, oracles, EngineConfig, Executor,
+        ops, sp_mid, wing_mutation)
+
+    # ---- 5e. the decomposition service --------------------------------- #
+    t0 = time.perf_counter()
+    service_phase(torch, np, dev, g_full, want, sp_mid, fleet, want_fleet,
+                  launches, oracles, mutations, wing_mutation, refresh_rows,
+                  wing_refresh, EngineConfig, BipartiteGraph, ops)
+    log(f"service: phase 5e in {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. crossover: staircase + graph against tiled ---------------- #
     # the full-size graph's walls are phase 5's timed runs: the kernels and
@@ -2044,6 +2366,8 @@ def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
             old_body_ms=r["old_body_ms"]))
     log("edge closed form (not a kernel: no Pallas body in the reference; "
         "two float64 torch.matmul): " + json.dumps(edge_rows))
+    log(f"script: {time.perf_counter() - t_start:.1f} s from its start to "
+        "the kernel list")
     log(json.dumps({"kernels": kernels}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

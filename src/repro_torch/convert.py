@@ -10,6 +10,8 @@ hand it to both packages through these functions.
   dtype name), mapping the reference's backend names;
 * ``engine_config_from_fields`` — the port's ``api.EngineConfig`` from a
   reference ``EngineConfig.to_dict()``, backends mapped the same way;
+* ``service_config_from_fields`` — the port's ``service.ServiceConfig``
+  from ``dataclasses.asdict`` of a reference ``ServiceConfig``;
 * ``stats_fields`` — a port ``RunStats`` as a plain dict.
 """
 from __future__ import annotations
@@ -24,7 +26,8 @@ from .core.engine.peel_loop import ReceiptConfig, RunStats
 from .core.graph import BipartiteGraph
 
 __all__ = ["graph_from_arrays", "config_from_fields",
-           "engine_config_from_fields", "stats_fields"]
+           "engine_config_from_fields", "service_config_from_fields",
+           "stats_fields"]
 
 # the reference's backends and their counterparts here: the interpreter
 # and the jnp oracle run the kernels' plain versions; the compiled
@@ -71,6 +74,16 @@ def engine_config_from_fields(d: Dict[str, Any]):
         raise ValueError(f"unknown reference backend {backend!r}")
     d["backend"] = BACKEND_MAP[backend]
     return EngineConfig.from_dict(d)
+
+
+def service_config_from_fields(d: Dict[str, Any]):
+    """The port's ``ServiceConfig`` from a reference ``ServiceConfig``'s
+    fields (``dataclasses.asdict``), the service's counterpart of
+    ``engine_config_from_fields``: the fields are the same, and an
+    unknown one raises ``TypeError``."""
+    from .service.state import ServiceConfig
+
+    return ServiceConfig(**d)
 
 
 def stats_fields(stats: RunStats) -> Dict[str, Any]:

@@ -1,2 +1,2 @@
-"""Runtime pieces the port shares with training-style fleets: the
-straggler monitor (``fault_tolerance``)."""
+"""Runtime pieces the port shares with training-style fleets: restart
+bookkeeping and the straggler monitor (``fault_tolerance``)."""

@@ -1,20 +1,67 @@
-"""Straggler detection (copy of ``TaskTiming`` and ``StragglerMonitor``
-from ``repro.train.fault_tolerance``, whose module imports jax).
+"""Restart bookkeeping and straggler detection (copies of
+``RestartManager``, ``TaskTiming`` and ``StragglerMonitor`` from
+``repro.train.fault_tolerance``, whose module imports jax).
 
+``RestartManager`` keeps the failure count and a bounded failure log
+(the service's background flush worker restarts through it);
 ``StragglerMonitor`` keeps a per-task timing EWMA; tasks slower than
 ``threshold x`` the median are flagged (``Executor.map`` feeds it one wall
-clock per chunk and marks the members of flagged chunks).  The restart
-manager and the elastic mesh arrive with the service and distributed
-slices.
+clock per chunk and marks the members of flagged chunks).  The elastic
+mesh arrives with the distributed slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence
+import time
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["TaskTiming", "StragglerMonitor"]
+__all__ = ["RestartManager", "TaskTiming", "StragglerMonitor"]
+
+
+@dataclasses.dataclass
+class RestartManager:
+    """Failure bookkeeping of a restartable run: a failure count against
+    ``max_failures`` and a bounded failure log.
+
+    ``ckpt`` is the checkpoint manager of a training run; the service
+    passes ``None``.  The reference's ``maybe_save`` and
+    ``resume_or_init`` (and ``save_every``, their cadence) arrive with
+    the port's ``train/checkpoint.py``.
+    """
+
+    ckpt: Optional[Any] = None
+    max_failures: int = 10
+    # failure log bound: the newest entries win (a restart storm must not
+    # grow host memory without bound)
+    max_failure_log: int = 50
+
+    failures: int = 0
+    failure_log: List[Dict[str, Any]] = dataclasses.field(
+        default_factory=list)
+
+    def record_failure(self, exc: BaseException) -> bool:
+        """Returns True if the run should restart, False to abort.
+
+        Every failure is appended to a BOUNDED log (type, truncated
+        message, wall-clock time) so a post-mortem can reconstruct the
+        restart history without the manager growing without bound."""
+        self.failures += 1
+        self.failure_log.append(dict(
+            type=type(exc).__name__,
+            message=str(exc)[:512],
+            time=time.time(),
+        ))
+        if len(self.failure_log) > self.max_failure_log:
+            del self.failure_log[: len(self.failure_log)
+                                 - self.max_failure_log]
+        return self.failures <= self.max_failures
+
+    def failure_report(self) -> List[Dict[str, Any]]:
+        """The bounded failure log, oldest first (copies — safe to
+        mutate)."""
+        return [dict(e) for e in self.failure_log]
 
 
 @dataclasses.dataclass

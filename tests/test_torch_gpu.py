@@ -989,3 +989,129 @@ def test_wing_and_repeel_on_card_match_oracle(card, dispatch):
     np.testing.assert_array_equal(theta, peeling.bup_oracle(g1)[0])
     assert st.refresh_mode == "delta" and st.backend_used == "cuda"
     assert ops.launch_counts()["butterfly_update[peel]"] > 0
+
+
+def _service_mutation(g, count, seed):
+    """``count`` absent edges to insert and ``count`` present edges to
+    delete, drawn from a seed."""
+    rng = np.random.default_rng(seed)
+    have = set((g.edges_u.astype(np.int64) * g.n_v + g.edges_v).tolist())
+    ins = []
+    while len(ins) < count:
+        u, v = int(rng.integers(g.n_u)), int(rng.integers(g.n_v))
+        if u * g.n_v + v not in have:
+            have.add(u * g.n_v + v)
+            ins.append((u, v))
+    drop = rng.choice(g.m, count, replace=False)
+    return np.array(ins, np.int64), drop
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "cuda_sparse"])
+def test_service_on_card_matches_oracle(card, backend):
+    """``DecompositionService()`` with no device runs on the card: an
+    ingest, a delta refresh after a mutation batch (the count body
+    primes the supports, ``vertex_support_edge_delta`` maintains them)
+    and a wing dataset, each equal to the exact oracle."""
+    from repro_torch.api import EngineConfig
+    from repro_torch.core.wing import wing_bup_oracle
+    from repro_torch.service import DecompositionService, ServiceConfig
+
+    svc = DecompositionService(EngineConfig(num_partitions=6,
+                                            backend=backend),
+                               ServiceConfig(refresh_dirty_threshold=0.2))
+    assert svc.device.type == "cuda"
+    g = powerlaw_bipartite(160, 96, 1200, seed=21)
+    svc.ingest("tip", g)
+    np.testing.assert_array_equal(svc.query("tip").numbers,
+                                  peeling.bup_oracle(g)[0])
+    ins, drop = _service_mutation(g, 6, seed=21)
+    svc.insert_edges("tip", ins[:, 0], ins[:, 1])
+    svc.delete_edges("tip", g.edges_u[drop], g.edges_v[drop])
+    ops.reset_launch_counts()
+    dec = svc.query("tip")
+    assert dec.stats.refresh_mode == "delta"
+    key = ("butterfly_update_sparse" if backend == "cuda_sparse"
+           else "butterfly_update")
+    counts = ops.launch_counts()
+    assert counts[f"{key}[count]"] > 0 and counts[f"{key}[peel]"] > 0
+    np.testing.assert_array_equal(
+        dec.numbers, peeling.bup_oracle(svc._datasets["tip"].graph)[0])
+    w = powerlaw_bipartite(60, 40, 360, seed=22)
+    svc.ingest("wing", w, workload="wing")
+    np.testing.assert_array_equal(svc.query("wing").numbers,
+                                  wing_bup_oracle(w)[0])
+    ins, drop = _service_mutation(w, 3, seed=22)
+    svc.insert_edges("wing", ins[:, 0], ins[:, 1])
+    svc.delete_edges("wing", w.edges_u[drop], w.edges_v[drop])
+    dec = svc.query("wing")
+    assert dec.stats.refresh_mode == "delta"
+    np.testing.assert_array_equal(
+        dec.numbers, wing_bup_oracle(svc._datasets["wing"].graph)[0])
+
+
+@pytest.mark.gpu
+def test_service_worker_on_card_stale_then_fresh(card, monkeypatch):
+    """The background worker drives the card from its own thread: a read
+    while it is inside a refresh returns the old version at once, then
+    the fresh read equals the oracle; ``close()`` joins the thread."""
+    import threading
+    import time
+
+    from repro_torch.api import EngineConfig
+    from repro_torch.service import DecompositionService, ServiceConfig
+
+    svc = DecompositionService(EngineConfig(num_partitions=6),
+                               ServiceConfig(background=True,
+                                             worker_poll_s=0.01))
+    g = powerlaw_bipartite(160, 96, 1200, seed=23)
+    release = threading.Event()
+    try:
+        svc.ingest("d", g)
+        first = svc.query("d", wait=True, timeout=120)
+        ex = svc._executor("tip")
+        entered, real = threading.Event(), ex.repeel
+
+        def held_repeel(*args, **kwargs):
+            entered.set()
+            assert release.wait(120)
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(ex, "repeel", held_repeel)
+        ins, drop = _service_mutation(g, 6, seed=23)
+        svc.insert_edges("d", ins[:, 0], ins[:, 1])
+        svc.delete_edges("d", g.edges_u[drop], g.edges_v[drop])
+        assert entered.wait(120)
+        t0 = time.perf_counter()
+        dec, info = svc.query("d", with_info=True)
+        stale_s = time.perf_counter() - t0
+        release.set()
+        assert dec is first and not info["fresh"] and stale_s < 1.0
+        assert svc.wait_until_idle(timeout=120)
+        dec, info = svc.query("d", with_info=True)
+        assert info["fresh"] and dec.stats.refresh_mode == "delta"
+        np.testing.assert_array_equal(
+            dec.numbers, peeling.bup_oracle(svc._datasets["d"].graph)[0])
+    finally:
+        release.set()
+        svc.close()
+    assert not svc.worker._thread.is_alive()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "cuda_sparse"])
+def test_service_support_prime_on_card_equals_host_count(card, backend):
+    """The on-card support prime (kernel 1's or 4's count body on the
+    raw, unsorted matrix) equals a host float64 count."""
+    from repro_torch.service.refresh import _matrix, tip_supports
+
+    g = powerlaw_bipartite(700, 1300, 9000, seed=24)
+    a_host = np.zeros((g.n_u, g.n_v))
+    a_host[g.edges_u, g.edges_v] = 1.0
+    w = a_host @ a_host.T
+    per = w * (w - 1.0) / 2.0
+    np.fill_diagonal(per, 0.0)
+    a = _matrix(g.n_u, g.n_v, g.edges_u, g.edges_v, card)
+    got = tip_supports(a, backend=backend)
+    np.testing.assert_array_equal(got.double().cpu().numpy(),
+                                  per.sum(axis=1))
