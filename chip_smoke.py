@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py          # needs one CUDA card; about 10-12 minutes
+    python3 chip_smoke.py          # needs one CUDA card; about 8-13 minutes
 
 Phases (any failure exits nonzero; no phase is caught and ignored):
 
@@ -115,6 +115,16 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    crash under ``refresh_worker@2``, the wing on sp_mid with 5d's 1%
    mutation (stop and sweeps equal to 5d's), and
    ``repro_torch.launch.serve.main`` with the reference's CI lines;
+5f. the distributed engine (``repro_torch.core.distributed``) on a
+   (2, 2) ``("data", "model")`` mesh whose four shards share the card:
+   ``Executor(..., mesh=mesh).decompose`` of the full-size graph on
+   ``"cuda"`` and on ``"cuda_sparse"`` + graph dispatch (theta exact,
+   ``rho_fd``/``wedges_fd`` equal to phase 5's, four shards with work on
+   more than one, LPT loads within the list-scheduling bound, kernels 2
+   (5) and 3 launched, the peak within the estimate), then the sharded
+   count, sweep (both ``impl``s) and range loop on the sorted (8192,
+   8192) matrix on (4, 1) and (2, 2) meshes, ``torch.equal`` to kernel
+   1's single-device forms;
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
    on the sp_mid and sp_large graphs of the reference's benchmark ladder
@@ -1489,6 +1499,212 @@ def service_phase(torch, np, dev, g_full, want, sp_mid, fleet, want_fleet,
             f"returned 0 in {cli_s:.2f} s")
 
 
+def mesh_phase(torch, np, dev, g_full, want, launches, full_stats,
+               full_walls, paths, EngineConfig, Executor, DeviceGraph, ops):
+    """Phase 5f: the distributed engine (``repro_torch.core.distributed``)
+    on the card, a (2, 2) ``("data", "model")`` mesh whose four shards all
+    sit on this one card.
+
+    1. ``Executor(EngineConfig(num_partitions=150), mesh=mesh).decompose``
+       on the full-size graph, on ``cuda``, then on ``cuda_sparse`` with
+       the graph dispatch: theta equal to the oracle, ``rho_fd`` and
+       ``wedges_fd`` equal to phase 5's single-device run of the same
+       config, ``fd_shards == 4``, work on more than one shard, the shard
+       wedges within ``wedges_fd``, each shape group's LPT loads within
+       the list-scheduling bound (total / shards + the heaviest task),
+       kernels 2 (5) and 3 launched, no f32 tile body, and the peak
+       within the plan's estimate;
+    2. the sharded CD entry points on the engine's sorted (8192, 8192)
+       matrix, on a (4, 1) and a (2, 2) mesh: the count with every real
+       row alive against kernel 1's count body, one sweep of a 256-row
+       peel set (both ``impl``s) against kernel 1's peel form, and the
+       range loop over the first CD range of the P = 150 run against a
+       single-device emulation with kernel 1: ``torch.equal``, each
+       call's time logged.
+    """
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    log(f"mesh: {dict(mesh.shape)} over {len(mesh.devices)} shards, all on "
+        f"{dev} ({torch.cuda.get_device_name(0)}): the 4 shards share one "
+        "card and run one after another")
+
+    # ---- 1. the mesh decomposes ----
+    lpt = []
+    shard_level_group = dist.shard_level_group
+
+    def recording(built, n_shards, init_loads=None):
+        arr, slots = shard_level_group(built, n_shards, init_loads)
+        lpt.append(([t["wedges"] for t in built["group"]],
+                    arr["shard_load"]))
+        return arr, slots
+
+    runs = (("mesh_dense", "dense_subset",
+             EngineConfig(num_partitions=FULL["partitions"])),
+            ("mesh_sparse", "sparse_graph",
+             EngineConfig(num_partitions=FULL["partitions"],
+                          backend="cuda_sparse", cd_dispatch="graph")))
+    must = {"mesh_dense": ("butterfly_update_batched[peel]",
+                           "b2_stack[pairs]"),
+            "mesh_sparse": ("butterfly_update_sparse_batched[peel]",
+                            "b2_stack[pairs]")}
+    dist.shard_level_group = recording
+    try:
+        for pname, single, cfg in runs:
+            ex = Executor(cfg, mesh=mesh)
+            plan = ex.plan(g_full)
+            if plan.mesh_shards != 4 or plan.representation != "dense":
+                raise AssertionError(f"{pname}: plan {plan.mesh_shards} "
+                                     f"shards, {plan.representation}")
+            lpt.clear()
+            td, wall, peak, resident = counted(
+                torch, ops, launches, pname,
+                lambda: ex.decompose(g_full, plan=plan))
+            st, one = td.stats, full_stats[single]
+            if not np.array_equal(td.theta, want):
+                raise AssertionError(f"{pname}: theta differs from the "
+                                     "exact oracle")
+            if (st.rho_fd, st.wedges_fd) != (one.rho_fd, one.wedges_fd):
+                raise AssertionError(
+                    f"{pname}: rho_fd / wedges_fd {st.rho_fd} / "
+                    f"{st.wedges_fd} differ from {single}'s {one.rho_fd} / "
+                    f"{one.wedges_fd}")
+            busy = sum(1 for r in st.fd_shard_rho if r > 0)
+            if (st.fd_shards != 4 or busy < 2
+                    or sum(st.fd_shard_wedges) > st.wedges_fd):
+                raise AssertionError(
+                    f"{pname}: fd_shards {st.fd_shards}, shard rho "
+                    f"{st.fd_shard_rho}, shard wedges {st.fd_shard_wedges} "
+                    f"against wedges_fd {st.wedges_fd}")
+            weights = [w for ws, _ in lpt for w in ws]
+            loads = np.sum([ld for _, ld in lpt], axis=0)
+            lpt_bound = sum(weights) / mesh.size + max(weights)
+            if loads.max() > lpt_bound:
+                raise AssertionError(f"{pname}: shard loads {loads} past "
+                                     f"the LPT bound {lpt_bound}")
+            idle = [k for k in must[pname] if launches[pname][k] <= 0]
+            tile = [k for k, n in launches[pname].items()
+                    if (k.endswith("[tile]")
+                        or k == "butterfly_update_tiled[count]") and n]
+            if idle or tile:
+                raise AssertionError(f"{pname}: never launched {idle}, "
+                                     f"launched {tile}")
+            log(f"{pname}: theta == exact oracle | wall {wall:.3f} s "
+                f"({single} {full_walls[single]:.3f} s) | time_cd "
+                f"{st.time_cd:.3f} time_fd {st.time_fd:.3f} s ({single} "
+                f"{one.time_fd:.3f}) | host_round_trips "
+                f"{st.host_round_trips} ({single} {one.host_round_trips}) | "
+                f"rho_fd {st.rho_fd} wedges_fd {st.wedges_fd} (== "
+                f"{single}) | fd_groups {st.fd_groups} fd_shards "
+                f"{st.fd_shards} fd_shard_rho {st.fd_shard_rho} "
+                f"fd_shard_wedges {st.fd_shard_wedges} fd_padding_waste "
+                f"{st.fd_padding_waste:.4f} device_loop_calls "
+                f"{st.device_loop_calls}")
+            log(f"{pname}: LPT static loads per shard {loads.tolist()} "
+                f"(bound {lpt_bound:.1f}, {len(weights)} tasks in "
+                f"{len(lpt)} groups) | launches "
+                + str({k: v for k, v in launches[pname].items() if v}))
+            check_admission(pname, plan.padded_bytes, peak - resident)
+            where_the_time_goes(torch, lambda: ex.decompose(g_full,
+                                                            plan=plan),
+                                top=5)
+    finally:
+        dist.shard_level_group = shard_level_group
+
+    # ---- 2. the sharded CD entry points at full size ----
+    dg = DeviceGraph(g_full.relabel_by_degree(), np.arange(g_full.n_u),
+                     paths["sparse_graph"], device=dev)
+    a = dg.a
+    n_a = a.shape[0]
+    ids = torch.arange(n_a, dtype=torch.int32, device=dev)
+    alive = torch.arange(n_a, device=dev) < dg.n_rows
+    s = alive.float()
+    sup0 = ops.butterfly_support(a, s)
+    rng = np.random.default_rng(5)
+    n_peel, width = 240, 256
+    rows_np = np.zeros(width, np.int64)
+    rows_np[:n_peel] = np.sort(rng.choice(dg.n_rows, n_peel, replace=False))
+    rows = torch.as_tensor(rows_np, dtype=torch.int32, device=dev)
+    valid = (torch.arange(width, device=dev) < n_peel).float()
+
+    def sweep_one(sup, alv, rows, valid, lo):
+        """One sweep on one device: kernel 1's peel form, then the
+        reference's update rule."""
+        delta = ops.butterfly_update(a, a[rows.long()] * valid[:, None],
+                                     valid, ids, rows)
+        peeled = torch.zeros(n_a, dtype=torch.bool, device=dev)
+        peeled[rows.long()[valid > 0.5]] = True
+        alv2 = alv & ~peeled
+        return torch.where(alv2, (sup - delta).clamp(min=lo), sup), alv2
+
+    want_sweep = sweep_one(sup0, alive, rows, valid, 0.0)
+
+    def range_loop(hi):
+        """The range loop on one device, sweep by sweep with kernel 1."""
+        sup, alv, rho = sup0, alive, 0
+        while True:
+            peel = alv & (sup < hi)
+            n = int(peel.sum())
+            if n == 0:
+                return sup, alv, rho
+            r = torch.nonzero(peel).flatten().to(torch.int32)
+            sup, alv = sweep_one(sup, alv, r, torch.ones(n, device=dev), 0.0)
+            rho += 1
+
+    # the first CD range of the P = 150 run, and a wider one (below the
+    # support of the real rows' first quartile) that takes several sweeps
+    ranges = {"first": float(full_stats["dense_subset"].bounds[1]),
+              "quartile": float(sup0[alive].quantile(0.25))}
+    want_loop = {k: range_loop(hi) for k, hi in ranges.items()}
+    log(f"mesh CD: sorted matrix {tuple(a.shape)}, {dg.n_rows} real rows; "
+        + "; ".join(f"range {k} [0, {hi:.0f}): "
+                    f"{int((alive & (sup0 < hi)).sum())} rows below hi, "
+                    f"{want_loop[k][2]} sweeps" for k, hi in ranges.items()))
+    for shape in ((4, 1), (2, 2)):
+        m = make_mesh(shape, ("data", "model"), devices=[dev] * 4)
+        tag = f"mesh_cd_{shape[0]}x{shape[1]}"
+        times = {}
+        got, times["count"], _, _ = counted(
+            torch, ops, launches, tag + "_count",
+            lambda: dist.distributed_butterfly_support(m, a, s))
+        if not torch.equal(got, sup0):
+            raise AssertionError(f"{tag}: the count differs from kernel "
+                                 "1's count body")
+        for impl in ("gspmd", "shardmap"):
+            (gs, ga), times[impl], _, _ = counted(
+                torch, ops, launches, f"{tag}_{impl}",
+                lambda: dist.distributed_cd_sweep(
+                    m, a, sup0, alive, rows, valid, 0.0, impl=impl))
+            if not (torch.equal(gs, want_sweep[0])
+                    and torch.equal(ga, want_sweep[1])):
+                raise AssertionError(f"{tag} {impl}: the sweep differs "
+                                     "from kernel 1's peel form")
+        rhos = {}
+        for k, hi in ranges.items():
+            (ls, la, rhos[k], ovf), times[f"loop_{k}"], _, _ = counted(
+                torch, ops, launches, f"{tag}_loop_{k}",
+                lambda: dist.distributed_cd_fused_loop(
+                    m, a, sup0, alive, hi, 0.0, peel_width=n_a))
+            want_s, want_a, want_rho = want_loop[k]
+            if ovf or rhos[k] != want_rho or not (
+                    torch.equal(ls, want_s) and torch.equal(la, want_a)):
+                raise AssertionError(
+                    f"{tag}: the range loop over {k} differs from the "
+                    f"emulation (rho {rhos[k]} vs {want_rho}, overflow "
+                    f"{ovf})")
+        peel1 = sum(n[1]["butterfly_update[peel]"] for n in launches.items()
+                    if n[0].startswith(tag + "_"))
+        if (shape[1] == 1) != (peel1 > 0):
+            raise AssertionError(f"{tag}: kernel 1's peel body launched "
+                                 f"{peel1} times")
+        log(f"{tag}: torch.equal (count, sweep gspmd + shardmap, range "
+            f"loops {rhos} sweeps) | s: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+            + f" | kernel 1 peel launches {peel1}")
+    del dg, a, sup0
+
+
 def sparse_edge_supports(np, a, eu, ev):
     """Closed-form edge supports of a card matrix at the slots, from a
     scipy sparse int64 product on the host (the slots' absent cells 0)."""
@@ -2271,6 +2487,12 @@ def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
                   launches, oracles, mutations, wing_mutation, refresh_rows,
                   wing_refresh, EngineConfig, BipartiteGraph, ops)
     log(f"service: phase 5e in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 5f. the distributed engine on a mesh of one card ------------- #
+    t0 = time.perf_counter()
+    mesh_phase(torch, np, dev, g_full, want, launches, full_stats,
+               full_walls, paths, EngineConfig, Executor, DeviceGraph, ops)
+    log(f"mesh: phase 5f in {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. crossover: staircase + graph against tiled ---------------- #
     # the full-size graph's walls are phase 5's timed runs: the kernels and

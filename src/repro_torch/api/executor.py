@@ -63,6 +63,7 @@ from ..core.graph import BipartiteGraph
 from ..core.scheduler import lpt_assign, pack_by_shape
 from ..kernels import butterfly_sparse as ksparse
 from ..kernels import ops as kops
+from ..launch.mesh import check_mesh
 from ..train.fault_tolerance import StragglerMonitor
 from . import faults
 from .errors import (
@@ -73,7 +74,7 @@ from .errors import (
     ReceiptError,
     VerificationError,
 )
-from .plan import ExecutionPlan, Planner, check_no_mesh
+from .plan import ExecutionPlan, Planner
 
 __all__ = ["Executor", "Decomposition", "TipDecomposition",
            "WingDecomposition", "decompose", "verify_tip_decomposition",
@@ -241,13 +242,18 @@ class Executor:
     measurements back.  ``map(graphs)`` batches a fleet of small graphs
     (module docstring).  ``device=None`` runs on the card and raises when
     there is none; pass ``device="cpu"`` for the plain versions.
+    ``mesh`` (a ``repro_torch.launch.mesh.DeviceMesh``): ``decompose``
+    runs the FD phase sharded over it (CD stays on ``device``); ``map``
+    and the wing workload refuse it, as the reference's do.
     """
 
     def __init__(self, config=None, *, side: Optional[str] = None,
                  device=None, mesh=None, map_stack_cells: int = 1 << 26,
                  guardrails: bool = True):
-        check_no_mesh(mesh)
+        if mesh is not None:
+            check_mesh(mesh)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._planner = Planner(config, side=side, device=self.device)
         self.map_stack_cells = int(map_stack_cells)
         self._entries: Dict[Tuple, _CacheEntry] = {}
@@ -292,7 +298,7 @@ class Executor:
         return self._injector.report() if self._injector else []
 
     def plan(self, graph: BipartiteGraph) -> ExecutionPlan:
-        return self._planner.plan(graph)
+        return self._planner.plan(graph, mesh=self.mesh)
 
     def _fault_scope(self):
         """Activate this executor's injector (env-armed faults apply
@@ -319,6 +325,11 @@ class Executor:
         the host in float64) and records the check count in ``RunStats``;
         a violation raises ``VerificationError``.
         """
+        if self.workload == "wing" and self.mesh is not None:
+            raise ValueError(
+                "workload='wing' runs single-device; the sharded FD "
+                "is a vertex-axis path.  Build the executor without a "
+                "mesh.")
         if plan is None:
             plan = self.plan(graph)
         entry = self._seed(plan)
@@ -431,10 +442,12 @@ class Executor:
     def _engine_run(self, graph: BipartiteGraph, cfg: ReceiptConfig,
                     plan: ExecutionPlan):
         """One engine invocation of the plan's workload."""
-        engine = (_engine_wing_decompose if self.workload == "wing"
-                  else _engine_tip_decompose)
-        return engine(graph, cfg, side=self.side, device=self.device,
-                      plan=plan)
+        if self.workload == "wing":
+            return _engine_wing_decompose(graph, cfg, side=self.side,
+                                          device=self.device, plan=plan)
+        return _engine_tip_decompose(graph, cfg, side=self.side,
+                                     device=self.device, mesh=self.mesh,
+                                     plan=plan)
 
     def _seed(self, plan: ExecutionPlan) -> _CacheEntry:
         entry = self._entries.get(plan.signature)
@@ -495,6 +508,12 @@ class Executor:
             raise ValueError(
                 "Executor.map batches graphs through the level-peel "
                 f"loop; set fd_mode='level' (got {cfg.fd_mode!r})")
+        if self.mesh is not None:
+            raise ValueError(
+                "Executor.map runs single-device; sharding map chunks "
+                "over a mesh is not implemented.  Use "
+                "Executor.decompose(graph) for mesh execution, or build "
+                "the executor without a mesh.")
         t0 = time.perf_counter()
         backend = kops.resolve_backend(cfg.backend, self.device)
         blocks = cfg.kernel_blocks

@@ -44,14 +44,17 @@ engine keeps, the kernels' scratch (the count body's s8 copy, the peel
 body's gathered rows, kernel 3's s8 stack copy, kernel 6's window
 scratch) and the largest temporaries, checked against
 ``torch.cuda.max_memory_allocated`` above what was resident, on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py``).  What the process holds
-for its life is not the run's: the CUDA context, and cuBLAS's workspace
-(32 MiB per stream on an H100, allocated at the process's first matrix
-product and kept).  It differs by design from the reference's, which
-counts the dense matrix, one peel buffer and the FD stacks (or one wing
-stack member per partition); the admission rules are the reference's
-(downshift P, route tiled, reject), so an outcome that follows from the
-bytes may differ too.
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``).  With a mesh
+(``plan(graph, mesh=...)``: ``mesh_shards``) the FD count is that of the
+LPT-padded stacks of the shards that share the fullest device, and a
+sharded plan never routes tiled on its own, as the reference's.  What
+the process holds for its life is not the run's: the CUDA context, and
+cuBLAS's workspace (32 MiB per stream on an H100, allocated at the
+process's first matrix product and kept).  It differs by design from
+the reference's, which counts the dense matrix, one peel buffer and the
+FD stacks (or one wing stack member per partition); the admission rules
+are the reference's (downshift P, route tiled, reject), so an outcome
+that follows from the bytes may differ too.
 
 There is no jit cache here, so the reuse is of plans and the FD gather
 widths, not of compiled programs.  The plan's host-sync bound differs by design:
@@ -72,12 +75,12 @@ from ..core.graph import BipartiteGraph
 from ..kernels import butterfly as kbfly
 from ..kernels import butterfly_tiled as ktiled
 from ..kernels import ops as kops
+from ..launch.mesh import check_mesh
 from .config import EngineConfig
 from .errors import PlanInfeasibleError
 
 __all__ = ["ExecutionPlan", "PlanMeasurements", "Planner",
-           "TILED_OCCUPANCY_CROSSOVER", "TILED_MIN_DENSE_CELLS",
-           "check_no_mesh"]
+           "TILED_OCCUPANCY_CROSSOVER", "TILED_MIN_DENSE_CELLS"]
 
 # ---------------------------------------------------------------------- #
 # dense -> tiled routing crossover (representation="auto")
@@ -130,17 +133,21 @@ def _dense_cd_bytes(rows_pad: int, cols_pad: int, block_rows: int,
 
 
 def _fd_group_bytes(n_g: int, mm: int, cc: int, w1: int,
-                    b2_mode: bool) -> int:
+                    b2_mode: bool, n_update: Optional[int] = None) -> int:
     """One FD shape group on the card: the survivor stack, the first-level
     stack, and the level loop's update: the B2 stack and kernel 3's s8
-    copy, or a gather of up to every row and kernel 2's scratch."""
+    copy, or a gather of up to every row and kernel 2's scratch.
+    ``n_update`` (default ``n_g``) is the number of groups one level
+    loop updates at once: on a mesh the card holds its shards' ``n_g``
+    slots, and their loops run one shard at a time."""
+    n_up = n_g if n_update is None else n_update
     stacks = _F32_BYTES * n_g * (mm + w1) * cc
     if b2_mode:
-        update = (_F32_BYTES * n_g * mm * mm
-                  + n_g * kbfly.count_scratch_bytes(mm, cc))
+        update = (_F32_BYTES * n_up * mm * mm
+                  + n_up * kbfly.count_scratch_bytes(mm, cc))
     else:
-        update = (_F32_BYTES * n_g * mm * cc
-                  + kbfly.peel_scratch_bytes(mm, cc, n_g))
+        update = (_F32_BYTES * n_up * mm * cc
+                  + kbfly.peel_scratch_bytes(mm, cc, n_up))
     return stacks + update + _ROW_STATE_BYTES * n_g * (mm + cc)
 
 
@@ -169,15 +176,6 @@ def _wing_closed_form_bytes(rows_pad: int, cols_pad: int) -> int:
     """The closed form's float64 temporaries, one member at a time: the
     matrix, ``A^T A`` and ``A (A^T A)``."""
     return _F64_BYTES * (2 * rows_pad * cols_pad + cols_pad * cols_pad)
-
-
-def check_no_mesh(mesh) -> None:
-    """The port runs on one card: a mesh is accepted only as ``None``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "repro_torch runs on one device: the sharded FD path arrives "
-            "with the distributed slice (ROADMAP.md, queue 1, item 6); "
-            "pass mesh=None")
 
 
 @dataclasses.dataclass
@@ -366,7 +364,8 @@ class Planner:
 
     # ------------------------------------------------------------------ #
     def plan(self, graph: BipartiteGraph, *, mesh=None) -> ExecutionPlan:
-        check_no_mesh(mesh)
+        if mesh is not None:
+            check_mesh(mesh)
         if not isinstance(graph, BipartiteGraph):
             raise ValueError(
                 f"Planner.plan expects a BipartiteGraph (got "
@@ -378,7 +377,7 @@ class Planner:
         backend = kops.resolve_backend(cfg.backend, self.device)
         g = graph.transposed() if self.side == "V" else graph
         bi, bj, bk = cfg.kernel_blocks
-        mesh_shards = 0
+        mesh_shards = int(mesh.size) if mesh is not None else 0
         if self.workload == "wing":
             return self._plan_wing(g, cfg, backend, mesh_shards)
 
@@ -400,16 +399,19 @@ class Planner:
         # before FD starts
         fixed_bytes = _dense_cd_bytes(rows_pad, cols_pad, bj,
                                       cfg.cd_dispatch == "graph")
-        padded_bytes = max(fixed_bytes, self._estimate_fd_bytes(g, cfg))
+        padded_bytes = max(fixed_bytes,
+                           self._estimate_fd_bytes(g, cfg, mesh=mesh))
 
         # --- representation routing ------------------------------------ #
+        # the mesh FD is dense only: a sharded plan never routes tiled on
+        # its own
         req_rep = cfg.representation
         tiled_est = self._estimate_tiled(g, cfg)
         dense_cells = rows_pad * cols_pad
         budget = self.memory_budget
         if req_rep == "tiled":
             representation = "tiled"
-        elif req_rep == "auto" and (
+        elif req_rep == "auto" and mesh_shards == 0 and (
                 (budget is not None and fixed_bytes > budget)
                 or (tiled_est["tile_occupancy"] <= TILED_OCCUPANCY_CROSSOVER
                     and dense_cells >= TILED_MIN_DENSE_CELLS)):
@@ -477,7 +479,7 @@ class Planner:
                 groups_try, waste_try = self._estimate_fd_groups(
                     g, cfg, num_partitions=p_try)
                 bytes_try = max(fixed_bytes, self._estimate_fd_bytes(
-                    g, cfg, num_partitions=p_try))
+                    g, cfg, num_partitions=p_try, mesh=mesh))
                 if bytes_try < best[0]:
                     best = (bytes_try, p_try, groups_try, waste_try)
                 if bytes_try <= budget:
@@ -486,7 +488,8 @@ class Planner:
                     break                           # first fit = nearest
             padded_bytes, admitted_p, est_groups, est_waste = best
             if not found and padded_bytes > budget:
-                if req_rep == "auto" and tiled_est["tiled_bytes"] <= budget:
+                if (req_rep == "auto" and mesh_shards == 0
+                        and tiled_est["tiled_bytes"] <= budget):
                     # no dense partitioning fits — the tile list does
                     representation = "tiled"
                     padded_bytes = tiled_est["tiled_bytes"]
@@ -660,12 +663,17 @@ class Planner:
 
     # ------------------------------------------------------------------ #
     def _estimate_fd_bytes(self, g: BipartiteGraph, cfg: ReceiptConfig,
-                           num_partitions: Optional[int] = None) -> int:
+                           num_partitions: Optional[int] = None,
+                           mesh=None) -> int:
         """Peak of the FD phase: the wedge-equipartition subsets of
         ``_estimate_fd_groups``, each stacked at its own rows and the
         columns its members touch (as ``fd.build_fd_tasks`` induces them),
         grouped by padded shape; the two largest groups are on the card at
-        once (the double-buffered dispatch)."""
+        once (the double-buffered dispatch).  On a ``mesh`` a group of
+        ``n_g`` subsets becomes ``mesh.size`` shards of
+        ``ceil(n_g / mesh.size)`` slots (the LPT layout), the fullest
+        device holds the slots of its shards, and its level loops update
+        one shard's slots at a time."""
         from ..core.engine.fd import _aligns, _level_pad
 
         row_align, col_align, w_align = _aligns(cfg)
@@ -695,7 +703,14 @@ class Planner:
             b2_mode = (cfg.fd_update_mode == "b2"
                        or (cfg.fd_update_mode == "auto"
                            and n_g * mm * mm <= cfg.fd_b2_cells))
-            per_group.append(_fd_group_bytes(n_g, mm, cc, w_align, b2_mode))
+            if mesh is None:
+                per_group.append(_fd_group_bytes(n_g, mm, cc, w_align,
+                                                 b2_mode))
+                continue
+            per_shard = -(-n_g // mesh.size)
+            on_card = max(mesh.shards_per_device().values()) * per_shard
+            per_group.append(_fd_group_bytes(on_card, mm, cc, w_align,
+                                             b2_mode, n_update=per_shard))
         per_group.sort(reverse=True)
         return int(sum(per_group[: 2 if cfg.fd_overlap else 1]))
 

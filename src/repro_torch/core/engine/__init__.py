@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ...launch.mesh import check_mesh
 from ..graph import BipartiteGraph
 from .baselines import parb_tip_decompose
 from .cd import cd_checkpoint_state, find_hi_np, receipt_cd
@@ -89,12 +90,18 @@ __all__ = [
 
 def tip_decompose(
     g: BipartiteGraph, cfg: Optional[ReceiptConfig] = None,
-    *, side: str = "U", device=None, plan=None,
+    *, side: str = "U", device=None, mesh=None, plan=None,
 ) -> Tuple[np.ndarray, RunStats]:
     """Full RECEIPT tip decomposition of one side of ``g``.
 
     side="V" peels the other vertex set, by transposing the bipartite
     graph (exact by symmetry).  ``device=None`` runs on the card.
+    ``mesh``: a ``repro_torch.launch.mesh.DeviceMesh`` runs the FD phase
+    sharded over it (``core/distributed.py``: subsets LPT-assigned to its
+    shard devices, per-shard stats reconciled into the returned
+    RunStats); CD stays on ``device`` (DESIGN.md section 4).  Tip numbers
+    are identical with and without a mesh.  Any other mesh object raises
+    ``TypeError``.
     ``plan``: a ``repro_torch.api.ExecutionPlan`` whose earlier
     same-signature runs set the FD gather widths, and which receives this
     run's measurements, padded shapes among them (recorded, never
@@ -107,6 +114,8 @@ def tip_decompose(
     """
     cfg = cfg or ReceiptConfig()
     dev = resolve_device(device)
+    if mesh is not None:
+        check_mesh(mesh)
     if side == "V":
         g = g.transposed()
     elif side != "U":
@@ -138,7 +147,8 @@ def tip_decompose(
         subset_id, init_support, bounds, _ = receipt_cd(g_work, cfg, stats,
                                                         device=dev, plan=plan)
         theta_work = receipt_fd(g_work, subset_id, init_support, bounds,
-                                cfg, stats, device=dev, plan=plan)
+                                cfg, stats, device=dev, mesh=mesh,
+                                plan=plan)
 
     theta = np.zeros(g.n_u, np.int64)
     theta[perm_u] = np.round(theta_work).astype(np.int64)

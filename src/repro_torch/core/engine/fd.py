@@ -32,8 +32,12 @@ shape group is peeled one vertex per step, batched over the group as the
 reference's ``vmap``, on the device with no read per step.  ``"b2"`` takes
 its B2 rows from the kernel-3 stack (which masks ragged edges itself, so
 unlike the reference no alignment test sends the stack to a plain
-version), ``"matvec"`` recomputes one B2 row per step.  The mesh path
-arrives with the distributed slice (ROADMAP.md, queue 1).
+version), ``"matvec"`` recomputes one B2 row per step.
+
+``receipt_fd(mesh=...)`` runs the level pipeline over a
+``repro_torch.launch.mesh.DeviceMesh`` (``_run_level_groups_mesh``): each
+shape group's stacks are LPT-laid over the mesh's shards
+(``core/distributed.py``) and each shard peels its slice on its device.
 
 With a ``plan`` (``repro_torch.api.ExecutionPlan``) the level stacks take
 the reference's two hooks: every stack dimension (``fd_rows``,
@@ -328,6 +332,38 @@ def build_level_stack(group: List[Dict], cfg: ReceiptConfig,
     )
 
 
+def first_level_delta(a, a_l1, n_l1, sup, cap1, *, backend, blocks):
+    """Apply the last hoisted level's delta to a survivor stack: ONE
+    grouped kernel call (kernel 2; kernel 5 on the sparse backends) sized
+    to survivors (output side) x first level (gathered side).  The
+    gathered ids start at ``mm`` so no survivor id can equal one (no
+    self-mask).
+
+    a (G, mm, cc) and a_l1 (G, w1, cc) stacks, n_l1 (G,) int32 first-level
+    sizes, sup (G, mm) supports, cap1 (G,) level caps, all on one device.
+    Returns (supports floored at the cap, the survivor stack's per-row
+    staircase extents on the sparse backends, else None).
+    """
+    g_n, mm, _cc = a.shape
+    w1 = a_l1.shape[1]
+    dev = a.device
+    bi, bj, bk = blocks
+    valid1 = torch.arange(w1, device=dev)[None, :] < n_l1[:, None]
+    ids_s = torch.arange(mm, dtype=torch.int32, device=dev).expand(g_n, mm)
+    ids_l1 = (mm + torch.arange(w1, dtype=torch.int32, device=dev)
+              ).expand(g_n, w1)
+    if backend in kops.SPARSE_BACKENDS:
+        row_ext = ksparse.row_extents_device(a, bk)
+        kma = ksparse.tile_extents(row_ext, bi)
+        kmb = ksparse.column_extents(a_l1, bj, bk)
+    else:
+        row_ext = kma = kmb = None
+    delta1 = kops.butterfly_update_batched(
+        a, a_l1, valid1, ids_s, ids_l1, backend=backend, blocks=blocks,
+        kmax_a=kma, kmax_b=kmb)
+    return torch.maximum(sup - delta1, cap1[:, None]), row_ext
+
+
 def _note_group_run(built: Dict, max_level_seen: int, stats: RunStats,
                     plan) -> None:
     """Fold one drained group's measured level shape into RunStats and
@@ -353,12 +389,24 @@ def receipt_fd(
     stats: RunStats,
     *,
     device,
+    mesh=None,
     plan=None,
 ) -> np.ndarray:
     """Exact tip numbers by independent peeling of induced subgraphs
-    (``plan``: the level stacks' hooks, module docstring)."""
+    (``plan``: the level stacks' hooks, module docstring).
+
+    ``mesh``: a ``repro_torch.launch.mesh.DeviceMesh`` peels each shape
+    group's stacks on the mesh, subsets LPT-assigned to its shard devices
+    (``_run_level_groups_mesh``); tip numbers are identical to the
+    single-device path, and the per-shard loads are reconciled into
+    ``stats.fd_shard_rho`` / ``fd_shard_wedges``.  Requires
+    ``fd_mode="level"``."""
     if cfg.fd_mode not in ("level", "b2", "matvec"):
         raise ValueError(f"unknown fd_mode {cfg.fd_mode!r}")
+    if mesh is not None and cfg.fd_mode != "level":
+        raise ValueError(
+            "mesh-sharded FD runs the batched level-peel loop; set "
+            f"fd_mode='level' (got {cfg.fd_mode!r})")
     if cfg.max_sweeps < 1:
         raise ValueError(
             f"max_sweeps must be >= 1 (got {cfg.max_sweeps}): the valve "
@@ -367,7 +415,10 @@ def receipt_fd(
     theta = np.zeros(g.n_u, np.float64)
     backend = kops.resolve_backend(cfg.backend, device)
     tasks = build_fd_tasks(g, subset_id, bounds, stats)
-    if cfg.fd_mode == "level":
+    if cfg.fd_mode == "level" and mesh is not None:
+        theta = _run_level_groups_mesh(tasks, init_support, cfg, stats,
+                                       theta, mesh, plan=plan)
+    elif cfg.fd_mode == "level":
         theta = _run_level_groups(tasks, init_support, cfg, backend, stats,
                                   theta, device=device, plan=plan)
     else:
@@ -434,61 +485,27 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
     padded shape, and peel each group with the batched level loop —
     double-buffering host stack assembly against device work."""
     blocks = cfg.kernel_blocks
-    bi, bj, bk = blocks
-    sparse = backend in kops.SPARSE_BACKENDS
-    row_align, col_align, _ = _aligns(cfg)
-
-    tasks = pre_peel_tasks(tasks, init_support, theta, stats,
-                           levels=cfg.fd_prepeel_levels)
-    groups = pack_by_shape(
-        tasks,
-        size_of=lambda t: (len(t["surv"]), max(t["sub"].n_v, 1)),
-        weight_of=lambda t: t["wedges"],
-        bucket=lambda n: _level_pad(n, row_align),
-        bucket_cols=lambda n: _level_pad(n, col_align),
-    )
-    stats.fd_groups = len(groups)
-
-    padded = used = 0
-    pending = None           # (built, device state) one group in flight
 
     def launch(built):
         """Uploads, the sparse backends' extents and the first-level delta:
-        asynchronous launches."""
-        g_n, mm, w1 = built["a"].shape[0], built["mm"], built["w1"]
+        asynchronous launches.  Returns (device state, padded cells)."""
         fault_point("kernel_launch", KernelBackendError,
                     dispatch="fd_level", backend=backend,
-                    group_shape=(g_n, mm))
+                    group_shape=(built["a"].shape[0], built["mm"]))
 
         def up(x, dtype):
             return torch.as_tensor(x).to(device=device, dtype=dtype)
 
         a_dev = up(built["a"], cfg.dtype)
-        sup_dev = up(built["sup0"], cfg.dtype)
-        # first-level delta: ONE grouped kernel call sized to survivors
-        # (output side) x first level (gathered side); the gathered ids
-        # start at mm so no survivor id can equal one (no self-mask)
-        a_l1 = up(built["a_l1"], cfg.dtype)
-        valid1 = (torch.arange(w1, device=device)[None, :]
-                  < up(built["n_l1"], torch.int32)[:, None])
-        ids_s = torch.arange(mm, dtype=torch.int32, device=device).expand(
-            g_n, mm)
-        ids_l1 = (mm + torch.arange(w1, dtype=torch.int32, device=device)
-                  ).expand(g_n, w1)
-        if sparse:
-            row_ext = ksparse.row_extents_device(a_dev, bk)
-            kma = ksparse.tile_extents(row_ext, bi)
-            kmb = ksparse.column_extents(a_l1, bj, bk)
-        else:
-            row_ext = kma = kmb = None
-        delta1 = kops.butterfly_update_batched(
-            a_dev, a_l1, valid1, ids_s, ids_l1, backend=backend,
-            blocks=blocks, kmax_a=kma, kmax_b=kmb)
-        cap1 = up(built["cap1"], cfg.dtype)
-        sup1 = torch.maximum(sup_dev - delta1, cap1[:, None])
+        sup1, row_ext = first_level_delta(
+            a_dev, up(built["a_l1"], cfg.dtype),
+            up(built["n_l1"], torch.int32), up(built["sup0"], cfg.dtype),
+            up(built["cap1"], cfg.dtype),
+            backend=backend, blocks=blocks)
         return (a_dev, sup1, up(built["alive0"], torch.bool),
                 up(built["dv0"], torch.float32),
-                up(built["los"], torch.float32), row_ext)
+                up(built["los"], torch.float32),
+                row_ext), built["padded_cells"]
 
     def drain(built, state):
         """Run the group's level loop to the end (re-entering on a
@@ -522,11 +539,35 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
         for k, t in enumerate(built["group"]):
             theta[t["members"][t["surv"]]] = th_acc[k, : built["nmem"][k]]
 
+    _pipeline(tasks, init_support, cfg, stats, theta, plan, launch, drain)
+    return theta
+
+
+def _pipeline(tasks, init_support, cfg, stats, theta, plan, launch, drain):
+    """The shared pipeline of the level peels: pre-peel first levels on the
+    host (``pre_peel_tasks``), group the SURVIVOR subgraphs by padded
+    shape, then per group build the stacks, ``launch(built) -> (state,
+    padded cells)`` (asynchronous) and ``drain(built, state)``; under
+    ``cfg.fd_overlap`` a group drains only after the next one is built
+    and launched.  Sets ``stats.fd_groups`` and ``fd_padding_waste``."""
+    row_align, col_align, _ = _aligns(cfg)
+    tasks = pre_peel_tasks(tasks, init_support, theta, stats,
+                           levels=cfg.fd_prepeel_levels)
+    groups = pack_by_shape(
+        tasks,
+        size_of=lambda t: (len(t["surv"]), max(t["sub"].n_v, 1)),
+        weight_of=lambda t: t["wedges"],
+        bucket=lambda n: _level_pad(n, row_align),
+        bucket_cols=lambda n: _level_pad(n, col_align),
+    )
+    stats.fd_groups = len(groups)
+    padded = used = 0
+    pending = None           # (built, device state) one group in flight
     for group in groups:
         built = build_level_stack(group, cfg, plan=plan)
-        padded += built["padded_cells"]
+        state, cells = launch(built)            # async launches
+        padded += cells
         used += built["used_cells"]
-        state = launch(built)                   # async launches
         if pending is not None:
             drain(*pending)
         if cfg.fd_overlap:
@@ -535,6 +576,93 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
             drain(built, state)
     if pending is not None:
         drain(*pending)
-
     stats.fd_padding_waste = 1.0 - used / padded if padded else 0.0
+
+
+def _run_level_groups_mesh(tasks, init_support, cfg, stats, theta, mesh,
+                           plan=None):
+    """The mesh FD (DESIGN.md section 4): ``_run_level_groups``'s pipeline
+    (host pre-peel, shape-group packing, double-buffered group dispatch)
+    with each group's stacks LPT-laid over the mesh's shards
+    (``distributed.shard_level_group``, shard loads carried across
+    groups) and peeled shard by shard on the shards' devices
+    (``distributed.fd_level_launch`` / ``fd_level_run``: the first-level
+    delta, then the level loop, on the hand kernels of the backend).
+    Per-shard sweeps and wedges accumulate into ``stats.fd_shard_rho`` /
+    ``fd_shard_wedges``.  ``device_loop_calls`` counts one per group
+    dispatch and one per cap-exit re-entry, as the reference's.  The
+    measured-level feedback (``_note_group_run``) is the local path's
+    only, as in the reference; the plan's hints apply."""
+    from ..distributed import (fd_level_launch, fd_level_run,
+                               shard_level_group)
+
+    blocks = cfg.kernel_blocks
+    n_shards = mesh.size
+    dev0 = mesh.devices[0]
+    stats.fd_shards = n_shards
+    shard_rho = np.zeros(n_shards, np.int64)
+    shard_wedges = np.zeros(n_shards, np.float64)
+    lpt_loads = np.zeros(n_shards, np.float64)   # carried across groups
+
+    def launch(built):
+        """The LPT layout, each shard's uploads and first-level delta
+        (asynchronous launches).  Returns (state, padded cells: the LPT
+        padding slots count)."""
+        nonlocal lpt_loads
+        sharded, slots = shard_level_group(built, n_shards,
+                                           init_loads=lpt_loads)
+        lpt_loads = lpt_loads + sharded["shard_load"]
+        states = fd_level_launch(
+            mesh, sharded["a"], sharded["sup"], sharded["alive"],
+            sharded["dv"], sharded["lo"], a_l1=sharded["a_l1"],
+            n_l1=sharded["n_l1"], cap1=sharded["cap1"], backend=cfg.backend,
+            blocks=blocks)
+        return ((sharded, slots, states),
+                sharded["a"].size + sharded["a_l1"].size)
+
+    def drain(built, state):
+        """Every shard's level loop, in turn, re-entered on a
+        ``max_sweeps`` cap-exit; one fetch of the gathered results per
+        invocation."""
+        nonlocal shard_rho, shard_wedges
+        sharded, slots, states = state
+        per_shard = sharded["per_shard"]
+        th_acc = np.zeros(sharded["alive"].shape, np.float64)
+        prev_alive = sharded["alive"]
+        while True:
+            res = fd_level_run(states, update_mode=built["update_mode"],
+                               peel_width=built["peel_width"],
+                               max_sweeps=cfg.max_sweeps, blocks=blocks,
+                               stats=stats)
+            stats.device_loop_calls += 1
+            th, rho, wedges = (torch.cat([p.to(dev0) for p in parts])
+                               for parts in zip(*res))
+            alive = torch.cat([st["alive"].to(dev0) for st in states])
+            th_h, alive_h, rho_h, wedges_h = fetch(stats, th, alive, rho,
+                                                   wedges)
+            alive_h = alive_h.astype(bool)
+            d_rho = int(rho_h.sum())
+            stats.rho_fd += d_rho
+            stats.wedges_fd += int(wedges_h.sum())
+            shard_rho += rho_h.astype(np.int64).reshape(
+                n_shards, per_shard).sum(axis=1)
+            shard_wedges += wedges_h.reshape(n_shards, per_shard).sum(axis=1)
+            newly_dead = prev_alive & ~alive_h
+            th_acc = np.where(newly_dead, th_h, th_acc)
+            if not alive_h.any() or d_rho == 0:
+                break
+            prev_alive = alive_h
+            for i, st in enumerate(states):
+                st["live"] = bool(alive_h[i * per_shard:
+                                          (i + 1) * per_shard].any())
+        for s, t_idx in enumerate(slots):
+            if t_idx < 0:
+                continue
+            t = built["group"][t_idx]
+            nm = int(built["nmem"][t_idx])
+            theta[t["members"][t["surv"]]] = th_acc[s, :nm]
+
+    _pipeline(tasks, init_support, cfg, stats, theta, plan, launch, drain)
+    stats.fd_shard_rho = [int(x) for x in shard_rho]
+    stats.fd_shard_wedges = [float(x) for x in shard_wedges]
     return theta

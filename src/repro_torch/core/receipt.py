@@ -51,12 +51,13 @@ __all__ = [
 
 def tip_decompose(
     g: BipartiteGraph, cfg: Optional[ReceiptConfig] = None,
-    *, side: str = "U", device=None,
+    *, side: str = "U", device=None, mesh=None,
 ) -> Tuple[np.ndarray, RunStats]:
     """Full RECEIPT tip decomposition through ``repro_torch.api``
     (planning included); see ``repro_torch.core.engine.tip_decompose`` for
-    the knobs.  Returns (theta int64[n_side], RunStats)."""
+    the knobs (``mesh``: the FD phase sharded over a ``DeviceMesh``).
+    Returns (theta int64[n_side], RunStats)."""
     from .. import api
 
-    td = api.decompose(g, cfg, side=side, device=device)
+    td = api.decompose(g, cfg, side=side, device=device, mesh=mesh)
     return td.theta, td.stats

@@ -1,17 +1,18 @@
 """Workload-aware scheduling for FD subsets (paper section 3.2.1).
 
-The port's copies of ``repro.core.scheduler.pack_by_shape`` and
-``lpt_assign``: subsets are grouped by their bucketed padded shape, so each
-batched stack wastes minimal padding, and sorted by wedge count descending
-(LPT order) inside a group; ``lpt_assign`` splits a group into balanced
-chunks (``Executor.map``).  ``lpt_shard_plan`` arrives with the
-distributed slice.
+The port's copies of ``repro.core.scheduler.pack_by_shape``,
+``lpt_assign`` and ``lpt_shard_plan``: subsets are grouped by their
+bucketed padded shape, so each batched stack wastes minimal padding, and
+sorted by wedge count descending (LPT order) inside a group;
+``lpt_assign`` splits a group into balanced chunks (``Executor.map``), and
+``lpt_shard_plan`` lays that assignment out as equal-size contiguous
+shards of a stack (the mesh FD, ``core/distributed.py``).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["pack_by_shape", "lpt_assign"]
+__all__ = ["pack_by_shape", "lpt_assign", "lpt_shard_plan"]
 
 
 def pack_by_shape(
@@ -64,3 +65,24 @@ def lpt_assign(weights: Sequence[float], k: int,
         assign[j].append(i)
         loads[j] += weights[i]
     return assign
+
+
+def lpt_shard_plan(weights: Sequence[float], k: int,
+                   init_loads: Optional[Sequence[float]] = None,
+                   ) -> Tuple[List[int], int]:
+    """LPT assignment flattened into a shardable layout.
+
+    Returns (slots, per_shard): ``slots`` is a length ``k * per_shard``
+    list where slot ``s * per_shard + j`` holds the task index placed at
+    position j of shard s, or -1 for a padding slot.  Reordering a task
+    stack by this plan makes contiguous equal-size shards LPT-balanced.
+    ``init_loads`` passes through to ``lpt_assign`` (load carried across
+    shape groups).
+    """
+    assign = lpt_assign(weights, k, init_loads)
+    per_shard = max(max((len(a) for a in assign), default=0), 1)
+    slots: List[int] = []
+    for a in assign:
+        slots.extend(a)
+        slots.extend([-1] * (per_shard - len(a)))
+    return slots, per_shard

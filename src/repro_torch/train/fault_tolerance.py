@@ -6,8 +6,9 @@
 (the service's background flush worker restarts through it);
 ``StragglerMonitor`` keeps a per-task timing EWMA; tasks slower than
 ``threshold x`` the median are flagged (``Executor.map`` feeds it one wall
-clock per chunk and marks the members of flagged chunks).  The elastic
-mesh arrives with the distributed slice.
+clock per chunk and marks the members of flagged chunks).
+``ElasticMesh`` (model training over a shrinking mesh) waits for the model
+substrate (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 

@@ -42,6 +42,7 @@ from repro_torch.core.engine.peel_loop import bucket
 from repro_torch.core.engine.tiled import build_tiled
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import make_mesh
 
 BLOCKS = (8, 8, 8)
 CPU = torch.device("cpu")
@@ -315,16 +316,24 @@ def test_admission_matches_reference(name, case, kw, budget_of):
 
 
 def test_wing_and_mesh_are_named_as_not_ported():
-    """What is still not ported names its slice (the mesh: ROADMAP queue
-    1, item 6); the wing workload plans (the wing slice is ported), and
-    ``map`` names its rejection of it."""
+    """The wing workload plans (the wing slice is ported), and ``map``
+    names its rejection of it.  The mesh is ported (the distributed
+    slice): an Executor over eight CPU shards plans ``mesh_shards == 8``
+    and decomposes exactly (``tests/test_torch_distributed.py`` holds it
+    to the reference)."""
     g = _tg(GRAPH_CASES["fig1"]())
     plan = Planner(EngineConfig(workload="wing"), device=CPU).plan(g)
     assert plan.workload == "wing" and plan.m_pad >= g.m
     with pytest.raises(PlanInfeasibleError, match="wing"):
         Executor(EngineConfig(workload="wing"), device=CPU).map([g])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Executor(EngineConfig(), device=CPU, mesh=object())
+    mesh = make_mesh((4, 2), ("data", "model"), devices=[CPU] * 8)
+    jg = GRAPH_CASES["powerlaw"]()
+    ex = Executor(EngineConfig(kernel_blocks=BLOCKS), device=CPU, mesh=mesh)
+    plan = ex.plan(_tg(jg))
+    assert plan.mesh_shards == 8 and plan.representation == "dense"
+    td = ex.decompose(_tg(jg), plan=plan)
+    np.testing.assert_array_equal(td.theta, bup_oracle(jg)[0])
+    assert td.stats.fd_shards == 8 and len(td.stats.fd_shard_rho) == 8
 
 
 # --------------------------------------------------------------------- #

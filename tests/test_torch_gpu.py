@@ -1115,3 +1115,89 @@ def test_service_support_prime_on_card_equals_host_count(card, backend):
     got = tip_supports(a, backend=backend)
     np.testing.assert_array_equal(got.double().cpu().numpy(),
                                   per.sum(axis=1))
+
+
+# ---------------------------------------------------------------------- #
+# the distributed engine: every shard of a mesh on this card
+# ---------------------------------------------------------------------- #
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["auto", "kernel"])
+@pytest.mark.parametrize("backend", ["cuda", "cuda_sparse"])
+def test_mesh_fd_on_card_equals_plain(card, backend, mode):
+    """``Executor(mesh=...)`` with four shards on the card: theta equal to
+    the oracle, and theta and every FD counter equal to the same mesh
+    decompose on CPU shards (the plain versions); the stack kernels of
+    the backend launched (kernel 3 in b2 mode, kernels 2 / 5 for the
+    first level and in kernel mode), no f32 tile body."""
+    from repro_torch.api import EngineConfig, Executor
+    from repro_torch.launch.mesh import make_mesh
+
+    g = powerlaw_bipartite(300, 200, 2400, seed=3)
+    plain = {"cuda": "torch", "cuda_sparse": "torch_sparse"}[backend]
+    out = {}
+    for be, dev in ((backend, card), (plain, torch.device("cpu"))):
+        mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+        ops.reset_launch_counts()
+        td = Executor(EngineConfig(backend=be, num_partitions=6,
+                                   fd_update_mode=mode), device=dev,
+                      mesh=mesh).decompose(g)
+        out[dev.type] = td
+        if dev.type == "cuda":
+            counts = ops.launch_counts()
+    np.testing.assert_array_equal(out["cuda"].theta,
+                                  peeling.bup_oracle(g)[0])
+    np.testing.assert_array_equal(out["cuda"].theta, out["cpu"].theta)
+    for k in ("rho_fd", "wedges_fd", "fd_groups", "fd_shards",
+              "fd_shard_rho", "fd_shard_wedges", "fd_padding_waste",
+              "device_loop_calls"):
+        assert getattr(out["cuda"].stats, k) == getattr(out["cpu"].stats, k)
+    stack = ("butterfly_update_sparse_batched[peel]"
+             if backend == "cuda_sparse" else "butterfly_update_batched[peel]")
+    assert counts[stack] > 0
+    assert (counts["b2_stack[pairs]"] > 0) == (mode == "auto")
+    assert not [k for k, n in counts.items() if k.endswith("[tile]") and n]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+def test_mesh_cd_sweep_on_card_equals_plain(card, shape):
+    """The sharded count, sweep and range loop with four shards on the
+    card equal the same calls on CPU shards; on a (4, 1) mesh each
+    shard's local body is kernel 1's peel body (one launch per dp shard
+    and chunk), on (2, 2) a plain product (no kernel 1 launch)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    g = powerlaw_bipartite(256, 128, 2500, seed=2)
+    a = torch.zeros((256, 128))
+    a[g.edges_u, g.edges_v] = 1.0
+    gen = torch.Generator().manual_seed(0)
+    s = (torch.rand(256, generator=gen) < 0.6).float()
+    rows = torch.randperm(256, generator=gen)[:64].sort().values.int()
+    valid = (torch.arange(64) < 50).float()
+    res, counts = {}, {}
+    for dev in (card, torch.device("cpu")):
+        mesh = make_mesh(shape, ("data", "model"), devices=[dev] * 4)
+        ops.reset_launch_counts()
+        sup = dist.distributed_butterfly_support(mesh, a.to(dev), s.to(dev))
+        alive = torch.ones(256, dtype=torch.bool, device=dev)
+        sw = dist.distributed_cd_sweep(mesh, a.to(dev), sup, alive,
+                                       rows.to(dev), valid.to(dev), 0.0,
+                                       chunk=32)
+        hi = float(sup.float().quantile(0.4)) + 1.0
+        loop = dist.distributed_cd_fused_loop(mesh, a.to(dev), sup, alive,
+                                              hi, 0.0, peel_width=256)
+        res[dev.type] = (sup, *sw, *loop[:2], loop[2], loop[3])
+        counts[dev.type] = ops.launch_counts()
+    for x, y in zip(res["cuda"], res["cpu"]):
+        if torch.is_tensor(x):
+            assert torch.equal(x.cpu(), y)
+        else:
+            assert x == y
+    assert res["cuda"][-2] > 0 and not res["cuda"][-1]
+    peel = counts["cuda"]["butterfly_update[peel]"]
+    assert (peel > 0) == (shape[1] == 1)
+    if shape[1] == 1:
+        # count (1 chunk) + sweep (2 chunks of 32) + one per loop sweep,
+        # each on every dp shard
+        assert peel == shape[0] * (1 + 2 + res["cuda"][-2])
