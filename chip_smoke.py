@@ -125,6 +125,23 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    count, sweep (both ``impl``s) and range loop on the sorted (8192,
    8192) matrix on (4, 1) and (2, 2) meshes, ``torch.equal`` to kernel
    1's single-device forms;
+5g. the training substrate and the recsys path (``repro_torch.train``,
+   ``models.recsys``, ``configs``, ``launch.train``), after the card is
+   freed of the earlier phases' tensors (``mem_get_info`` printed): the
+   recsys example's 12 spam-injected cohorts through ``Executor.map``
+   (theta exact, kernel 2's counting form and kernel 3's b2 form
+   launched, the recall and precision lines), then both kernels
+   ``torch.equal`` to their plain versions and timed on the inputs the
+   map handed them (the (16, 256, 512) cohort stack); the two-tower
+   model at its full published widths
+   (``get_bundle("two-tower-retrieval", reduced=False)``, 16.65 M table
+   rows of 256) for 5 train steps at batch 8,192 (finite losses, step
+   ms by CUDA events, the peak within 4 x the parameter bytes + 2 GB,
+   untouched rows moved by weight decay alone within 1 ulp, one step
+   profiled); ``train_loop`` at the reduced
+   config checkpointed every 2 steps for 4 and resumed at step 4 (every
+   restored leaf ``torch.equal``); 3 reduced steps on the card within
+   rtol 1e-5 of the same steps on the CPU;
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
    on the sp_mid and sp_large graphs of the reference's benchmark ladder
@@ -170,6 +187,13 @@ TILED_ADMISSION_BLOCKS = (64, 64, 64)
 REFRESH_FRACS = (0.01, 0.02, 0.05)
 WING_REFRESH_FRAC = 0.01
 SP_MID = (4096, 4096, 24000, 14)
+# the two-tower model at its full published widths: the batch is cut from
+# the published train_batch of 65,536 (configs/shapes.py), whose (B, B)
+# in-batch logits and their gradient would take 34 GB beside 68 GB of
+# params, moments and gradients; RECSYS_DECAY_ROWS untouched rows of each
+# table are held to the weight decay after step 1
+RECSYS_BATCH = 8192
+RECSYS_DECAY_ROWS = 4096
 
 
 def log(*args):
@@ -495,6 +519,32 @@ def stack_launches(torch, bfly, bsp, shapes):
         for (mod, fname), fn in zip(originals, saved):
             setattr(mod, fname, fn)
     return restore
+
+
+def first_calls(torch, targets):
+    """Wrap each (module, function name) of ``targets`` so that its first
+    call keeps clones of its tensor arguments and its keyword arguments,
+    under the function's name, in the returned dict (the wrapped function
+    still counts its own launch).  Returns (the dict, a function that puts
+    the originals back)."""
+    seen = {}
+    saved = [getattr(mod, fname) for mod, fname in targets]
+
+    def wrap(fn, fname):
+        def call(*args, **kwargs):
+            if fname not in seen:
+                seen[fname] = ([a.detach().clone() if torch.is_tensor(a)
+                                else a for a in args], dict(kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for (mod, fname), fn in zip(targets, saved):
+        setattr(mod, fname, wrap(fn, fname))
+
+    def restore():
+        for (mod, fname), fn in zip(targets, saved):
+            setattr(mod, fname, fn)
+    return seen, restore
 
 
 def where_the_time_goes(torch, run, top: int = 8):
@@ -1705,6 +1755,268 @@ def mesh_phase(torch, np, dev, g_full, want, launches, full_stats,
     del dg, a, sup0
 
 
+def recsys_phase(torch, np, dev, launches, ops, bfly, bsp, measure):
+    """Phase 5g: the training substrate and the recsys path on the card.
+
+    1. tip filtering: the recsys example's 12 cohorts (200 x 150, 8 spam
+       users on 12 items each) through ``Executor.map`` on the card, every
+       member's theta equal to ``exact_theta``, the map's kernels
+       launched (the counting form of kernel 2, kernel 3's b2 form), the
+       example's recall and precision lines; then each of the two kernels
+       held ``torch.equal`` to its plain version and timed (``measure``)
+       on the very inputs the map handed it (its first call's arguments,
+       cloned during the run);
+    2. full width: ``get_bundle("two-tower-retrieval", reduced=False)``
+       (the published widths: 16,652,048 table rows of 256 floats) on the
+       card, 5 train steps at batch RECSYS_BATCH from ``recsys_batch``
+       seeds 0-4: finite losses, each step's ms (CUDA events), the peak
+       against 4 x the parameter bytes (at most 4 P + 2 GB above what was
+       resident), and after step 1 RECSYS_DECAY_ROWS sampled untouched
+       rows of every table moved by weight decay alone (1 ulp);
+    3. checkpoint and restart at the reduced config: ``train_loop`` with a
+       checkpoint every 2 steps for 4 steps, then resumed (start step 4),
+       every restored leaf ``torch.equal`` to the saved one;
+    4. card against CPU: 3 reduced steps of ``make_train_step`` on the
+       card and on the CPU from the same params and batches, within the
+       CPU tests' tolerance (rtol 1e-5, atol 1e-7; TF32 is off).
+    """
+    import copy
+    import importlib.util
+    import tempfile
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.train.tree import keystr, leaves_with_paths
+
+    arch = "two-tower-retrieval"
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"recsys: mem_get_info free {free} of {total} bytes, "
+        f"memory_allocated {torch.cuda.memory_allocated()} bytes")
+
+    # ---- 1. tip filtering of the cohort fleet ----
+    root = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "recsys_tip_filtering_torch",
+        root / "examples" / "recsys_tip_filtering_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cohorts, spam_sets = example.build_fleet(12)
+    want = [exact_theta(g)[0] for g in cohorts]
+    seen, restore = first_calls(torch, [(bfly, "butterfly_update_batched"),
+                                        (bsp, "b2_stack")])
+    tds, wall, peak, _ = counted(
+        torch, ops, launches, "recsys_map",
+        lambda: example.decompose_fleet(cohorts, device=dev))
+    restore()
+    bad = [k for k, (td, w) in enumerate(zip(tds, want))
+           if not np.array_equal(td.theta, w)]
+    if bad:
+        raise AssertionError(f"recsys_map: theta differs from the exact "
+                             f"oracle on cohorts {bad}")
+    ran = {k: v for k, v in launches["recsys_map"].items() if v}
+    idle = [k for k in ("butterfly_update_batched[peel]", "b2_stack[pairs]")
+            if not ran.get(k)]
+    if idle:
+        raise AssertionError(f"recsys_map: {idle} never launched ({ran})")
+    tp, flagged, spam = example.flag_spam(tds, spam_sets)
+    log(f"recsys_map: 12 cohorts, theta == exact oracle | wall {wall:.3f} s "
+        f"| max_memory_allocated {peak} | launches {ran} | recall "
+        f"{tp / spam:.3f} precision {tp / max(flagged, 1):.3f}")
+    # kernel 2's counting form at the cohort chunk's own stack (A = B, the
+    # members' rows alive, the padding groups' none); bound: the pairs of
+    # each group's rows the counting form needs (count_pair_ops, per
+    # group) or the stack read once, s and out, the ids
+    (a, b, s_, ids_a, ids_b), _ = seen["butterfly_update_batched"]
+    if not (torch.equal(a, b) and torch.equal(ids_a, ids_b)):
+        raise AssertionError("recsys_map: the counting call's A != B")
+    ops_c = sum(count_pair_ops(torch, a[k], s_[k])
+                for k in range(a.shape[0]))
+    log(f"recsys_map counting form: stack {tuple(a.shape)}, "
+        f"{int((s_ != 0).sum())} live rows, {int(a.sum().item())} "
+        f"nonzeros, {ops_c:.4g} operations")
+    measure("butterfly_update_batched[recsys_count]",
+            lambda: bfly.butterfly_update_batched(a, b, s_, ids_a, ids_b),
+            lambda: bfly.butterfly_update_batched_plain(a, b, s_, ids_a,
+                                                        ids_b),
+            lambda: torch.bmm(a, a.transpose(1, 2)), ops_c,
+            4.0 * (a.numel() + 2 * s_.numel() + ids_a.numel()), reps=10)
+    # kernel 3's b2 form on the same stack and the extents ops.b2_stack
+    # derived from it; bound: the distinct nonzero row pairs (b2_pair_ops)
+    # or the stack read once and the (G, m, m) output written once
+    (a2, ka, kb), kw = seen["b2_stack"]
+    if not torch.equal(a2, a):
+        raise AssertionError("recsys_map: b2_stack saw another stack than "
+                             "the counting call")
+    g_n, m_n = a2.shape[:2]
+    measure("b2_stack[recsys_b2]",
+            lambda: bsp.b2_stack(a2, ka, kb, **kw),
+            lambda: bsp.b2_stack_plain(a2, ka, kb, **kw),
+            lambda: torch.bmm(a2, a2.transpose(1, 2)),
+            b2_pair_ops(torch, a2, ka, kb, kw["blocks"]),
+            4.0 * (a2.numel() + g_n * m_n * m_n + ka.numel() + kb.numel()),
+            reps=10)
+    del seen, a, b, s_, ids_a, ids_b, a2, ka, kb
+
+    # ---- 2. the full published widths, 5 steps ----
+    bundle = get_bundle(arch, reduced=False)
+    cfg = bundle.cfg
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0))
+    state = init_train_state(params, bundle.opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    rows = sum(t.shape[0] for t in (*params.user_tables,
+                                    *params.item_tables))
+    log(f"recsys full: {rows} table rows x {cfg.embed_dim}, parameter "
+        f"bytes P = {p_bytes}, params + AdamW state on the card in "
+        f"{init_s:.2f} s")
+    step = bundle._steps["train"]
+    tables = (*params.user_tables, *params.item_tables)
+    rng = np.random.default_rng(0)
+    ms, losses = [], []
+    for s in range(5):
+        batch = recsys_batch(cfg, RECSYS_BATCH, seed=s, device=dev)
+        if s == 0:
+            # sampled rows the batch does not touch, per table
+            ids = ([batch["user_ids"][:, i]
+                    for i in range(len(cfg.user_fields))]
+                   + [batch["item_ids"][:, i]
+                      for i in range(len(cfg.item_fields))])
+            picks = []
+            for t, used in zip(tables, ids):
+                touched = np.unique(used.cpu().numpy())
+                cand = np.setdiff1d(rng.integers(
+                    0, t.shape[0], 4 * RECSYS_DECAY_ROWS), touched)
+                if cand.size < RECSYS_DECAY_ROWS:
+                    cand = np.setdiff1d(np.arange(t.shape[0]), touched)
+                # a 1,024-row table is every row touched at this batch
+                pick = torch.from_numpy(rng.choice(
+                    cand, min(RECSYS_DECAY_ROWS, cand.size),
+                    replace=False)).to(dev)
+                picks.append((pick, t.detach()[pick].clone()))
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"recsys full: step {s + 1} loss {loss}")
+        losses.append(loss)
+        ms.append(start.elapsed_time(stop))
+        if s == 0:
+            lr, wd = float(metrics["lr"]), bundle.opt_cfg.weight_decay
+            moved = n = 0
+            for (pick, old), t in zip(picks, tables):
+                new = t.detach()[pick]
+                want_p = old.double() * (1.0 - lr * wd)
+                ulp = (torch.nextafter(new.abs(),
+                                       torch.full_like(new, float("inf")))
+                       - new.abs()).double()
+                off = (new.double() - want_p).abs()
+                if not bool((off <= ulp).all()):
+                    raise AssertionError(
+                        f"recsys full: an untouched row moved by more than "
+                        f"weight decay (max {float((off / ulp).max()):.3f} "
+                        "ulp)")
+                moved += int((new != old).sum())
+                n += new.numel()
+            if moved <= n // 2:
+                raise AssertionError(f"recsys full: weight decay moved only "
+                                     f"{moved} of {n} untouched values")
+            log(f"recsys full: after step 1, the sampled untouched rows "
+                f"per table ({[int(p_.numel()) for p_, _ in picks]} of "
+                f"{[t.shape[0] for t in tables]}) == p (1 - lr wd) within "
+                f"1 ulp (lr {lr:.6e}, wd {wd}); {moved} of {n} values "
+                "moved")
+        del batch, metrics
+    peak = torch.cuda.max_memory_allocated()
+    limit = 4 * p_bytes + 2e9
+    log(f"recsys full: batch {RECSYS_BATCH}, losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + " | step ms " + ", ".join(f"{x:.3f}" for x in ms)
+        + f" (steps 2-5 mean {sum(ms[1:]) / 4:.3f})")
+    log(f"recsys full: max_memory_allocated {peak} bytes ({peak - resident} "
+        f"above the {resident} resident) | 4 x P = {4 * p_bytes} | limit "
+        f"4 P + 2 GB = {int(limit)}")
+    if peak - resident > limit:
+        raise AssertionError(f"recsys full: peak {peak - resident} above "
+                             f"4 P + 2 GB = {limit}")
+    # the update's bytes: p, g, m, v read and p, m, v written, plus the
+    # gradients' memset and the norm's read (HBM bound per step)
+    log(f"recsys full: HBM bound of a step's update, memset and norm "
+        f"(9 P over {HBM_BYTES_PER_S / 1e12} TB/s): "
+        f"{9 * p_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    batch = recsys_batch(cfg, RECSYS_BATCH, seed=5, device=dev)
+    where_the_time_goes(torch, lambda: step(state, batch), top=10)
+    del state, params, tables, picks, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 3. checkpoint and restart at the reduced config ----
+    with tempfile.TemporaryDirectory() as d:
+        first = train_loop(arch=arch, steps=4, batch_size=64, ckpt_dir=d,
+                           save_every=2, device=dev, log_every=0)
+        again = train_loop(arch=arch, steps=2, batch_size=64, ckpt_dir=d,
+                           save_every=2, device=dev, log_every=0)
+        if again["start_step"] != 4:
+            raise AssertionError(f"recsys restart: start step "
+                                 f"{again['start_step']}, not 4")
+        small = get_bundle(arch, reduced=True)
+        back = CheckpointManager(d).restore(small.state_abstract(), step=4,
+                                            device=dev)
+        saved = leaves_with_paths(first["state"])
+        got = leaves_with_paths(back)
+        if [keystr(p_) for p_, _ in saved] != [keystr(p_) for p_, _ in got]:
+            raise AssertionError("recsys restart: restored paths differ")
+        diff = [keystr(p_) for (p_, a), (_, b) in zip(saved, got)
+                if not (b.device.type == dev.type and torch.equal(a, b))]
+        if diff:
+            raise AssertionError(f"recsys restart: leaves differ: {diff}")
+    log(f"recsys restart: 4 steps saved every 2, resumed at step 4; "
+        f"{len(got)} restored leaves torch.equal to the saved ones; losses "
+        + ", ".join(f"{x:.6f}" for x in first["losses"] + again["losses"]))
+
+    # ---- 4. the card's reduced steps against the CPU's ----
+    small = get_bundle(arch, reduced=True)
+    cpu = small.init_params(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    s_cpu = init_train_state(cpu, small.opt_cfg)
+    s_dev = init_train_state(card, small.opt_cfg)
+    step = small._steps["train"]
+    worst = 0.0
+    for s in range(3):
+        s_cpu, m_cpu = step(s_cpu, recsys_batch(small.cfg, 64, seed=s,
+                                                device="cpu"))
+        s_dev, m_dev = step(s_dev, recsys_batch(small.cfg, 64, seed=s,
+                                                device=dev))
+        a_, b_ = float(m_cpu["loss"]), float(m_dev["loss"])
+        if abs(a_ - b_) > 1e-5 * abs(a_):
+            raise AssertionError(f"recsys card vs CPU: step {s + 1} loss "
+                                 f"{b_} against {a_}")
+    for (n_, a), (_, b) in zip(cpu.named_parameters(),
+                               card.named_parameters()):
+        a, b = a.detach().double(), b.detach().cpu().double()
+        if not bool(((a - b).abs() <= 1e-7 + 1e-5 * a.abs()).all()):
+            raise AssertionError(f"recsys card vs CPU: {n_} differs")
+        worst = max(worst, float(((a - b).abs() / (a.abs() + 1e-30)).max()))
+    log(f"recsys card vs CPU: 3 reduced steps, losses within rtol 1e-5, "
+        f"params within rtol 1e-5 / atol 1e-7 (largest relative difference "
+        f"{worst:.3e})")
+
+
 def sparse_edge_supports(np, a, eu, ev):
     """Closed-form edge supports of a card matrix at the slots, from a
     scipy sparse int64 product on the host (the slots' absent cells 0)."""
@@ -2494,6 +2806,11 @@ def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
                full_walls, paths, EngineConfig, Executor, DeviceGraph, ops)
     log(f"mesh: phase 5f in {time.perf_counter() - t0:.1f} s")
 
+    # ---- 5g. the training substrate and the recsys path --------------- #
+    t0 = time.perf_counter()
+    recsys_phase(torch, np, dev, launches, ops, bfly, bsp, measure)
+    log(f"recsys: phase 5g in {time.perf_counter() - t0:.1f} s")
+
     # ---- 6. crossover: staircase + graph against tiled ---------------- #
     # the full-size graph's walls are phase 5's timed runs: the kernels and
     # the allocator are warm by then (phases 3-4), and a second run there
@@ -2554,6 +2871,13 @@ def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
          "src/repro_torch/kernels/csrc/b2_stack.cu",
          "src/repro/kernels/butterfly_sparse.py:420"),
         ("b2_stack[pairs]", "b2_stack[map_b2]",
+         "src/repro_torch/kernels/csrc/b2_stack.cu",
+         "src/repro/kernels/butterfly_sparse.py:420"),
+        ("butterfly_update_batched[peel]",
+         "butterfly_update_batched[recsys_count]",
+         "src/repro_torch/kernels/csrc/butterfly_sparse.cu",
+         "src/repro/kernels/butterfly.py:225"),
+        ("b2_stack[pairs]", "b2_stack[recsys_b2]",
          "src/repro_torch/kernels/csrc/b2_stack.cu",
          "src/repro/kernels/butterfly_sparse.py:420"),
         ("butterfly_update_sparse[count]", "butterfly_update_sparse[count]",

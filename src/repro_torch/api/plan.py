@@ -72,6 +72,7 @@ import torch
 
 from ..core.engine.peel_loop import ReceiptConfig, bucket, cd_gather_width
 from ..core.graph import BipartiteGraph
+from ..core.scheduler import lpt_shard_plan
 from ..kernels import butterfly as kbfly
 from ..kernels import butterfly_tiled as ktiled
 from ..kernels import ops as kops
@@ -149,6 +150,26 @@ def _fd_group_bytes(n_g: int, mm: int, cc: int, w1: int,
         update = (_F32_BYTES * n_up * mm * cc
                   + kbfly.peel_scratch_bytes(mm, cc, n_up))
     return stacks + update + _ROW_STATE_BYTES * n_g * (mm + cc)
+
+
+def _mesh_fd_slots(group_weights: List[List[float]],
+                   n_shards: int) -> List[int]:
+    """Slots per shard of each FD shape group on a mesh of ``n_shards``:
+    the engine's own layout (``scheduler.lpt_shard_plan``) of each group's
+    task weights, in the engine's group order, with the shard loads
+    carried across groups as ``fd._run_level_groups_mesh`` carries them.
+    LPT can give one shard more than ``ceil(n_g / n_shards)`` tasks: a
+    heavy task (or a load carried from an earlier group) leaves the light
+    ones to fewer shards."""
+    loads = np.zeros(n_shards, np.float64)
+    out = []
+    for weights in group_weights:
+        slots, per_shard = lpt_shard_plan(weights, n_shards, list(loads))
+        lay = np.asarray(slots).reshape(n_shards, per_shard)
+        w = np.asarray(weights, np.float64)
+        loads = loads + np.where(lay >= 0, w[np.maximum(lay, 0)], 0.0).sum(1)
+        out.append(per_shard)
+    return out
 
 
 def _tiled_bytes(n_tiles: int, br: int, bc: int, n_rt: int, n_ct: int,
@@ -669,11 +690,12 @@ class Planner:
         ``_estimate_fd_groups``, each stacked at its own rows and the
         columns its members touch (as ``fd.build_fd_tasks`` induces them),
         grouped by padded shape; the two largest groups are on the card at
-        once (the double-buffered dispatch).  On a ``mesh`` a group of
-        ``n_g`` subsets becomes ``mesh.size`` shards of
-        ``ceil(n_g / mesh.size)`` slots (the LPT layout), the fullest
-        device holds the slots of its shards, and its level loops update
-        one shard's slots at a time."""
+        once (the double-buffered dispatch).  On a ``mesh`` a group becomes
+        ``mesh.size`` shards of the slots the engine's LPT layout gives it
+        (``_mesh_fd_slots``: the subsets' wedge masses, groups in the
+        engine's order, loads carried across groups), the fullest device
+        holds the slots of its shards, and its level loops update one
+        shard's slots at a time."""
         from ..core.engine.fd import _aligns, _level_pad
 
         row_align, col_align, w_align = _aligns(cfg)
@@ -693,13 +715,19 @@ class Planner:
         cells = np.unique(subset_of[g.edges_u] * max(g.n_v, 1)
                           + g.edges_v)
         n_cols = np.bincount(cells // max(g.n_v, 1), minlength=sizes.size)
-        shapes: Dict[Tuple[int, int], int] = {}
-        for size, cols in zip(sizes, n_cols):
+        wedges = np.bincount(subset_of, weights=w, minlength=sizes.size)
+        shapes: Dict[Tuple[int, int], List[float]] = {}
+        for size, cols, wsub in zip(sizes, n_cols, wedges):
             key = (_level_pad(int(size), row_align),
                    _level_pad(max(int(cols), 1), col_align))
-            shapes[key] = shapes.get(key, 0) + 1
+            shapes.setdefault(key, []).append(float(wsub))
+        # the engine's group order (``pack_by_shape``: largest area first)
+        keys = sorted(shapes, key=lambda k: -(k[0] * k[1]))
+        if mesh is not None:
+            slots = _mesh_fd_slots([shapes[k] for k in keys], mesh.size)
         per_group = []
-        for (mm, cc), n_g in shapes.items():
+        for i, (mm, cc) in enumerate(keys):
+            n_g = len(shapes[(mm, cc)])
             b2_mode = (cfg.fd_update_mode == "b2"
                        or (cfg.fd_update_mode == "auto"
                            and n_g * mm * mm <= cfg.fd_b2_cells))
@@ -707,7 +735,7 @@ class Planner:
                 per_group.append(_fd_group_bytes(n_g, mm, cc, w_align,
                                                  b2_mode))
                 continue
-            per_shard = -(-n_g // mesh.size)
+            per_shard = slots[i]
             on_card = max(mesh.shards_per_device().values()) * per_shard
             per_group.append(_fd_group_bytes(on_card, mm, cc, w_align,
                                              b2_mode, n_update=per_shard))

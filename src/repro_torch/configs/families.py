@@ -1,0 +1,136 @@
+"""Family adapters: one Bundle per arch (port of
+``repro.configs.families``, the surface training needs).
+
+A Bundle wires a model config to what the launcher, the smoke run and
+the tests need:
+
+    bundle.abstract_params()             param module on the meta device
+    bundle.init_params(generator)        real params on the generator's device
+    bundle.state_abstract()              train state incl. optimizer, meta
+    bundle.step_for(shape)               ("train"|"serve"|"retrieval", fn)
+    bundle.input_specs(shape)            dict[str, ShapeDtype]
+
+Shapes are the assigned public shape sets (``configs/shapes.py``); steps
+are functions of (state|params, batch).  The sharding methods of the
+reference's Bundle (``param_shardings``, ``input_shardings``,
+``state_shardings``) wait for the port's sharding rules (ROADMAP.md,
+queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..models import recsys as rec_lib
+from ..train.optimizer import AdamWConfig
+from ..train.train_step import init_train_state, make_train_step
+from . import shapes as shp
+
+__all__ = ["ShapeDtype", "Bundle", "make_recsys_bundle"]
+
+_META = torch.device("meta")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """The port's ``jax.ShapeDtypeStruct``: an input's shape and dtype."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass
+class Bundle:
+    arch_id: str
+    family: str
+    cfg: Any
+    shapes: Dict[str, Any]
+    opt_cfg: AdamWConfig
+    _init_fn: Callable                          # (generator, device) -> params
+    _steps: Dict[str, Callable]                 # step kind -> fn
+    _specs_fn: Callable                         # (shape) -> (kind, specs)
+    _loss_fn: Optional[Callable] = None         # (params, batch) -> (loss, metrics)
+
+    # ---------------- params ---------------- #
+    def abstract_params(self):
+        return self._init_fn(None, _META)
+
+    def init_params(self, generator: torch.Generator):
+        return self._init_fn(generator, None)
+
+    # ---------------- train state ------------ #
+    def state_abstract(self):
+        return init_train_state(self.abstract_params(), self.opt_cfg)
+
+    # ---------------- steps ------------------ #
+    def step_for(self, shape_name: str) -> Tuple[str, Callable]:
+        kind, _ = self._specs_fn(shape_name)
+        return kind, self._steps[kind]
+
+    def input_specs(self, shape_name: str) -> Dict[str, ShapeDtype]:
+        _, specs = self._specs_fn(shape_name)
+        return specs
+
+
+# ===================================================================== #
+# recsys family
+# ===================================================================== #
+def _rec_specs(cfg: rec_lib.TwoTowerConfig, shapes, shape_name):
+    s = shapes[shape_name]
+    i32, f32 = torch.int32, torch.float32
+    fu, fi = len(cfg.user_fields), len(cfg.item_fields)
+    w = cfg.values_per_field
+    if s.kind == "train":
+        return "train", {
+            "user_ids": ShapeDtype((s.batch, fu, w), i32),
+            "item_ids": ShapeDtype((s.batch, fi, w), i32),
+            "item_logq": ShapeDtype((s.batch,), f32),
+        }
+    if s.kind == "serve":
+        return "serve", {
+            "user_ids": ShapeDtype((s.batch, fu, w), i32),
+            "item_ids": ShapeDtype((s.batch, fi, w), i32),
+        }
+    # retrieval: one query batch vs n_candidates
+    return "retrieval", {
+        "user_ids": ShapeDtype((s.batch, fu, w), i32),
+        "cand_emb": ShapeDtype((s.n_candidates, cfg.tower_mlp[-1]), f32),
+    }
+
+
+def make_recsys_bundle(arch_id: str, cfg: rec_lib.TwoTowerConfig,
+                       opt_cfg: Optional[AdamWConfig] = None) -> Bundle:
+    opt_cfg = opt_cfg or AdamWConfig()
+    shapes = shp.RECSYS_SHAPES
+
+    def loss(p, b):
+        return rec_lib.sampled_softmax_loss(p, b, cfg), {}
+
+    @torch.no_grad()
+    def serve(params, batch):
+        u, v = rec_lib.two_tower_embeddings(params, batch, cfg)
+        return torch.sum(u * v, dim=-1)
+
+    @torch.no_grad()
+    def retrieval(params, batch):
+        return rec_lib.retrieval_scores(
+            params, batch["user_ids"], batch["cand_emb"], cfg)
+
+    return Bundle(
+        arch_id=arch_id,
+        family="recsys",
+        cfg=cfg,
+        shapes=shapes,
+        opt_cfg=opt_cfg,
+        _loss_fn=loss,
+        _init_fn=lambda gen, device: rec_lib.init_two_tower(
+            gen, cfg, device=device),
+        _steps={
+            "train": make_train_step(loss, opt_cfg),
+            "serve": serve,
+            "retrieval": retrieval,
+        },
+        _specs_fn=lambda sn: _rec_specs(cfg, shapes, sn),
+    )

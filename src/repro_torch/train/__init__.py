@@ -1,2 +1,4 @@
-"""Runtime pieces the port shares with training-style fleets: restart
-bookkeeping and the straggler monitor (``fault_tolerance``)."""
+"""The training substrate: AdamW (``optimizer``), the train-step factory
+(``train_step``), checkpoints (``checkpoint``), restart bookkeeping, the
+elastic mesh and the straggler monitor (``fault_tolerance``), and the
+tree helpers they share (``tree``)."""

@@ -1,38 +1,45 @@
-"""Restart bookkeeping and straggler detection (copies of
-``RestartManager``, ``TaskTiming`` and ``StragglerMonitor`` from
-``repro.train.fault_tolerance``, whose module imports jax).
+"""Fault tolerance and elasticity runtime (port of
+``repro.train.fault_tolerance``).
 
-``RestartManager`` keeps the failure count and a bounded failure log
-(the service's background flush worker restarts through it);
-``StragglerMonitor`` keeps a per-task timing EWMA; tasks slower than
-``threshold x`` the median are flagged (``Executor.map`` feeds it one wall
-clock per chunk and marks the members of flagged chunks).
-``ElasticMesh`` (model training over a shrinking mesh) waits for the model
-substrate (ROADMAP.md, queue 1).
+* ``RestartManager`` — run-level restart policy over a
+  ``CheckpointManager``: checkpoint cadence (``maybe_save``), resume from
+  the newest complete step (``resume_or_init``), and the failure count
+  against ``max_failures`` with a bounded failure log.  ``ckpt`` is
+  optional: the service's background flush worker restarts through a
+  manager without one.
+* ``ElasticMesh`` — the largest ``("data", "model")`` mesh
+  (``launch.mesh.DeviceMesh``) over the devices still healthy: the model
+  axis is kept and dp shrinks, as in the reference.  A device's id is its
+  position in the list.
+* ``StragglerMonitor`` — a per-task timing EWMA; tasks slower than
+  ``threshold x`` the median are flagged (``Executor.map`` feeds it one
+  wall clock per chunk and marks the members of flagged chunks;
+  ``launch.train.train_loop`` one per step).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["RestartManager", "TaskTiming", "StragglerMonitor"]
+__all__ = ["RestartManager", "ElasticMesh", "TaskTiming",
+           "StragglerMonitor"]
 
 
 @dataclasses.dataclass
 class RestartManager:
-    """Failure bookkeeping of a restartable run: a failure count against
-    ``max_failures`` and a bounded failure log.
-
-    ``ckpt`` is the checkpoint manager of a training run; the service
-    passes ``None``.  The reference's ``maybe_save`` and
-    ``resume_or_init`` (and ``save_every``, their cadence) arrive with
-    the port's ``train/checkpoint.py``.
+    """Restart policy of a run: checkpoints every ``save_every`` steps
+    through ``ckpt`` (a ``CheckpointManager``; the service passes
+    ``None`` and uses the failure bookkeeping only), resume from the
+    newest one, and a failure count against ``max_failures`` with a
+    bounded failure log.
     """
 
     ckpt: Optional[Any] = None
+    save_every: int = 100
     max_failures: int = 10
     # failure log bound: the newest entries win (a restart storm must not
     # grow host memory without bound)
@@ -41,6 +48,22 @@ class RestartManager:
     failures: int = 0
     failure_log: List[Dict[str, Any]] = dataclasses.field(
         default_factory=list)
+
+    def maybe_save(self, step: int, state: Any, *, blocking: bool = False):
+        if step % self.save_every == 0 and step > 0:
+            self.ckpt.save(step, state, blocking=blocking)
+
+    def resume_or_init(self, template: Any, device=None,
+                       init_fn: Optional[Callable] = None):
+        """Returns (state, start_step): the newest checkpoint restored into
+        ``template``'s structure on ``device`` (None: the card), or
+        ``init_fn()`` (``template`` without one) and 0."""
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            state = init_fn() if init_fn is not None else template
+            return state, 0
+        state = self.ckpt.restore(template, step=latest, device=device)
+        return state, latest
 
     def record_failure(self, exc: BaseException) -> bool:
         """Returns True if the run should restart, False to abort.
@@ -63,6 +86,44 @@ class RestartManager:
         """The bounded failure log, oldest first (copies — safe to
         mutate)."""
         return [dict(e) for e in self.failure_log]
+
+
+class ElasticMesh:
+    """Mesh factory over a mutable healthy-device set."""
+
+    def __init__(self, devices: Optional[Sequence] = None,
+                 model_axis: int = 16):
+        if devices is None:
+            n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if n == 0:
+                raise RuntimeError("no CUDA device: pass devices=[...]")
+            devices = [torch.device("cuda", i) for i in range(n)]
+        self.devices = list(devices)
+        self.failed: set = set()
+        self.model_axis = model_axis
+
+    def mark_failed(self, device_ids: Sequence[int]):
+        self.failed.update(device_ids)
+
+    def healthy(self) -> List:
+        return [d for i, d in enumerate(self.devices) if i not in self.failed]
+
+    def make_mesh(self):
+        """Largest (dp, model) mesh from healthy devices.
+
+        model axis stays at min(model_axis, n) and dp shrinks — losing a
+        pod halves dp, preserving TP groups (which must stay intact for
+        param shardings to remain valid shapes).
+        """
+        from ..launch.mesh import make_mesh
+
+        devs = self.healthy()
+        model = min(self.model_axis, len(devs))
+        while model > 1 and len(devs) % model:
+            model //= 2
+        dp = len(devs) // model
+        return make_mesh((dp, model), ("data", "model"),
+                         devices=devs[: dp * model])
 
 
 @dataclasses.dataclass

@@ -603,3 +603,29 @@ def test_mesh_plans_dense_and_counts_its_shards():
                                 devices=[torch.device("cpu", i)
                                          for i in range(8)]))
     assert 0 < spread < on_one_card and one > 0
+
+
+@pytest.mark.parametrize("groups", [
+    [[100.0, 1, 1, 1, 1, 1, 1, 1]],     # one heavy task: 3 slots, not 2
+    [[100.0], [1, 1, 1, 1]],            # loads [100, 0, 0, 0] carried in
+])
+def test_mesh_plan_counts_the_engines_lpt_slots(groups):
+    """The mesh plan's FD slots per shard are the engine's LPT layout
+    (``lpt_shard_plan``, loads carried across groups as
+    ``fd._run_level_groups_mesh`` carries them), not
+    ``ceil(n_g / shards)``, which is smaller on these uneven layouts."""
+    from repro_torch.api.plan import _mesh_fd_slots
+
+    n_shards = 4
+    got = _mesh_fd_slots(groups, n_shards)
+    loads = [0.0] * n_shards
+    for weights, slots in zip(groups, got):
+        lay, per_shard = lpt_shard_plan(weights, n_shards, loads)
+        assert slots >= per_shard
+        for s in range(n_shards):
+            loads[s] += sum(weights[t] for t in
+                            lay[s * per_shard:(s + 1) * per_shard] if t >= 0)
+    old = -(-len(groups[-1]) // n_shards)
+    assert old < got[-1] == lpt_shard_plan(
+        groups[-1], n_shards,
+        [100.0, 0, 0, 0] if len(groups) > 1 else None)[1]

@@ -91,7 +91,10 @@ def _reference(svc, name, workload="tip"):
 # --------------------------------------------------------------------- #
 def test_background_refresh_matches_synchronous_drain():
     """The port's worker drains the traffic the reference drains inline:
-    the same numbers and refresh stats."""
+    the same numbers and refresh stats.  The worker is stopped while the
+    round's inserts and deletes are queued, so that it drains them in one
+    cycle, as the reference's inline flush does (a worker running
+    between the two calls refreshes twice, 3 dirty edges each)."""
     g = interaction_graph(60, 40, 400, seed=3)
     rng = np.random.default_rng(3)
     tw = Twin()
@@ -101,12 +104,41 @@ def test_background_refresh_matches_synchronous_drain():
         svc.ingest("d", _tg(g))
         assert_same_result(tw.j.query("d"),
                            svc.query("d", wait=True, timeout=60))
+        assert svc.stop_worker(drain=True)
         ins, dels = _mutate(svc, "d", rng)
+        svc.start_worker()
         tw.j.insert_edges("d", ins[:, 0], ins[:, 1])
         tw.j.delete_edges("d", dels[:, 0], dels[:, 1])
         assert svc.wait_until_idle(timeout=60)
         assert svc._datasets["d"].fresh
         assert_same_result(tw.j.query("d"), svc.query("d"))
+    finally:
+        svc.close()
+
+
+def test_background_refresh_under_racing_mutations():
+    """The inserts and deletes land while the worker runs (it may refresh
+    between them): once idle, the dataset is fresh and its numbers equal
+    the reference's inline drain of the same round and its from-scratch
+    decomposition (the refresh stats depend on the race, so only the
+    numbers are compared, as in the reference's own test)."""
+    g = interaction_graph(60, 40, 400, seed=3)
+    rng = np.random.default_rng(3)
+    tw = Twin()
+    svc = _bg()
+    try:
+        tw.ingest("d", g)
+        svc.ingest("d", _tg(g))
+        assert svc.query("d", wait=True, timeout=60) is not None
+        ins, dels = _mutate(svc, "d", rng)
+        tw.j.insert_edges("d", ins[:, 0], ins[:, 1])
+        tw.j.delete_edges("d", dels[:, 0], dels[:, 1])
+        assert svc.wait_until_idle(timeout=60)
+        assert svc._datasets["d"].fresh
+        got = np.asarray(svc.query("d").numbers)
+        np.testing.assert_array_equal(
+            got, np.asarray(tw.j.query("d").numbers))
+        np.testing.assert_array_equal(got, _reference(svc, "d").numbers)
     finally:
         svc.close()
 
