@@ -142,6 +142,22 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    config checkpointed every 2 steps for 4 and resumed at step 4 (every
    restored leaf ``torch.equal``); 3 reduced steps on the card within
    rtol 1e-5 of the same steps on the CPU;
+5h. the language-model serving path (``repro_torch.models`` attention,
+   MoE and transformer, ``configs`` for the five LM archs,
+   ``launch.serve_lm``), no hand kernel on it (every count stays 0):
+   minitron-8b at its full published widths served by ``BatchedServer``
+   (4 prompts of 8 tokens, 16 generated: finite logits, tokens in range,
+   decode ms per step by CUDA events against the HBM bound of the bytes
+   a step reads and writes (every weight but the embedding table's
+   unread rows, the cache, the logits), the idle
+   share under the profiler, the peak against P + cache), its prefill at
+   (4, 2048) tokens timed, layer 0's flash attention against naive
+   attention and the decode loop against ``lm_hidden`` + ``lm_logits``
+   over 64 positions (bf16, relative L2 <= 5e-2); deepseek-v2-236b at
+   full widths cut to 3 layers served the same way, its no-drop MoE
+   decode against a per-token expert loop and ``mla_decode`` against
+   ``mla_forward``; the five reduced archs on the card against the CPU
+   (f32, 1e-4); ``serve_lm.main`` for each arch (phase ``lm_phase``);
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
    on the sp_mid and sp_large graphs of the reference's benchmark ladder
@@ -194,6 +210,26 @@ SP_MID = (4096, 4096, 24000, 14)
 # table are held to the weight decay after step 1
 RECSYS_BATCH = 8192
 RECSYS_DECAY_ROWS = 4096
+# the LM serving path (phase 5h): 4 slots, prompts of 8 tokens, 16
+# generated; prefill at (4, 2048) tokens (4 q blocks x 2 kv blocks of the
+# config's 512 / 1024); decode-vs-prefill over 64 positions; MLA
+# decode-vs-forward over 16.  Every bf16 comparison (prefill vs decode,
+# flash vs naive, the MoE decode vs a per-token expert loop, MLA decode vs
+# forward) is held to a relative L2 error of at most LM_BF16_REL_L2; the
+# card against the CPU at the reduced configs (f32, TF32 off) to rtol /
+# atol LM_F32_TOL
+LM_SLOTS, LM_PROMPT, LM_GEN = 4, 8, 16
+LM_PROFILE_STEPS = 4
+LM_PREFILL = (4, 2048)
+LM_DECODE_CHECK = 64
+LM_MLA_CHECK = 16
+LM_BF16_REL_L2 = 5e-2
+LM_F32_TOL = 1e-4
+# deepseek-v2-236b at its published widths, its depth cut to 3 layers (1
+# dense + 2 MoE: 9,330,795,840 parameters, 18.66 GB in bf16)
+LM_V2_LAYERS = 3
+# device memory a decode or prefill may hold above its params and cache
+LM_ACT_SLACK = 2e9
 
 
 def log(*args):
@@ -2017,6 +2053,356 @@ def recsys_phase(torch, np, dev, launches, ops, bfly, bsp, measure):
         f"{worst:.3e})")
 
 
+def rel_l2(torch, got, want) -> float:
+    """||got - want|| / ||want|| in float64."""
+    g, w = got.double(), want.double()
+    return float(torch.linalg.vector_norm(g - w)
+                 / torch.linalg.vector_norm(w))
+
+
+def lm_serve_arm(torch, np, dev, launches, ops, tag, bundle):
+    """One full-width serving arm of phase 5h: params from a seeded
+    generator on the card, ``BatchedServer(bundle, LM_SLOTS, LM_PROMPT +
+    LM_GEN + 4)`` serving seeded prompts, each decode step timed by CUDA
+    events; finite logits, tokens in [0, vocab), the cache length, the
+    peak against P + cache; then one more serve under the profiler.
+    Returns (params, server, stats)."""
+    from repro_torch.launch.serve_lm import BatchedServer
+
+    cfg = bundle.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_params = sum(p.numel() for p in params.parameters())
+    init_peak = torch.cuda.max_memory_allocated() - resident
+    server = BatchedServer(bundle, LM_SLOTS, LM_PROMPT + LM_GEN + 4,
+                           params=params)
+    cache_bytes = sum(v.numel() * v.element_size()
+                      for v in server.cache.values() if torch.is_tensor(v))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_SLOTS, LM_PROMPT), dtype=np.int32)
+    events, finite, logit_bytes = [], [], []
+    real = server._decode
+
+    def timed(tok):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = real(tok)
+        stop.record()
+        events.append((start, stop))
+        finite.append(torch.isfinite(logits).all())
+        logit_bytes.append(logits.numel() * logits.element_size())
+        return logits
+
+    server._decode = timed
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, peak, _ = counted(torch, ops, launches, tag,
+                                 lambda: server.run(prompts, LM_GEN))
+    steps = [a.elapsed_time(b) for a, b in events]
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{tag}: non-finite logits")
+    if out.shape != (LM_SLOTS, LM_GEN) or out.min() < 0 or \
+            out.max() >= cfg.vocab:
+        raise AssertionError(f"{tag}: tokens {out.shape} outside [0, "
+                             f"{cfg.vocab})")
+    if server.cache["len"] != LM_PROMPT + LM_GEN:
+        raise AssertionError(f"{tag}: cache length {server.cache['len']}")
+    ran = {k: v for k, v in launches[tag].items() if v}
+    if ran:
+        raise AssertionError(f"{tag}: the LM path launched {ran}")
+    # what a decode step must move: every weight but the embedding table,
+    # of which it gathers LM_SLOTS rows (the whole table where the head is
+    # tied to it), the cache positions it attends to and the one it
+    # writes, and the logits; step i (from 0) attends to i + 1 positions.
+    # The MoE's experts count whole: the no-drop decode reads every one.
+    embed_bytes = params.embed.numel() * params.embed.element_size()
+    weights = p_bytes if cfg.tie_embeddings else (
+        p_bytes - embed_bytes + LM_SLOTS * embed_bytes // cfg.vocab)
+    per_pos = cache_bytes / server.max_len
+    step_bytes = [weights + per_pos * (i + 2) + logit_bytes[i]
+                  for i in range(1, len(steps))]
+    bound = sum(step_bytes) / len(step_bytes) / HBM_BYTES_PER_S * 1e3
+    mean = sum(steps[1:]) / len(steps[1:])
+    log(f"{tag}: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}; P = {p_bytes} bytes ({n_params} parameters, "
+        f"{cfg.param_dtype}) drawn on the card in {init_s:.2f} s (init peak "
+        f"{init_peak} above resident); cache {cache_bytes} bytes")
+    log(f"{tag}: {LM_SLOTS} slots x ({LM_PROMPT}+{LM_GEN}) tokens in "
+        f"{wall:.3f} s; decode step ms (CUDA events) steps 2-{len(steps)} "
+        f"mean {mean:.3f}, min {min(steps[1:]):.3f}, step 1 {steps[0]:.3f}; "
+        f"HBM bound (the weights less the embedding table's unread rows, "
+        f"the cache read and written, the logits: mean "
+        f"{sum(step_bytes) / len(step_bytes):.0f} bytes a step) / "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s = {bound:.3f} ms ({mean / bound:.2f}x)"
+        f"; sample tokens {out[0][:8].tolist()}")
+    above = peak - resident
+    log(f"{tag}: max_memory_allocated {above} above the {resident} resident "
+        f"| P + cache = {p_bytes + cache_bytes} | excess "
+        f"{above - p_bytes - cache_bytes} (limit {LM_ACT_SLACK:.0f})")
+    if above > p_bytes + cache_bytes + LM_ACT_SLACK:
+        raise AssertionError(f"{tag}: peak {above} above P + cache + "
+                             f"{LM_ACT_SLACK:.0f}")
+    server._decode = real
+    # a short steady window (LM_PROFILE_STEPS decode steps of a fresh
+    # server) under the profiler: every step is the same work, and a
+    # full serve's quarter million events take the profiler a minute
+    where_the_time_goes(
+        torch, lambda: BatchedServer(bundle, LM_SLOTS, LM_PROFILE_STEPS,
+                                     params=params).run(
+            prompts[:, :1], LM_PROFILE_STEPS - 1),
+        top=10)
+    return params, server, dict(p_bytes=p_bytes, step_ms=mean,
+                                bound_ms=bound)
+
+
+def lm_phase(torch, np, dev, launches, ops):
+    """Phase 5h: the LM serving path on the card (no hand kernel runs on
+    it: every arm's launch counts stay 0).
+
+    1. minitron-8b at its full published widths: ``BatchedServer`` with
+       seeded params on the card serving LM_SLOTS prompts of LM_PROMPT
+       tokens for LM_GEN tokens (``lm_serve_arm``);
+    2. minitron-8b prefill against decode at full width: ``lm_prefill``
+       on LM_PREFILL tokens, timed; layer 0's flash attention on those
+       q, k, v at full heads against naive softmax attention (float32
+       scores, the causal mask); the decode loop's logits over
+       LM_DECODE_CHECK positions against ``lm_hidden`` + ``lm_logits``;
+    3. deepseek-v2-236b at full widths, LM_V2_LAYERS layers: served as in
+       1; layer 1's no-drop MoE decode, on the hidden states it served,
+       against a per-token expert loop (route, the top-6 experts, the
+       shared experts); ``mla_decode`` step by step against
+       ``mla_forward`` over LM_MLA_CHECK tokens;
+    4. the card against the CPU at the five reduced configs (float32, the
+       same params): the decode logits over 8 steps and ``lm_prefill``;
+    5. ``serve_lm.main(["--arch", a])`` for each arch: rc 0."""
+    import copy
+
+    from repro_torch.configs import ALL_ARCHS, get_bundle
+    from repro_torch.configs.families import make_lm_bundle
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.models.layers import apply_rope, layer_at, rmsnorm
+
+    lm_archs = [a for a in ALL_ARCHS
+                if get_bundle(a, reduced=True).family == "lm"]
+    log(f"lm: limits: bf16 comparisons relative L2 <= {LM_BF16_REL_L2}; "
+        f"card vs CPU rtol / atol {LM_F32_TOL}")
+
+    t_arm = time.perf_counter()
+
+    def arm_done(what):
+        nonlocal t_arm
+        log(f"lm: {what} in {time.perf_counter() - t_arm:.1f} s")
+        t_arm = time.perf_counter()
+
+    # ---- 1. minitron-8b at full width, served ----
+    bundle = get_bundle("minitron-8b", reduced=False)
+    cfg = bundle.cfg
+    params, server, _ = lm_serve_arm(torch, np, dev, launches, ops,
+                                     "lm_minitron_serve", bundle)
+    del server
+    arm_done("arm 1 (minitron-8b served)")
+
+    # ---- 2. prefill against decode at full width ----
+    b_, s_ = LM_PREFILL
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (b_, s_), dtype=np.int32)).to(dev)
+    tf_lib.lm_prefill(params, toks[:, :cfg.q_block], cfg)      # warm
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def prefill():
+        start.record()
+        out = tf_lib.lm_prefill(params, toks, cfg)
+        stop.record()
+        return out
+
+    logits, wall, peak, resident = counted(torch, ops, launches,
+                                           "lm_minitron_prefill", prefill)
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (
+            b_, cfg.vocab):
+        raise AssertionError(f"lm prefill: logits {tuple(logits.shape)}, "
+                             "finite expected")
+    flops = 2.0 * b_ * s_ * sum(p.numel() for p in params.parameters())
+    log(f"lm_minitron_prefill: ({b_}, {s_}) tokens, {s_ // cfg.q_block} q "
+        f"blocks x {s_ // cfg.kv_block} kv blocks of {cfg.q_block} / "
+        f"{cfg.kv_block}: {start.elapsed_time(stop):.3f} ms (CUDA events; "
+        f"wall {wall:.3f} s), peak {peak - resident} above resident; the "
+        f"weights' matmuls alone {flops:.4g} flop = "
+        f"{flops / 989e12 * 1e3:.3f} ms at 989 TFLOP/s bf16")
+    with torch.no_grad():
+        p0 = layer_at(params.layers, 0)
+        x = rmsnorm(p0.attn_norm, params.embed[toks.long()])
+        pos = torch.arange(s_, device=dev)[None, :]
+        q = (x @ p0.attn.wq).reshape(b_, s_, cfg.n_heads, cfg.d_head)
+        k = (x @ p0.attn.wk).reshape(b_, s_, cfg.n_kv_heads, cfg.d_head)
+        v = (x @ p0.attn.wv).reshape(b_, s_, cfg.n_kv_heads, cfg.d_head)
+        q = apply_rope(q.transpose(1, 2), pos[:, None], cfg.rope_theta)
+        k = apply_rope(k.transpose(1, 2), pos[:, None], cfg.rope_theta)
+        rep = cfg.n_heads // cfg.n_kv_heads
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v.transpose(1, 2), rep, dim=1)
+        got = attn.flash_attention(q, k, v, q_block=cfg.q_block,
+                                   kv_block=cfg.kv_block)
+        sc = (q.float() @ k.float().transpose(-1, -2)) / cfg.d_head ** 0.5
+        mask = torch.ones((s_, s_), dtype=torch.bool, device=dev).tril()
+        want = torch.softmax(sc.masked_fill(~mask, -1e30), -1) @ v.float()
+        del sc, mask
+        err_flash = rel_l2(torch, got, want)
+        del q, k, v, x, got, want
+    log(f"lm flash vs naive: layer 0, q/k/v ({b_}, {cfg.n_heads}, {s_}, "
+        f"{cfg.d_head}) bf16 against float32 softmax attention: relative "
+        f"L2 {err_flash:.3e} (limit {LM_BF16_REL_L2})")
+    if not err_flash <= LM_BF16_REL_L2:
+        raise AssertionError(f"lm flash vs naive: {err_flash}")
+    n = LM_DECODE_CHECK
+    with torch.no_grad():
+        h, _ = tf_lib.lm_hidden(params, toks[:, :n], cfg)
+        full = tf_lib.lm_logits(params, h, cfg)
+    cache = tf_lib.init_cache(cfg, b_, n, device=dev)
+    dec = []
+    for t in range(n):
+        lg, cache = tf_lib.lm_decode_step(params, cache, toks[:, t], cfg)
+        dec.append(lg)
+    err_dec = rel_l2(torch, torch.stack(dec, 1), full)
+    worst = max(rel_l2(torch, dec[t], full[:, t]) for t in range(n))
+    log(f"lm decode vs prefill: {n} positions x {b_} rows of {cfg.vocab} "
+        f"logits, bf16: relative L2 {err_dec:.3e} (worst position "
+        f"{worst:.3e}; limit {LM_BF16_REL_L2})")
+    if not err_dec <= LM_BF16_REL_L2:
+        raise AssertionError(f"lm decode vs prefill: {err_dec}")
+    del params, h, full, cache, dec, lg, logits, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    arm_done("arm 2 (prefill, flash, decode vs prefill)")
+
+    # ---- 3. deepseek-v2-236b at full widths, 3 layers ----
+    v2 = get_bundle("deepseek-v2-236b", reduced=False)
+    bundle = make_lm_bundle(v2.arch_id, dataclasses.replace(
+        v2.cfg, n_layers=LM_V2_LAYERS), v2.opt_cfg)
+    cfg = bundle.cfg
+    seen = []
+    real_moe = moe_lib.moe_forward
+
+    def capture(p, x, **kw):
+        out = real_moe(p, x, **kw)
+        if not seen:
+            seen.append((p, x.clone(), out[0].clone(), kw))
+        return out
+
+    moe_lib.moe_forward = capture
+    try:
+        params, server, _ = lm_serve_arm(torch, np, dev, launches, ops,
+                                         "lm_deepseek_v2_serve", bundle)
+    finally:
+        moe_lib.moe_forward = real_moe
+    p, x, out, kw = seen[0]
+    if not kw.get("no_drop") or x.shape[1] != 1:
+        raise AssertionError(f"lm moe: captured {kw} at {tuple(x.shape)}")
+    with torch.no_grad():
+        x2 = x.reshape(-1, cfg.d_model)
+        idx, gates, _ = moe_lib.route(p, x2, top_k=cfg.top_k,
+                                      mode=cfg.router_mode)
+        loop = torch.zeros_like(x2)
+        for t in range(x2.shape[0]):
+            for j in range(cfg.top_k):
+                e = int(idx[t, j])
+                hh = (torch.nn.functional.silu(x2[t] @ p.gate[e])
+                      * (x2[t] @ p.up[e]))
+                loop[t] += gates[t, j] * (hh @ p.down[e])
+        loop = loop + (torch.nn.functional.silu(x2 @ p.shared.gate)
+                       * (x2 @ p.shared.up)) @ p.shared.down
+    err_moe = rel_l2(torch, out.reshape(-1, cfg.d_model), loop)
+    log(f"lm moe decode vs loop: layer 1's first served step, "
+        f"{x2.shape[0]} tokens, top-{cfg.top_k} of {cfg.n_routed} experts "
+        f"+ {cfg.n_shared} shared, bf16: relative L2 {err_moe:.3e} (limit "
+        f"{LM_BF16_REL_L2})")
+    if not err_moe <= LM_BF16_REL_L2:
+        raise AssertionError(f"lm moe decode vs loop: {err_moe}")
+    del seen, p, x, out, x2, loop
+    n = LM_MLA_CHECK
+    dims = dict(n_heads=cfg.n_heads, kv_lora=cfg.kv_lora, d_nope=cfg.d_nope,
+                d_rope=cfg.d_rope, d_v=cfg.d_v, rope_theta=cfg.rope_theta)
+    with torch.no_grad():
+        pa = layer_at(params.dense_layers, 0).attn
+        gen = torch.Generator(device=dev).manual_seed(2)
+        xs = torch.randn((LM_SLOTS, n, cfg.d_model), generator=gen,
+                         device=dev).to(cfg.param_dtype)
+        fwd = attn.mla_forward(pa, xs, q_block=cfg.q_block,
+                               kv_block=cfg.kv_block, **dims)
+        cache = {"c_kv": torch.zeros((LM_SLOTS, n, cfg.kv_lora),
+                                     dtype=cfg.param_dtype, device=dev),
+                 "k_rope": torch.zeros((LM_SLOTS, n, cfg.d_rope),
+                                       dtype=cfg.param_dtype, device=dev),
+                 "len": 0}
+        steps = []
+        for t in range(n):
+            o, cache = attn.mla_decode(pa, xs[:, t:t + 1], cache, **dims)
+            steps.append(o)
+        err_mla = rel_l2(torch, torch.cat(steps, 1), fwd)
+    log(f"lm mla decode vs forward: layer 0, {n} steps x {LM_SLOTS} rows "
+        f"(the absorbed decode on the (c_kv, k_rope) cache against the "
+        f"decompressed forward), bf16: relative L2 {err_mla:.3e} (limit "
+        f"{LM_BF16_REL_L2})")
+    if not err_mla <= LM_BF16_REL_L2:
+        raise AssertionError(f"lm mla decode vs forward: {err_mla}")
+    del params, server, pa, xs, fwd, cache, steps, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    arm_done("arm 3 (deepseek-v2-236b served, MoE, MLA)")
+
+    # ---- 4. the card against the CPU at the reduced configs ----
+    worst = 0.0
+    for arch in lm_archs:
+        small = get_bundle(arch, reduced=True)
+        cfg = small.cfg
+        cpu = small.init_params(torch.Generator().manual_seed(0),
+                                device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab, (2, 16), dtype=np.int32))
+        pairs = [(tf_lib.lm_prefill(card, toks.to(dev), cfg),
+                  tf_lib.lm_prefill(cpu, toks, cfg))]
+        c_dev = tf_lib.init_cache(cfg, 2, 8, device=dev)
+        c_cpu = tf_lib.init_cache(cfg, 2, 8, device="cpu")
+        for t in range(8):
+            a_, c_dev = tf_lib.lm_decode_step(card, c_dev, toks[:, t].to(dev),
+                                              cfg)
+            b2_, c_cpu = tf_lib.lm_decode_step(cpu, c_cpu, toks[:, t], cfg)
+            pairs.append((a_, b2_))
+        for a_, b2_ in pairs:
+            a_, b2_ = a_.cpu().double(), b2_.double()
+            if not bool(((a_ - b2_).abs()
+                         <= LM_F32_TOL + LM_F32_TOL * b2_.abs()).all()):
+                raise AssertionError(f"lm card vs CPU: {arch} differs by "
+                                     f"{float((a_ - b2_).abs().max())}")
+            worst = max(worst, float((a_ - b2_).abs().max()))
+    log(f"lm card vs CPU: {len(lm_archs)} reduced archs, lm_prefill and 8 "
+        f"decode steps within rtol / atol {LM_F32_TOL} (largest absolute "
+        f"difference {worst:.3e})")
+    arm_done("arm 4 (card vs CPU)")
+
+    # ---- 5. the CLI, the reference's defaults ----
+    for arch in lm_archs:
+        ops.reset_launch_counts()
+        rc = serve_lm.main(["--arch", arch])
+        if rc != 0:
+            raise AssertionError(f"serve_lm --arch {arch}: rc {rc}")
+        launches[f"lm_cli_{arch}"] = ops.launch_counts()
+    log(f"lm cli: serve_lm.main(['--arch', a]) rc 0 for {lm_archs}")
+    arm_done("arm 5 (the CLI)")
+
+
 def sparse_edge_supports(np, a, eu, ev):
     """Closed-form edge supports of a card matrix at the slots, from a
     scipy sparse int64 product on the host (the slots' absent cells 0)."""
@@ -2810,6 +3196,11 @@ def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
     t0 = time.perf_counter()
     recsys_phase(torch, np, dev, launches, ops, bfly, bsp, measure)
     log(f"recsys: phase 5g in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 5h. the language-model serving path --------------------------- #
+    t0 = time.perf_counter()
+    lm_phase(torch, np, dev, launches, ops)
+    log(f"lm: phase 5h in {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. crossover: staircase + graph against tiled ---------------- #
     # the full-size graph's walls are phase 5's timed runs: the kernels and

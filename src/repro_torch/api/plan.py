@@ -38,7 +38,8 @@ only record:
 
 **Device memory** (``padded_bytes``) is the port's own count of what a
 run holds at its peak, a formula in the plan's shapes
-(``_dense_cd_bytes``, ``_fd_group_bytes``, ``_tiled_bytes``,
+(``_dense_cd_bytes``, ``fd.fd_state_bytes`` + ``fd.fd_update_bytes``,
+``_tiled_bytes``,
 ``_wing_member_bytes``, ``_wing_closed_form_bytes``): the matrices the
 engine keeps, the kernels' scratch (the count body's s8 copy, the peel
 body's gathered rows, kernel 3's s8 stack copy, kernel 6's window
@@ -47,7 +48,12 @@ scratch) and the largest temporaries, checked against
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).  With a mesh
 (``plan(graph, mesh=...)``: ``mesh_shards``) the FD count is that of the
 LPT-padded stacks of the shards that share the fullest device, and a
-sharded plan never routes tiled on its own, as the reference's.  What
+sharded plan never routes tiled on its own, as the reference's.  The FD
+count is a prediction of the engine's subsets, which the host cannot know
+before counting; the FD phase keeps within ``padded_bytes`` all the same
+(``fd._pipeline``: a shape group whose stacks would not fit launches in
+parts), so only one subset whose own stacks exceed the plan can go over
+it.  What
 the process holds for its life is not the run's: the CUDA context, and
 cuBLAS's workspace (32 MiB per stream on an H100, allocated at the
 process's first matrix product and kept).  It differs by design from
@@ -70,6 +76,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.engine.fd import (ROW_STATE_BYTES, fd_state_bytes,
+                              fd_update_bytes)
 from ..core.engine.peel_loop import ReceiptConfig, bucket, cd_gather_width
 from ..core.graph import BipartiteGraph
 from ..core.scheduler import lpt_shard_plan
@@ -106,10 +114,11 @@ TILED_MIN_DENSE_CELLS = 1 << 24
 _F32_BYTES = 4
 _F64_BYTES = 8
 # per-row and per-column bytes of the sweep state (supports, masks, theta,
-# ids, extents, column sums and the like), and per-edge-slot bytes of the
-# wing state (supports, masks, theta, int64 endpoints, the closed form's
-# float64 gathers)
-_ROW_STATE_BYTES = 64
+# ids, extents, column sums and the like: the FD stacks' own model,
+# ``fd.fd_state_bytes``), and per-edge-slot bytes of the wing state
+# (supports, masks, theta, int64 endpoints, the closed form's float64
+# gathers)
+_ROW_STATE_BYTES = ROW_STATE_BYTES
 _COL_STATE_BYTES = 32
 _EDGE_STATE_BYTES = 96
 
@@ -133,25 +142,6 @@ def _dense_cd_bytes(rows_pad: int, cols_pad: int, block_rows: int,
             + _COL_STATE_BYTES * cols_pad)
 
 
-def _fd_group_bytes(n_g: int, mm: int, cc: int, w1: int,
-                    b2_mode: bool, n_update: Optional[int] = None) -> int:
-    """One FD shape group on the card: the survivor stack, the first-level
-    stack, and the level loop's update: the B2 stack and kernel 3's s8
-    copy, or a gather of up to every row and kernel 2's scratch.
-    ``n_update`` (default ``n_g``) is the number of groups one level
-    loop updates at once: on a mesh the card holds its shards' ``n_g``
-    slots, and their loops run one shard at a time."""
-    n_up = n_g if n_update is None else n_update
-    stacks = _F32_BYTES * n_g * (mm + w1) * cc
-    if b2_mode:
-        update = (_F32_BYTES * n_up * mm * mm
-                  + n_up * kbfly.count_scratch_bytes(mm, cc))
-    else:
-        update = (_F32_BYTES * n_up * mm * cc
-                  + kbfly.peel_scratch_bytes(mm, cc, n_up))
-    return stacks + update + _ROW_STATE_BYTES * n_g * (mm + cc)
-
-
 def _mesh_fd_slots(group_weights: List[List[float]],
                    n_shards: int) -> List[int]:
     """Slots per shard of each FD shape group on a mesh of ``n_shards``:
@@ -170,6 +160,67 @@ def _mesh_fd_slots(group_weights: List[List[float]],
         loads = loads + np.where(lay >= 0, w[np.maximum(lay, 0)], 0.0).sum(1)
         out.append(per_shard)
     return out
+
+
+def _predict_fd_subsets(g: BipartiteGraph, p: int, levels: int = 1
+                         ) -> List[Tuple[int, int, float]]:
+    """The engine's FD subsets as the host can predict them before
+    counting: ``(survivor rows, touched columns, wedge mass)`` each.
+
+    The engine cuts its subsets by support (``cd.find_hi_np``: rows in
+    ascending support until the cumulative wedge count reaches the
+    remaining mass over the subsets left, then every row of the support
+    reached, the next target scaled down by the mass a subset overshot
+    it by; the last subset takes the rest), and the host pre-peel
+    (``fd.pre_peel_tasks``) drains each subset's lowest ``levels``
+    support levels before a stack is built.  Without the counts, the
+    support order is a static proxy: rows with no butterfly at all
+    first (a row of degree <= 1, or one no wedge leaves, has support 0:
+    one level, which the first subset takes whole), then the rest by
+    wedge count, equal counts as one level.  A subset's survivors are
+    its members less those at its ``levels`` lowest proxy keys; its
+    columns are the ones all its members touch
+    (``BipartiteGraph.induced_on_u``)."""
+    if g.n_u == 0:
+        return []
+    w = g.wedge_counts_u().astype(np.float64)
+    if float(w.sum()) <= 0:
+        return []
+    du = np.bincount(g.edges_u, minlength=g.n_u)
+    zero = (du <= 1) | (w <= 0)
+    key = np.where(zero, -1.0, w)           # the support proxy
+    order = np.argsort(key, kind="stable")
+    ks, cum = key[order], np.cumsum(w[order])
+    subset_of = np.empty(g.n_u, np.int64)
+    start, i, done, scale = 0, 0, 0.0, 1.0
+    while start < g.n_u:
+        if i >= p - 1:
+            end = g.n_u                     # the catch-all subset
+        else:
+            tgt = max((cum[-1] - done) / (p - i) * scale, 1.0)
+            at = min(int(np.searchsorted(cum, done + tgt)), g.n_u - 1)
+            at = max(at, start)
+            end = int(np.searchsorted(ks, ks[at], side="right"))
+            covered = float(cum[end - 1]) - done
+            if covered > 0:                 # the engine's target feedback
+                scale = min(1.0, tgt / covered)
+        subset_of[order[start:end]] = i
+        done = float(cum[end - 1])
+        start, i = end, i + 1
+    n_v = max(g.n_v, 1)
+    cells = np.unique(subset_of[g.edges_u] * n_v + g.edges_v)
+    n_cols = np.bincount(cells // n_v, minlength=i)
+    # the pre-peel drains each subset's lowest ``levels`` support levels
+    # (``fd_prepeel_levels``): here its lowest distinct proxy keys
+    drained = np.zeros(g.n_u, bool)
+    for j in range(i):
+        rows = np.where(subset_of == j)[0]
+        keys = np.unique(key[rows])[:levels]
+        drained[rows] = np.isin(key[rows], keys)
+    surv = np.bincount(subset_of[~drained], minlength=i)
+    wedges = np.bincount(subset_of, weights=w, minlength=i)
+    return [(int(s), int(c), float(x))
+            for s, c, x in zip(surv, n_cols, wedges)]
 
 
 def _tiled_bytes(n_tiles: int, br: int, bc: int, n_rt: int, n_ct: int,
@@ -686,61 +737,55 @@ class Planner:
     def _estimate_fd_bytes(self, g: BipartiteGraph, cfg: ReceiptConfig,
                            num_partitions: Optional[int] = None,
                            mesh=None) -> int:
-        """Peak of the FD phase: the wedge-equipartition subsets of
-        ``_estimate_fd_groups``, each stacked at its own rows and the
-        columns its members touch (as ``fd.build_fd_tasks`` induces them),
-        grouped by padded shape; the two largest groups are on the card at
-        once (the double-buffered dispatch).  On a ``mesh`` a group becomes
-        ``mesh.size`` shards of the slots the engine's LPT layout gives it
-        (``_mesh_fd_slots``: the subsets' wedge masses, groups in the
-        engine's order, loads carried across groups), the fullest device
-        holds the slots of its shards, and its level loops update one
-        shard's slots at a time."""
-        from ..core.engine.fd import _aligns, _level_pad
+        """Predicted peak of the FD phase (what the engine then keeps
+        within is the plan's ``padded_bytes``): the engine's subsets as
+        ``_predict_fd_subsets`` predicts them (support order, wedge-mass
+        cuts, the levels the host pre-peel drains), each stacked at its
+        survivors' rows and the columns its members touch (as
+        ``fd.build_fd_tasks`` induces them), grouped by padded shape, in
+        the engine's order.  A group drains while the next one is launched
+        (the double-buffered dispatch), so the peak is the largest of a
+        group's state, the next group's state and the group's update
+        (``fd.fd_state_bytes``, ``fd.fd_update_bytes``).  On a ``mesh`` a
+        group becomes ``mesh.size`` shards of the slots the engine's LPT
+        layout gives it (``_mesh_fd_slots``: the subsets' wedge masses,
+        groups in the engine's order, loads carried across groups), the
+        fullest device holds the slots of its shards, and its level loops
+        update one shard's slots at a time."""
+        from ..core.engine.fd import _aligns, _level_pad, b2_update
 
         row_align, col_align, w_align = _aligns(cfg)
-        w = g.wedge_counts_u().astype(np.float64)
-        total = float(w.sum())
         p = max(num_partitions if num_partitions is not None
                 else cfg.num_partitions, 1)
-        if g.n_u == 0 or total <= 0:
+        subsets = _predict_fd_subsets(g, p, cfg.fd_prepeel_levels)
+        if not subsets:
             return 0
-        order = np.argsort(w, kind="stable")
-        cum = np.cumsum(w[order])
-        cuts = np.searchsorted(cum, total / p * np.arange(1, p + 1))
-        ends = np.unique(np.minimum(cuts + 1, g.n_u))
-        sizes = np.diff(np.concatenate([[0], ends]))
-        subset_of = np.empty(g.n_u, np.int64)
-        subset_of[order] = np.repeat(np.arange(sizes.size), sizes)
-        cells = np.unique(subset_of[g.edges_u] * max(g.n_v, 1)
-                          + g.edges_v)
-        n_cols = np.bincount(cells // max(g.n_v, 1), minlength=sizes.size)
-        wedges = np.bincount(subset_of, weights=w, minlength=sizes.size)
         shapes: Dict[Tuple[int, int], List[float]] = {}
-        for size, cols, wsub in zip(sizes, n_cols, wedges):
-            key = (_level_pad(int(size), row_align),
-                   _level_pad(max(int(cols), 1), col_align))
-            shapes.setdefault(key, []).append(float(wsub))
+        for surv, cols, wsub in subsets:
+            if surv == 0:
+                continue                # drained by the host pre-peel
+            key = (_level_pad(surv, row_align),
+                   _level_pad(max(cols, 1), col_align))
+            shapes.setdefault(key, []).append(wsub)
+        if not shapes:
+            return 0
         # the engine's group order (``pack_by_shape``: largest area first)
         keys = sorted(shapes, key=lambda k: -(k[0] * k[1]))
         if mesh is not None:
             slots = _mesh_fd_slots([shapes[k] for k in keys], mesh.size)
-        per_group = []
+        states, updates = [], []
         for i, (mm, cc) in enumerate(keys):
             n_g = len(shapes[(mm, cc)])
-            b2_mode = (cfg.fd_update_mode == "b2"
-                       or (cfg.fd_update_mode == "auto"
-                           and n_g * mm * mm <= cfg.fd_b2_cells))
-            if mesh is None:
-                per_group.append(_fd_group_bytes(n_g, mm, cc, w_align,
-                                                 b2_mode))
-                continue
-            per_shard = slots[i]
-            on_card = max(mesh.shards_per_device().values()) * per_shard
-            per_group.append(_fd_group_bytes(on_card, mm, cc, w_align,
-                                             b2_mode, n_update=per_shard))
-        per_group.sort(reverse=True)
-        return int(sum(per_group[: 2 if cfg.fd_overlap else 1]))
+            b2_mode = b2_update(n_g, mm, cfg)
+            n_up = n_g if mesh is None else slots[i]
+            n_slots = (n_g if mesh is None else
+                       max(mesh.shards_per_device().values()) * slots[i])
+            states.append(fd_state_bytes(n_slots, mm, cc))
+            updates.append(fd_update_bytes(n_up, mm, cc, w_align, b2_mode))
+        # a group drains while the next one is launched (fd_overlap)
+        ahead = 1 if cfg.fd_overlap else 0
+        return int(max(sum(states[i:i + 1 + ahead]) + updates[i]
+                       for i in range(len(keys))))
 
     def _estimate_fd_groups(self, g: BipartiteGraph, cfg: ReceiptConfig,
                             num_partitions: Optional[int] = None):
@@ -749,7 +794,7 @@ class Planner:
         boundaries predicts the subset member counts, which bucket into
         predicted stack shapes (a capacity estimate; the real groups
         depend on supports, HUC and the pre-peel)."""
-        from ..core.engine.fd import _aligns, _level_pad
+        from ..core.engine.fd import _aligns, _level_pad, b2_update
 
         row_align, col_align, _ = _aligns(cfg)
         w = np.sort(g.wedge_counts_u().astype(np.float64))

@@ -7,7 +7,7 @@ the tests need:
     bundle.abstract_params()             param module on the meta device
     bundle.init_params(generator)        real params on the generator's device
     bundle.state_abstract()              train state incl. optimizer, meta
-    bundle.step_for(shape)               ("train"|"serve"|"retrieval", fn)
+    bundle.step_for(shape)               ("train"|"serve_*"|"retrieval", fn)
     bundle.input_specs(shape)            dict[str, ShapeDtype]
 
 Shapes are the assigned public shape sets (``configs/shapes.py``); steps
@@ -24,11 +24,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..models import recsys as rec_lib
+from ..models import transformer as tf_lib
 from ..train.optimizer import AdamWConfig
 from ..train.train_step import init_train_state, make_train_step
 from . import shapes as shp
 
-__all__ = ["ShapeDtype", "Bundle", "make_recsys_bundle"]
+__all__ = ["ShapeDtype", "Bundle", "make_lm_bundle", "make_recsys_bundle"]
 
 _META = torch.device("meta")
 
@@ -57,8 +58,11 @@ class Bundle:
     def abstract_params(self):
         return self._init_fn(None, _META)
 
-    def init_params(self, generator: torch.Generator):
-        return self._init_fn(generator, None)
+    def init_params(self, generator: Optional[torch.Generator] = None, *,
+                    device=None):
+        """Params drawn from ``generator`` on ``device``, else on the
+        generator's device, else on the card (raising without one)."""
+        return self._init_fn(generator, device)
 
     # ---------------- train state ------------ #
     def state_abstract(self):
@@ -72,6 +76,68 @@ class Bundle:
     def input_specs(self, shape_name: str) -> Dict[str, ShapeDtype]:
         _, specs = self._specs_fn(shape_name)
         return specs
+
+
+# ===================================================================== #
+# LM family
+# ===================================================================== #
+def _sds_tree(tree):
+    return {k: (ShapeDtype((), torch.int32) if not torch.is_tensor(v)
+                else ShapeDtype(tuple(v.shape), v.dtype))
+            for k, v in tree.items()}
+
+
+def _lm_specs(cfg: tf_lib.LMConfig, shapes, shape_name):
+    s = shapes[shape_name]
+    i32 = torch.int32
+    if s.kind == "train":
+        return "train", {
+            "tokens": ShapeDtype((s.global_batch, s.seq_len), i32),
+            "labels": ShapeDtype((s.global_batch, s.seq_len), i32),
+        }
+    if s.kind == "prefill":
+        return "serve_prefill", {
+            "tokens": ShapeDtype((s.global_batch, s.seq_len), i32),
+        }
+    # decode: one new token against a seq_len KV cache (its shapes from
+    # init_cache on the meta device; ``len`` an int32 scalar)
+    cache = tf_lib.init_cache(cfg, s.global_batch, s.seq_len, device=_META)
+    return "serve_decode", {
+        "token": ShapeDtype((s.global_batch,), i32),
+        "cache": _sds_tree(cache),
+    }
+
+
+def make_lm_bundle(arch_id: str, cfg: tf_lib.LMConfig,
+                   opt_cfg: Optional[AdamWConfig] = None) -> Bundle:
+    opt_cfg = opt_cfg or AdamWConfig()
+    shapes = shp.LM_SHAPES
+
+    def loss_fn(params, batch):
+        return tf_lib.lm_loss(params, batch, cfg)
+
+    def serve_prefill(params, batch):
+        return tf_lib.lm_prefill(params, batch["tokens"], cfg)
+
+    def serve_decode(params, batch):
+        return tf_lib.lm_decode_step(params, batch["cache"], batch["token"],
+                                     cfg)
+
+    return Bundle(
+        arch_id=arch_id,
+        family="lm",
+        cfg=cfg,
+        shapes=shapes,
+        opt_cfg=opt_cfg,
+        _loss_fn=loss_fn,
+        _init_fn=lambda gen, device: tf_lib.init_lm(gen, cfg, device=device),
+        _steps={
+            "train": make_train_step(loss_fn, opt_cfg),
+            "serve_prefill": serve_prefill,
+            "serve_decode": serve_decode,
+        },
+        _specs_fn=lambda sn: _lm_specs(cfg, shapes, sn),
+    )
 
 
 # ===================================================================== #

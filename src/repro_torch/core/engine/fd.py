@@ -46,8 +46,10 @@ the reference's two hooks: every stack dimension (``fd_rows``,
 the gather width of a stack shape is the one an earlier run measured
 (``plan.fd_width_hint``; a level that outgrows it takes the mask-form
 update).  Each drained group records its
-largest level back (``plan.note_fd_level``).  Theta is the same either
-way.
+largest level back (``plan.note_fd_level``).  The plan's
+``padded_bytes`` is a budget the level pipeline keeps (``_pipeline``:
+a shape group that would not fit launches in parts).  Theta is the same
+either way.
 """
 from __future__ import annotations
 
@@ -59,10 +61,11 @@ import torch
 
 from ...api.errors import KernelBackendError
 from ...api.faults import fault_point
+from ...kernels import butterfly as kbfly
 from ...kernels import butterfly_sparse as ksparse
 from ...kernels import ops as kops
 from ..graph import BipartiteGraph, pad_to_multiple
-from ..scheduler import pack_by_shape
+from ..scheduler import lpt_shard_plan, pack_by_shape
 from .peel_loop import (
     _INF,
     ReceiptConfig,
@@ -73,7 +76,54 @@ from .peel_loop import (
 )
 
 __all__ = ["receipt_fd", "build_fd_tasks", "pre_peel_tasks",
-           "build_level_stack"]
+           "build_level_stack", "fd_state_bytes", "fd_update_bytes"]
+
+# device-memory model of the level stacks (``api/plan.py`` counts a plan's
+# FD bytes with it, and ``_pipeline`` keeps each launch within a plan's):
+# f32 cells, and the per-row and per-column bytes of the sweep state
+# (supports, masks, theta, ids, extents, column sums and the like)
+_F32_BYTES = 4
+ROW_STATE_BYTES = 64
+
+
+def fd_state_bytes(n_slots: int, mm: int, cc: int) -> int:
+    """What one launched FD shape group keeps on the card until it
+    drains: the survivor stack and its per-row and per-column state."""
+    return (_F32_BYTES * n_slots * mm * cc
+            + ROW_STATE_BYTES * n_slots * (mm + cc))
+
+
+def fd_update_bytes(n_up: int, mm: int, cc: int, w1: int,
+                    b2_mode: bool) -> int:
+    """What the level loop of ``n_up`` slots adds while it drains, with a
+    peel set of ``w1`` gathered rows: in b2 mode the B2 stack, then the
+    largest of kernel 3's s8 copy (while the stack is built) and the
+    sweep's temporaries: a gathered update's B2 rows (three row blocks
+    live at once, as the caching allocator's history shows on the card)
+    and its A rows twice, or, where the gather would take every row, the
+    mask form's B2-sized product; in kernel mode a gather of up to every
+    row and kernel 2's scratch.  At least the next group's first-level
+    stack, which its launch uploads meanwhile."""
+    if b2_mode:
+        if w1 < mm:
+            sweep = _F32_BYTES * n_up * w1 * (3 * mm + 2 * cc)
+        else:
+            sweep = _F32_BYTES * n_up * mm * mm
+        update = (_F32_BYTES * n_up * mm * mm
+                  + max(n_up * kbfly.count_scratch_bytes(mm, cc), sweep))
+    else:
+        update = (_F32_BYTES * n_up * mm * cc
+                  + kbfly.peel_scratch_bytes(mm, cc, n_up))
+    return max(update, _F32_BYTES * n_up * w1 * cc
+               + kbfly.peel_scratch_bytes(mm, cc, n_up))
+
+
+def b2_update(n_g: int, mm: int, cfg: ReceiptConfig) -> bool:
+    """Whether a stack of ``n_g`` groups of ``mm`` rows takes the B2
+    update (``fd_update_mode``; ``"auto"``: its B2 stack fits
+    ``fd_b2_cells``)."""
+    return cfg.fd_update_mode == "b2" or (
+        cfg.fd_update_mode == "auto" and n_g * mm * mm <= cfg.fd_b2_cells)
 
 
 # ---------------------------------------------------------------------- #
@@ -306,11 +356,7 @@ def build_level_stack(group: List[Dict], cfg: ReceiptConfig,
     # support-update cost model (the HUC argument applied to FD): pay the
     # (M, M) wedge contraction once when the B2 stack fits the budget,
     # stream sweeps through the grouped kernel when it cannot
-    if cfg.fd_update_mode == "auto":
-        update_mode = ("b2" if n_g * mm * mm <= cfg.fd_b2_cells
-                       else "kernel")
-    else:
-        update_mode = cfg.fd_update_mode
+    update_mode = "b2" if b2_update(n_g, mm, cfg) else "kernel"
 
     if cfg.peel_width is not None:
         peel_width = min(bucket(cfg.peel_width, w_align), mm)
@@ -539,17 +585,53 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
         for k, t in enumerate(built["group"]):
             theta[t["members"][t["surv"]]] = th_acc[k, : built["nmem"][k]]
 
-    _pipeline(tasks, init_support, cfg, stats, theta, plan, launch, drain)
+    _pipeline(tasks, init_support, cfg, stats, theta, plan, launch, drain,
+              slots_of=lambda chunk: (len(chunk), len(chunk)))
     return theta
 
 
-def _pipeline(tasks, init_support, cfg, stats, theta, plan, launch, drain):
+def _launch_bytes(chunk: List[Dict], cfg: ReceiptConfig, slots_of):
+    """(state, update) bytes of launching ``chunk``, leading tasks of one
+    shape group (``fd_state_bytes``, ``fd_update_bytes``): ``slots_of``
+    gives the slots the fullest card holds and the slots one level loop
+    updates."""
+    row_align, col_align, w_align = _aligns(cfg)
+    mm = _level_pad(max(len(t["surv"]) for t in chunk), row_align)
+    cc = _level_pad(max(max(t["sub"].n_v, 1) for t in chunk), col_align)
+    n_slots, n_up = slots_of(chunk)
+    return (fd_state_bytes(n_slots, mm, cc),
+            fd_update_bytes(n_up, mm, cc, w_align,
+                            b2_update(len(chunk), mm, cfg)))
+
+
+def _fit_launch(rest: List[Dict], held: int, budget: int,
+                cfg: ReceiptConfig, slots_of):
+    """How many leading tasks of ``rest`` the next launch takes within
+    ``budget`` beside ``held`` bytes in flight (the launch before it, not
+    yet drained), and whether that one must drain first: the most tasks
+    whose stacks fit beside it and, while they drain, beside their own
+    update; else, drained first, the most that fit alone; else one."""
+    for beside in ((held, 0) if held else (0,)):
+        for k in range(len(rest), 0, -1):
+            state, update = _launch_bytes(rest[:k], cfg, slots_of)
+            if state + update <= budget and state + beside <= budget:
+                return k, beside != held
+    return 1, bool(held)
+
+
+def _pipeline(tasks, init_support, cfg, stats, theta, plan, launch, drain,
+              slots_of):
     """The shared pipeline of the level peels: pre-peel first levels on the
     host (``pre_peel_tasks``), group the SURVIVOR subgraphs by padded
     shape, then per group build the stacks, ``launch(built) -> (state,
     padded cells)`` (asynchronous) and ``drain(built, state)``; under
     ``cfg.fd_overlap`` a group drains only after the next one is built
-    and launched.  Sets ``stats.fd_groups`` and ``fd_padding_waste``."""
+    and launched.  A plan's ``padded_bytes`` is a budget the pipeline
+    keeps: a group whose stacks would not fit beside the one in flight
+    launches in parts (``_fit_launch``; ``slots_of`` as in
+    ``_launch_bytes``), and the one in flight drains first where not even
+    one more task fits beside it.  Sets ``stats.fd_groups`` (the shape
+    groups, however many launches) and ``fd_padding_waste``."""
     row_align, col_align, _ = _aligns(cfg)
     tasks = pre_peel_tasks(tasks, init_support, theta, stats,
                            levels=cfg.fd_prepeel_levels)
@@ -561,19 +643,33 @@ def _pipeline(tasks, init_support, cfg, stats, theta, plan, launch, drain):
         bucket_cols=lambda n: _level_pad(n, col_align),
     )
     stats.fd_groups = len(groups)
+    budget = plan.padded_bytes if plan is not None else None
     padded = used = 0
-    pending = None           # (built, device state) one group in flight
+    pending = None           # (built, device state) one launch in flight
+    held = 0                 # its state + update bytes
     for group in groups:
-        built = build_level_stack(group, cfg, plan=plan)
-        state, cells = launch(built)            # async launches
-        padded += cells
-        used += built["used_cells"]
-        if pending is not None:
-            drain(*pending)
-        if cfg.fd_overlap:
-            pending = (built, state)            # drain AFTER next build
-        else:
-            drain(built, state)
+        rest = group
+        while rest:
+            k = len(rest)
+            if budget is not None:
+                k, wait = _fit_launch(rest, held, budget, cfg, slots_of)
+                if wait:
+                    drain(*pending)
+                    pending, held = None, 0
+            chunk, rest = rest[:k], rest[k:]
+            if budget is not None:
+                held = sum(_launch_bytes(chunk, cfg, slots_of))
+            built = build_level_stack(chunk, cfg, plan=plan)
+            state, cells = launch(built)            # async launches
+            padded += cells
+            used += built["used_cells"]
+            if pending is not None:
+                drain(*pending)
+            if cfg.fd_overlap:
+                pending = (built, state)            # drain AFTER next build
+            else:
+                drain(built, state)
+                held = 0
     if pending is not None:
         drain(*pending)
     stats.fd_padding_waste = 1.0 - used / padded if padded else 0.0
@@ -662,7 +758,16 @@ def _run_level_groups_mesh(tasks, init_support, cfg, stats, theta, mesh,
             nm = int(built["nmem"][t_idx])
             theta[t["members"][t["surv"]]] = th_acc[s, :nm]
 
-    _pipeline(tasks, init_support, cfg, stats, theta, plan, launch, drain)
+    def slots_of(chunk):
+        """The fullest card's slots and one shard's: the LPT layout
+        ``launch`` will give ``chunk`` after the loads so far."""
+        _, per_shard = lpt_shard_plan([t["wedges"] for t in chunk],
+                                      n_shards, list(lpt_loads))
+        return on_card * per_shard, per_shard
+
+    on_card = max(mesh.shards_per_device().values())
+    _pipeline(tasks, init_support, cfg, stats, theta, plan, launch, drain,
+              slots_of)
     stats.fd_shard_rho = [int(x) for x in shard_rho]
     stats.fd_shard_wedges = [float(x) for x in shard_wedges]
     return theta

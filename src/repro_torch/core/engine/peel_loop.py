@@ -438,6 +438,8 @@ def peel_delta(a, peel, n_peel: int, ids, row_ext, kmax, *, backend,
                           kmax if sparse else None, kb, backend=backend,
                           blocks=blocks)
         delta = d if delta is None else delta + d
+        # dropped before the next chunk's gather: one gather on the card
+        del rows, valid, a_peel, kb
     return delta
 
 

@@ -1,6 +1,8 @@
 """Synthetic inputs (port of ``repro.data.synthetic``):
-``interaction_graph`` and the recsys batches (``recsys_batch``).  The LM
-and GNN batches come with their model slices (ROADMAP.md, queue 1)."""
+``interaction_graph``, the LM token batches (``lm_train_batch``,
+``lm_token_stream``) and the recsys batches (``recsys_batch``).  The GNN
+batches come with their model slice (ROADMAP.md, queue 1).  Every draw is
+the reference's numpy draw, so the same seed gives the same inputs."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,7 +11,31 @@ import torch
 from ..core.engine.peel_loop import resolve_device
 from ..core.graph import BipartiteGraph, powerlaw_bipartite
 
-__all__ = ["interaction_graph", "recsys_batch"]
+__all__ = ["interaction_graph", "lm_train_batch", "lm_token_stream",
+           "recsys_batch"]
+
+
+def lm_train_batch(vocab: int, batch: int, seq: int, seed: int = 0,
+                   device=None):
+    """``tokens`` and ``labels`` (B, S) int32 (the labels are the tokens
+    shifted by one), on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (batch, seq + 1), dtype=np.int32)
+    return {
+        "tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+        "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev),
+    }
+
+
+def lm_token_stream(vocab: int, batch: int, seq: int, seed: int = 0,
+                    device=None):
+    """Infinite deterministic token stream (for the train driver)."""
+    step = 0
+    while True:
+        yield lm_train_batch(vocab, batch, seq, seed=seed + step,
+                             device=device)
+        step += 1
 
 
 def recsys_batch(cfg, batch: int, seed: int = 0, with_logq: bool = True,

@@ -20,6 +20,9 @@ incremental-refresh path.  Two modes:
 
 Every mode runs on the card unless ``--device cpu`` is given (the kernels'
 plain versions); the kernel backend follows the device.
+
+The LM decode loop lives in ``launch/serve_lm.py`` (``BatchedServer`` is
+re-exported below for compatibility, as in the reference).
 """
 from __future__ import annotations
 
@@ -27,6 +30,17 @@ import argparse
 import time
 
 import numpy as np
+
+
+def _lazy_batched_server(name):
+    if name == "BatchedServer":                     # compat shim
+        from .serve_lm import BatchedServer
+
+        return BatchedServer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__getattr__ = _lazy_batched_server
 
 
 def _fresh_edges(g, count, rng):

@@ -25,8 +25,8 @@ from torch import nn
 
 from ..core.engine.peel_loop import resolve_device
 
-__all__ = ["dense_init", "embed_init", "RMSNorm", "init_rmsnorm",
-           "rmsnorm", "LayerNorm", "init_layernorm", "layernorm", "SwiGLU",
+__all__ = ["draw", "dense_init", "layer_at", "embed_init", "RMSNorm",
+           "init_rmsnorm", "rmsnorm", "LayerNorm", "init_layernorm", "layernorm", "SwiGLU",
            "init_swiglu", "swiglu", "Dense", "MLP", "init_mlp", "mlp",
            "rope_freqs", "apply_rope", "softmax_cross_entropy"]
 
@@ -56,19 +56,66 @@ def randn(shape, generator: Optional[torch.Generator], device=None
                        device=dev)
 
 
+_DRAW_CHUNK = 1 << 26        # float32 elements drawn at a time
+
+
+def draw(shape, scale: float, dtype, generator: Optional[torch.Generator],
+         device=None, n_stack: Optional[int] = None) -> torch.Tensor:
+    """``scale`` x float32 normal draws, cast to ``dtype``; with
+    ``n_stack`` a leading stack axis of that many independent draws (the
+    reference's ``vmap``'d init).  The draws go into the ``dtype`` tensor
+    at most ``_DRAW_CHUNK`` float32 elements (whole rows) at a time, so a
+    bfloat16 stack never has its float32 image on the device.  On
+    ``device="meta"`` nothing is allocated."""
+    dev = init_device(device, generator)
+    shape = tuple(shape)
+    full = shape if n_stack is None else (n_stack, *shape)
+    out = torch.empty(full, dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return out
+    rows = out.reshape(-1, shape[-1]) if shape else out.reshape(-1, 1)
+    step = max(_DRAW_CHUNK // max(rows.shape[1], 1), 1)
+    for r0 in range(0, rows.shape[0], step):
+        dst = rows[r0:r0 + step]
+        dst.copy_(torch.randn(dst.shape, generator=generator,
+                              dtype=torch.float32, device=dev).mul_(scale))
+    return out
+
+
 def dense_init(generator, d_in: int, d_out: int, dtype=torch.float32,
-               scale=None, *, device=None) -> torch.Tensor:
+               scale=None, *, device=None, n_stack=None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return randn((d_in, d_out), generator, device).mul_(scale).to(dtype)
+    return draw((d_in, d_out), scale, dtype, generator, device, n_stack)
 
 
 def embed_init(generator, vocab: int, d: int, dtype=torch.float32, *,
                device=None) -> torch.Tensor:
-    return randn((vocab, d), generator, device).mul_(0.02).to(dtype)
+    return draw((vocab, d), 0.02, dtype, generator, device)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t)
+
+
+class layer_at:
+    """Layer ``l`` of a stacked module (every leaf with a leading L axis,
+    as the reference's ``vmap``'d init builds it): each parameter reads
+    as the view ``leaf[l]`` (no copy), each submodule as its own
+    ``layer_at``.  The model functions read params by attribute, so they
+    take this view where they take a module."""
+
+    __slots__ = ("_m", "_l")
+
+    def __init__(self, module: nn.Module, l: int):
+        self._m, self._l = module, l
+
+    def __getattr__(self, name):
+        v = getattr(self._m, name)
+        if isinstance(v, torch.Tensor):
+            return v[self._l]
+        if isinstance(v, nn.Module):
+            return layer_at(v, self._l)
+        return v
 
 
 # --------------------------------------------------------------------- #
@@ -80,8 +127,10 @@ class RMSNorm(nn.Module):
         self.scale = _param(scale)
 
 
-def init_rmsnorm(d: int, dtype=torch.float32, *, device=None) -> RMSNorm:
-    return RMSNorm(torch.ones((d,), dtype=dtype, device=init_device(device)))
+def init_rmsnorm(d: int, dtype=torch.float32, *, device=None,
+                 n_stack=None) -> RMSNorm:
+    shape = (d,) if n_stack is None else (n_stack, d)
+    return RMSNorm(torch.ones(shape, dtype=dtype, device=init_device(device)))
 
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -125,10 +174,11 @@ class SwiGLU(nn.Module):
 
 
 def init_swiglu(generator, d: int, f: int, dtype=torch.float32, *,
-                device=None) -> SwiGLU:
-    return SwiGLU(dense_init(generator, d, f, dtype, device=device),
-                  dense_init(generator, d, f, dtype, device=device),
-                  dense_init(generator, f, d, dtype, device=device))
+                device=None, n_stack=None) -> SwiGLU:
+    kw = dict(device=device, n_stack=n_stack)
+    return SwiGLU(dense_init(generator, d, f, dtype, **kw),
+                  dense_init(generator, d, f, dtype, **kw),
+                  dense_init(generator, f, d, dtype, **kw))
 
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:

@@ -249,7 +249,8 @@ def _budget_cases():
     an infeasible budget."""
     return [
         (f"downshift-{case}", case, dict(num_partitions=8),
-         lambda cm: cm["dense_bytes"] - 1) for case in ("powerlaw", "vhub")
+         lambda cm: cm["dense_bytes"] - 1)
+        for case in ("powerlaw", "vhub", "er_dense")
     ] + [
         ("auto_tiled-sparse", "sparse", dict(num_partitions=8),
          lambda cm: (cm["tiled_bytes"] + cm["dense_fixed_bytes"]) // 2),
@@ -286,9 +287,20 @@ def test_admission_matches_reference(name, case, kw, budget_of):
     jplan = JPlanner(jcfg).plan(g)
     if name.startswith("downshift") and (
             tcm["dense_fixed_bytes"] > tcfg.memory_budget_bytes):
+        # the port's FD estimate is under its CD phase here, so the budget
+        # under the plan's bytes is under the CD phase's: no partition
+        # count helps; ``auto`` routes tiled where the tile list fits and
+        # is infeasible where it does not, a dense plan is infeasible
         assert jplan.degraded_from_partitions == 8
+        if tcm["tiled_bytes"] <= tcfg.memory_budget_bytes:
+            assert Planner(tcfg, device=CPU).plan(
+                _tg(g)).representation == "tiled"
+        else:
+            with pytest.raises(PlanInfeasibleError, match="tiled"):
+                Planner(tcfg, device=CPU).plan(_tg(g))
         with pytest.raises(PlanInfeasibleError, match="CD phase alone"):
-            Planner(tcfg, device=CPU).plan(_tg(g))
+            Planner(dataclasses.replace(tcfg, representation="dense"),
+                    device=CPU).plan(_tg(g))
         return
     tplan = Planner(tcfg, device=CPU).plan(_tg(g))
     jd, td = _plan_dicts(jplan, tplan)
@@ -562,3 +574,121 @@ def test_tip_decomposition_queries():
     json.dumps(d)
     with pytest.raises(ValueError, match="EngineConfig or ReceiptConfig"):
         decompose(_tg(g), {"num_partitions": 2}, device=CPU)
+
+
+def _fd_model_peaks(monkeypatch):
+    """Record the FD phase's launches on the CPU: returns (the built
+    stacks, a function of the peak over them in the engine's memory model
+    (``fd.fd_state_bytes`` while a launch is in flight,
+    ``fd.fd_update_bytes`` besides while it drains), in the order the
+    pipeline launched and drained them, since the last call)."""
+    from repro_torch.core.engine import fd
+
+    events, built_all = [], []
+    real_build, real_note = fd.build_level_stack, fd._note_group_run
+
+    def build(group, cfg, plan=None):
+        built = real_build(group, cfg, plan=plan)
+        built_all.append(built)
+        events.append(("launch", built))
+        return built
+
+    def note(built, *args):
+        events.append(("drain", built))
+        return real_note(built, *args)
+
+    monkeypatch.setattr(fd, "build_level_stack", build)
+    monkeypatch.setattr(fd, "_note_group_run", note)
+
+    def peak(rcfg):
+        _, _, w_align = fd._aligns(rcfg)
+        live, top = {}, 0
+        for kind, b in events:
+            n = b["a"].shape[0]
+            if kind == "launch":
+                live[id(b)] = fd.fd_state_bytes(n, b["mm"], b["cc"])
+                top = max(top, sum(live.values()))
+            else:
+                top = max(top, sum(live.values()) + fd.fd_update_bytes(
+                    n, b["mm"], b["cc"], w_align, b["update_mode"] == "b2"))
+                del live[id(b)]
+        events.clear()
+        return top
+
+    return built_all, peak
+
+
+@pytest.mark.parametrize("partitions", [4, 16])
+def test_fd_estimate_predicts_the_engines_laid_out_groups(partitions,
+                                                          monkeypatch):
+    """On the narrow graph whose FD stacks set the card test's peak
+    (``tests/test_torch_gpu.py::
+    test_mesh_plan_peaks_within_its_estimate_where_fd_sets_it``), the FD
+    estimate predicts the engine's subsets (the findHi cuts with their
+    target feedback, the levels the pre-peel drains): its largest
+    stack has the rows of the engine's largest laid-out stack (1,024 at
+    P = 4, 512 at P = 16; the wedge-equipartition guess planned 4,096);
+    the FD phase's peak in the engine's memory model is at or below the
+    plan's bytes (the larger of the CD and the FD counts), which are at
+    most 1.3x of it, and the FD estimate is at most 1.3x of it.  The FD
+    estimate alone is a prediction (0.8x at P = 16: the engine's 256-row
+    group holds 5 subsets, the prediction 3); the run keeps within the
+    plan's bytes either way, here with no group split."""
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.core.engine import fd
+
+    laid_out, model_peak = _fd_model_peaks(monkeypatch)
+    g = graph_from_arrays(*_narrow_fd_graph())
+    cfg = EngineConfig(num_partitions=partitions)
+    planner = Planner(cfg, device=CPU)
+    est = planner._estimate_fd_bytes(g, planner.rcfg)
+    predicted = [s for s in plan_mod._predict_fd_subsets(
+        g, partitions, planner.rcfg.fd_prepeel_levels) if s[0] > 0]
+    ex = Executor(cfg, device=CPU)
+    plan = ex.plan(g)
+    td = ex.decompose(g, plan=plan)
+    engine = model_peak(planner.rcfg)
+    top = fd._level_pad(max(s[0] for s in predicted), 128)
+    assert top == laid_out[0]["mm"] == {4: 1024, 16: 512}[partitions]
+    assert len(laid_out) == td.stats.fd_groups
+    padded = plan.padded_bytes
+    print(f"P={partitions}: FD estimate {est}, over the engine's groups "
+          f"{engine}, ratio {est / engine:.3f}; the plan's bytes {padded}, "
+          f"ratio {padded / engine:.3f}")
+    assert engine <= padded <= 1.3 * engine
+    assert est <= 1.3 * engine
+
+
+@pytest.mark.parametrize("partitions", [4, 16])
+def test_fd_phase_keeps_within_a_plan_short_of_its_groups(partitions,
+                                                          monkeypatch):
+    """A plan whose bytes are under what the engine's shape groups would
+    hold at once (two thirds of the unconstrained FD peak in the engine's
+    memory model): the FD phase launches groups in parts, or drains the
+    one in flight first, and keeps its modelled peak within the plan's
+    bytes; theta, the level sweeps, the wedges and the shape groups equal
+    the unconstrained run's."""
+    laid_out, model_peak = _fd_model_peaks(monkeypatch)
+    g = graph_from_arrays(*_narrow_fd_graph())
+    cfg = EngineConfig(num_partitions=partitions)
+    ex = Executor(cfg, device=CPU)
+    plan = ex.plan(g)
+    free = ex.decompose(g, plan=plan)
+    free_peak, free_launches = model_peak(ex.config), len(laid_out)
+    laid_out.clear()
+    tight = dataclasses.replace(plan, padded_bytes=free_peak * 2 // 3)
+    td = ex.decompose(g, plan=tight)
+    np.testing.assert_array_equal(td.theta, free.theta)
+    for key in ("rho_fd", "wedges_fd", "fd_groups"):
+        assert getattr(td.stats, key) == getattr(free.stats, key), key
+    events_peak = model_peak(ex.config)
+    print(f"P={partitions}: unconstrained {free_peak} bytes in "
+          f"{free_launches} launches; under {tight.padded_bytes}: "
+          f"{events_peak} in {len(laid_out)} launches")
+    assert len(laid_out) > free_launches
+    assert events_peak <= tight.padded_bytes
+
+
+def _narrow_fd_graph():
+    g = powerlaw_bipartite(4096, 256, 20000, seed=3)
+    return g.n_u, g.n_v, g.edges_u, g.edges_v

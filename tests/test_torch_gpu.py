@@ -1209,20 +1209,22 @@ def test_mesh_plan_peaks_within_its_estimate_where_fd_sets_it(card,
                                                               partitions,
                                                               monkeypatch):
     """A (2, 2) mesh of four shards on the card, on a narrow graph whose
-    FD stacks, not the CD matrix, set the plan's estimate: the mesh
-    decompose peaks (``max_memory_allocated`` above what was resident) at
-    or below ``plan.padded_bytes``, which counts the engine's own LPT
-    slots per shard.  The mesh estimate is held to this lower bound only:
-    the test prints it beside the estimate with the earlier slot count
-    (``ceil(n_g / mesh.size)``) and beside the single-device estimate and
-    peak, each as a ratio to its peak, and the estimated FD groups beside
-    the ones the engine laid out, so that what the estimate's excess
-    comes from shows."""
+    FD stacks set the peak: the mesh decompose and the single-device one
+    each peak (``max_memory_allocated`` above what was resident) at or
+    below ``plan.padded_bytes`` and at least 1/1.3 of it.  The FD
+    estimate predicts the engine's subsets (``plan._predict_fd_subsets``)
+    and counts the engine's own LPT slots per shard on the mesh; at P = 4
+    it sets the plan's bytes, at P = 16 the CD phase's count is larger.
+    The FD phase's own peak is at or below the plan's bytes, which it
+    keeps as a budget (``fd._pipeline``).  The test prints each ratio,
+    the estimate with the earlier slot count (``ceil(n_g / mesh.size)``)
+    beside it, and the FD groups the plan predicted beside the ones the
+    engine laid out."""
     import gc
 
     from repro_torch.api import EngineConfig, Executor
     from repro_torch.api import plan as plan_mod
-    from repro_torch.core import distributed
+    from repro_torch.core import distributed, engine
     from repro_torch.launch.mesh import make_mesh
 
     laid_out = []
@@ -1234,6 +1236,20 @@ def test_mesh_plan_peaks_within_its_estimate_where_fd_sets_it(card,
         return sharded, slots
 
     monkeypatch.setattr(distributed, "shard_level_group", recording)
+    # the FD phase's own peak above what was resident when it began
+    fd_peaks = []
+    real_fd = engine.receipt_fd
+
+    def fd_phase(*args, **kwargs):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = real_fd(*args, **kwargs)
+        torch.cuda.synchronize()
+        fd_peaks.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    monkeypatch.setattr(engine, "receipt_fd", fd_phase)
 
     def peak_of(ex, plan):
         torch.cuda.synchronize()
@@ -1241,17 +1257,29 @@ def test_mesh_plan_peaks_within_its_estimate_where_fd_sets_it(card,
         torch.cuda.empty_cache()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        td = ex.decompose(g, plan=plan)
-        torch.cuda.synchronize()
+        peaks = []
+        # the whole run's peak: the FD phase resets the counter, so keep
+        # the larger of what was seen before it and in it
+        real_reset = torch.cuda.reset_peak_memory_stats
+
+        def keep():
+            peaks.append(torch.cuda.max_memory_allocated())
+            real_reset()
+
+        with monkeypatch.context() as mp:
+            mp.setattr(torch.cuda, "reset_peak_memory_stats", keep)
+            td = ex.decompose(g, plan=plan)
+            torch.cuda.synchronize()
         np.testing.assert_array_equal(td.theta, peeling.bup_oracle(g)[0])
-        return torch.cuda.max_memory_allocated() - resident
+        return max(peaks + [torch.cuda.max_memory_allocated()]) - resident
 
     g = powerlaw_bipartite(4096, 256, 20000, seed=3)
     mesh = make_mesh((2, 2), ("data", "model"), devices=[card] * 4)
     cfg = EngineConfig(num_partitions=partitions)
     ex = Executor(cfg, mesh=mesh)
     plan = ex.plan(g)
-    assert plan.padded_bytes > plan.cost_model["dense_fixed_bytes"]
+    assert (plan.padded_bytes > plan.cost_model["dense_fixed_bytes"]) == (
+        partitions == 4)
     single = Executor(cfg)
     single_plan = single.plan(g)
     with monkeypatch.context() as mp:
@@ -1269,12 +1297,24 @@ def test_mesh_plan_peaks_within_its_estimate_where_fd_sets_it(card,
           f"count: padded_bytes {earlier} ratio {earlier / peak:.3f} | "
           f"single device: padded_bytes {single_plan.padded_bytes} peak "
           f"{single_peak} ratio {single_plan.padded_bytes / single_peak:.3f}")
-    print(f"mesh P={partitions}: estimated FD groups (count x rows x cols) "
-          + ", ".join(f"{e['count']}x{e['rows']}x{e['cols']}"
-                      for e in plan.est_fd_groups)
+    planner = plan_mod.Planner(cfg, device=card)
+    fd_mesh = planner._estimate_fd_bytes(g, planner.rcfg, mesh=mesh)
+    fd_one = planner._estimate_fd_bytes(g, planner.rcfg)
+    print(f"FD phase P={partitions}: mesh FD estimate {fd_mesh} FD peak "
+          f"{fd_peaks[-2]} ratio {fd_mesh / fd_peaks[-2]:.3f} | single "
+          f"device FD estimate {fd_one} FD peak {fd_peaks[-1]} ratio "
+          f"{fd_one / fd_peaks[-1]:.3f}")
+    print(f"mesh P={partitions}: predicted FD subsets (survivor rows, "
+          "columns) " + ", ".join(
+              f"({s[0]}, {s[1]})"
+              for s in plan_mod._predict_fd_subsets(
+                  g, partitions, planner.rcfg.fd_prepeel_levels))
           + " | laid out ((G, rows, cols), slots per shard) "
           + ", ".join(str(x) for x in laid_out))
-    assert peak <= plan.padded_bytes
+    assert peak <= plan.padded_bytes <= 1.3 * peak
+    assert single_peak <= single_plan.padded_bytes <= 1.3 * single_peak
+    assert fd_peaks[-2] <= plan.padded_bytes
+    assert fd_peaks[-1] <= single_plan.padded_bytes
 
 
 # --------------------------------------------------------------------- #
@@ -1376,3 +1416,73 @@ def test_checkpoint_round_trip_on_card(card, tmp_path):
     assert [p for p, _ in a] == [p for p, _ in b]
     for (_, x), (_, y) in zip(a, b):
         assert y.device.type == "cuda" and torch.equal(x, y)
+
+
+# --------------------------------------------------------------------- #
+# the language-model serving path on the card
+# --------------------------------------------------------------------- #
+def _lm_pair(card, arch):
+    import copy
+
+    from repro_torch.configs import get_bundle
+
+    bundle = get_bundle(arch, reduced=True)
+    cpu = bundle.init_params(torch.Generator().manual_seed(0), device="cpu")
+    return bundle, cpu, copy.deepcopy(cpu).to(card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["minitron-8b", "deepseek-v3-671b"])
+def test_lm_decode_and_prefill_on_card_match_cpu(card, arch, monkeypatch):
+    """A reduced LM (GQA; MLA + sigmoid-routed MoE + MTP) on the card
+    against the CPU from the same params, float32 with TF32 off:
+    ``lm_prefill`` and eight decode steps within rtol / atol 1e-4, the
+    card's cache written in place, and no hand kernel launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf_lib
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    bundle, cpu, dev = _lm_pair(card, arch)
+    cfg = bundle.cfg
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 16), dtype=np.int32))
+    ops.reset_launch_counts()
+    pairs = [(tf_lib.lm_prefill(dev, toks.to(card), cfg),
+              tf_lib.lm_prefill(cpu, toks, cfg))]
+    c_dev = tf_lib.init_cache(cfg, 2, 8, device=card)
+    c_cpu = tf_lib.init_cache(cfg, 2, 8, device="cpu")
+    first = {k: v for k, v in c_dev.items() if torch.is_tensor(v)}
+    for t in range(8):
+        a, c_dev = tf_lib.lm_decode_step(dev, c_dev, toks[:, t].to(card),
+                                         cfg)
+        b, c_cpu = tf_lib.lm_decode_step(cpu, c_cpu, toks[:, t], cfg)
+        pairs.append((a, b))
+    for a, b in pairs:
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    assert all(c_dev[k] is v for k, v in first.items())
+    assert c_dev["len"] == 8
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.gpu
+def test_batched_server_on_card_defaults_to_it(card):
+    """``BatchedServer`` with no device serves on the card (params drawn
+    there from a generator seeded 0): tokens in range, the cache length,
+    no hand kernel launched."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_lm import BatchedServer
+
+    bundle = get_bundle("deepseek-v2-236b", reduced=True)
+    server = BatchedServer(bundle, 4, 28)
+    assert server.device.type == "cuda"
+    prompts = np.random.default_rng(0).integers(
+        0, bundle.cfg.vocab, (4, 8), dtype=np.int32)
+    ops.reset_launch_counts()
+    out = server.run(prompts, 16)
+    assert out.shape == (4, 16) and 0 <= out.min() and \
+        out.max() < bundle.cfg.vocab
+    assert server.cache["len"] == 24
+    assert not any(ops.launch_counts().values())

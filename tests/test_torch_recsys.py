@@ -276,9 +276,12 @@ def test_bundle_specs_and_abstract_params_match_reference():
 def test_get_bundle_of_an_arch_the_port_lacks_raises():
     from repro.configs import ALL_ARCHS as J_ALL
 
-    assert ALL_ARCHS == [ARCH] and set(ALL_ARCHS) <= set(J_ALL)
+    # the language models and the two-tower, in the reference's order;
+    # the GNN family is not ported yet
+    assert ALL_ARCHS == [a for a in J_ALL if a in ALL_ARCHS]
+    assert ALL_ARCHS[-1] == ARCH and len(ALL_ARCHS) == 6
     with pytest.raises(KeyError):
-        get_bundle("minitron-8b")
+        get_bundle("meshgraphnet")
     with pytest.raises(KeyError):
         get_bundle("no-such-arch")
 
