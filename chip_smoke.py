@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py          # needs one CUDA card; about 8-13 minutes
+    python3 chip_smoke.py          # needs one CUDA card; about 9-14 minutes
 
 Phases (any failure exits nonzero; no phase is caught and ignored):
 
@@ -158,6 +158,24 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    decode against a per-token expert loop and ``mla_decode`` against
    ``mla_forward``; the five reduced archs on the card against the CPU
    (f32, 1e-4); ``serve_lm.main`` for each arch (phase ``lm_phase``);
+5i. the training path of the GNN family and the LM (``models.gnn``,
+   ``models.sampler``, the GNN batches and bundle, remat in
+   ``models.transformer``, ``launch.train`` for every arch), no hand
+   kernel on it (every count stays 0): the four GNNs at their full
+   published widths on their registry cells, 3 train steps each (ms by
+   CUDA events, the idle share under the profiler, the peak above
+   resident, every param changed): GraphSAGE's ``train_sampled`` on
+   ``minibatch_lg`` with the sampler on the card over its 232,965-node,
+   114,615,892-edge graph (the card's neighbour table ``torch.equal`` to
+   the host build, run in a worker started with phase 2's; sampled
+   neighbours in their table rows), MeshGraphNet and GraphCast on
+   ``minibatch_lg``'s graph view and grid, DimeNet on ``molecule``;
+   minitron-8b at full widths cut to 4 layers trained at (1, 4,096)
+   tokens with remat (ms per step, the peak against P + AdamW state +
+   gradients + logits), remat on against off at 2 layers (equal losses,
+   gradients within relative L2 1e-2); the reduced GNNs (and
+   ``train_sampled``) on the card against the CPU (rtol 1e-4 / atol
+   1e-5); ``train.main`` for all 10 archs (``gnn_lm_train_phase``);
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
    on the sp_mid and sp_large graphs of the reference's benchmark ladder
@@ -230,6 +248,22 @@ LM_F32_TOL = 1e-4
 LM_V2_LAYERS = 3
 # device memory a decode or prefill may hold above its params and cache
 LM_ACT_SLACK = 2e9
+# the GNN and LM training path (phase 5i): GNN_STEPS train steps of each
+# GNN at full width on its registry cell (the GraphSAGE cell's graph from
+# random_graph seed GNN_GRAPH_SEED, its neighbour table GNN_MAX_DEG wide,
+# the reference builder's width); the card against the CPU at the reduced
+# configs to rtol / atol GNN_F32_TOL; minitron-8b at full widths cut to
+# LM_TRAIN_LAYERS layers for LM_TRAIN_STEPS steps at train_4k's sequence
+# (batch 1); remat on against off at LM_REMAT_LAYERS layers, gradients
+# within a relative L2 of LM_REMAT_REL_L2
+GNN_STEPS = 3
+GNN_GRAPH_SEED = 0
+GNN_MAX_DEG = 32
+GNN_F32_TOL = (1e-4, 1e-5)
+LM_TRAIN_LAYERS = 4
+LM_TRAIN_STEPS = 3
+LM_REMAT_LAYERS = 2
+LM_REMAT_REL_L2 = 1e-2
 
 
 def log(*args):
@@ -2403,6 +2437,404 @@ def lm_phase(torch, np, dev, launches, ops):
     arm_done("arm 5 (the CLI)")
 
 
+def host_nbr_table(n_nodes, n_edges, seed, max_deg):
+    """Phase 5i's host build of the GraphSAGE cell's neighbour table (a
+    worker process: the same edges, ``build_nbr_table`` on the CPU)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.models.sampler import build_nbr_table
+
+    snd, rcv = random_graph(n_nodes, n_edges, seed)
+    t0 = time.perf_counter()
+    table, deg = build_nbr_table(snd, rcv, n_nodes, max_deg, device="cpu")
+    return table.numpy(), deg.numpy(), time.perf_counter() - t0
+
+
+def check_specs(tag, batch, specs):
+    """The batch's keys, shapes and dtypes are the bundle's input specs of
+    its cell; returns the batch bytes."""
+    if sorted(batch) != sorted(specs):
+        raise AssertionError(f"{tag}: batch keys {list(batch)} against the "
+                             f"specs' {list(specs)}")
+    for k, v in specs.items():
+        if tuple(batch[k].shape) != v.shape or batch[k].dtype != v.dtype:
+            raise AssertionError(f"{tag}: {k} {tuple(batch[k].shape)} "
+                                 f"{batch[k].dtype} against the spec {v}")
+    return sum(t.numel() * t.element_size() for t in batch.values())
+
+
+def timed_steps(torch, np, step, state, batches, tag):
+    """One train step per batch (``batches``: an iterable of batches or of
+    functions making one), each step timed by CUDA events; finite losses.
+    Returns (state, ms per step, losses)."""
+    ms, losses = [], []
+    for b in batches:
+        batch = b() if callable(b) else b
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"{tag}: step {len(ms) + 1} loss {loss}")
+        ms.append(start.elapsed_time(stop))
+        losses.append(loss)
+    return state, ms, losses
+
+
+def gnn_full_arm(torch, np, dev, launches, ops, arch, cell, make_batches):
+    """One full-width GNN arm of phase 5i: the registry's full config and
+    its ``cell``'s step on the card, params from a seeded generator,
+    GNN_STEPS steps on the batches ``make_batches(bundle, gen)`` returns
+    (each held to the cell's input specs), every param changed, the ms of
+    steps 2-3, the peak above resident; one more step profiled."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.train.train_step import init_train_state
+
+    tag = f"gnn_{arch}"
+    bundle = get_bundle(arch, reduced=False)
+    kind, step = bundle.step_for(cell)
+    specs = bundle.input_specs(cell)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = bundle.init_params(gen)
+    state = init_train_state(params, bundle.opt_cfg)
+    n_params = sum(p.numel() for p in params.parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    before = [p.detach().clone() for p in params.parameters()]
+    batches = make_batches(bundle, gen)
+    checked = []
+
+    def checked_batch(b):
+        def make():
+            batch = b() if callable(b) else b
+            checked.append(check_specs(tag, batch, specs))
+            return batch
+        return make
+
+    (state, ms, losses), wall, _, _ = counted(
+        torch, ops, launches, tag,
+        lambda: timed_steps(torch, np, step, state,
+                            [checked_batch(b) for b in batches], tag))
+    ran = {k: v for k, v in launches[tag].items() if v}
+    if ran:
+        raise AssertionError(f"{tag}: the GNN path launched {ran}")
+    same = [n for (n, p), b in zip(params.named_parameters(), before)
+            if torch.equal(p.detach(), b)]
+    if same:
+        raise AssertionError(f"{tag}: params unchanged after {GNN_STEPS} "
+                             f"steps: {same}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag}: {bundle.cfg.name} full config, cell {cell} ({kind}), "
+        f"{n_params} params ({p_bytes} bytes), batch {checked[0]} bytes "
+        f"(== the cell's specs); losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + " | step ms " + ", ".join(f"{x:.3f}" for x in ms)
+        + f" (steps 2-{GNN_STEPS} mean {sum(ms[1:]) / len(ms[1:]):.3f}) | "
+        f"peak {peak - resident} bytes above the {resident} resident | "
+        f"every param changed | wall {wall:.3f} s")
+    last = batches[-1]
+    batch = last() if callable(last) else last
+    where_the_time_goes(torch, lambda: step(state, batch), top=8)
+    del state, params, before, batches, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gnn_lm_train_phase(torch, np, dev, launches, ops, oracles):
+    """Phase 5i: the training path of the GNN family and the LM (no hand
+    kernel runs on it: every launch count stays 0).
+
+    1. the four GNNs at their full published widths, each on its
+       registry cell (``gnn_full_arm``): graphsage-reddit's
+       ``minibatch_lg`` through ``train_sampled``, the sampler on the
+       card over the cell's 232,965-node, 114,615,892-edge graph (the
+       neighbour table built on the card ``torch.equal`` to the port's
+       host build, run in a worker; every sampled neighbour in its node's
+       table row, -1 only at degree 0; the table build's and the
+       sampler's times); meshgraphnet on ``minibatch_lg``'s graph view,
+       dimenet on ``molecule``, graphcast on ``minibatch_lg``'s grid;
+    2. minitron-8b at full widths cut to LM_TRAIN_LAYERS layers, batch 1
+       of ``train_4k``'s 4,096 tokens, remat on: LM_TRAIN_STEPS steps
+       timed, the peak against P + AdamW state + gradients + logits; at
+       LM_REMAT_LAYERS layers the loss with remat on and off equal, the
+       gradients within relative L2 LM_REMAT_REL_L2;
+    3. the card against the CPU at the reduced configs: two train steps
+       (AdamW without warmup) of each GNN and of GraphSAGE's
+       ``train_sampled`` on the same blocks, losses and params within
+       rtol / atol GNN_F32_TOL;
+    4. ``train.main(["--arch", a, "--steps", "3"])`` for every arch:
+       rc 0."""
+    import copy
+
+    from repro_torch.configs import ALL_ARCHS, get_bundle
+    from repro_torch.configs.families import (_gnn_graph_dims,
+                                              make_gnn_bundle,
+                                              make_lm_bundle)
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.data import synthetic as syn
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.sampler import (build_nbr_table, sample_block,
+                                            sample_blocks)
+    from repro_torch.train.train_step import init_train_state
+
+    t_arm = time.perf_counter()
+
+    def arm_done(what):
+        nonlocal t_arm
+        log(f"train: {what} in {time.perf_counter() - t_arm:.1f} s")
+        t_arm = time.perf_counter()
+
+    # ---- 1. the four GNNs at full width ----
+    cell = GNN_SHAPES["minibatch_lg"]
+    n_nodes, n_edges = cell.n_nodes, cell.n_edges
+    snd, rcv = syn.random_graph(n_nodes, n_edges, GNN_GRAPH_SEED)
+    t0 = time.perf_counter()
+    snd_d = torch.from_numpy(snd).to(dev)
+    rcv_d = torch.from_numpy(rcv).to(dev)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    del snd, rcv
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table, deg = build_nbr_table(snd_d, rcv_d, n_nodes, GNN_MAX_DEG,
+                                 device=dev)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    del snd_d, rcv_d
+    host_t, host_d, host_s = oracles[("nbr_table",)].result()
+    if not (torch.equal(table.cpu(), torch.from_numpy(host_t))
+            and torch.equal(deg.cpu(), torch.from_numpy(host_d))):
+        raise AssertionError("gnn nbr_table: the card's table differs from "
+                             "the host build of the same edges")
+    log(f"gnn nbr_table: {n_nodes} nodes, {n_edges} edges (max_deg "
+        f"{GNN_MAX_DEG}): built on the card in {t_table * 1e3:.3f} ms "
+        f"(edges uploaded in {upload:.3f} s), torch.equal to the host build "
+        f"({host_s:.2f} s in a worker); {int((deg == GNN_MAX_DEG).sum())} "
+        f"senders truncated, {int((deg == 0).sum())} isolated")
+    sample_ms = []
+
+    def sage_batches(bundle, gen):
+        cfg = bundle.cfg
+        feats = torch.randn((n_nodes, cfg.d_in), generator=gen, device=dev)
+        # the sampled neighbours of the seeds and of their frontier: in
+        # their node's table row, -1 exactly where the degree is 0
+        seeds = torch.randperm(n_nodes, generator=gen, device=dev)[
+            :cell.batch_nodes]
+        frontier = seeds
+        for f in cell.fanout:
+            nb, nxt = sample_block(gen, table, deg, frontier, f)
+            rows = table[frontier.long()]
+            hit = (nb[:, :, None] == rows[:, None, :]).any(-1)
+            isolated = (deg[frontier.long()] == 0)[:, None]
+            if not bool(torch.where(nb >= 0, hit, isolated).all()) or \
+                    not bool(((nb == -1) == isolated.expand_as(nb)).all()):
+                raise AssertionError("gnn sampler: a neighbour outside its "
+                                     "node's table row")
+            frontier = nxt
+        log(f"gnn sampler: {cell.batch_nodes} seeds, fanout {cell.fanout}: "
+            "every sampled neighbour in its node's table row, -1 only at "
+            "degree 0")
+
+        def make():
+            seeds = torch.randperm(n_nodes, generator=gen, device=dev)[
+                :cell.batch_nodes].to(torch.int32)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            blocks = sample_blocks(gen, table, deg, feats, seeds,
+                                   cell.fanout)
+            stop.record()
+            torch.cuda.synchronize()
+            sample_ms.append(start.elapsed_time(stop))
+            blocks["labels"] = torch.randint(
+                0, cfg.n_classes, (cell.batch_nodes,), generator=gen,
+                device=dev, dtype=torch.int32)
+            return blocks
+
+        return [make] * GNN_STEPS
+
+    gnn_full_arm(
+        torch, np, dev, launches, ops, "graphsage-reddit", "minibatch_lg",
+        sage_batches)
+    log(f"gnn sampler: sample_blocks ms per batch (CUDA events) "
+        + ", ".join(f"{x:.3f}" for x in sample_ms))
+    del table, deg
+    n_mg, e_mg = _gnn_graph_dims(cell)
+    gnn_full_arm(
+        torch, np, dev, launches, ops, "meshgraphnet", "minibatch_lg",
+        lambda b, gen: [syn.meshgraphnet_batch(b.cfg, n_mg, e_mg, seed=s,
+                                               device=dev)
+                        for s in range(GNN_STEPS)])
+    mol = GNN_SHAPES["molecule"]
+    gnn_full_arm(
+        torch, np, dev, launches, ops, "dimenet", "molecule",
+        lambda b, gen: [syn.dimenet_batch(
+            b.cfg, mol.batch * mol.n_nodes, mol.batch * mol.n_edges,
+            n_graphs=mol.batch, triplet_fanout=mol.triplet_fanout, seed=s,
+            device=dev) for s in range(GNN_STEPS)])
+    gnn_full_arm(
+        torch, np, dev, launches, ops, "graphcast", "minibatch_lg",
+        lambda b, gen: [syn.graphcast_batch(b.cfg, n_mg, seed=s, device=dev)
+                        for s in range(GNN_STEPS)])
+    arm_done("arm 1 (the four GNNs at full width)")
+
+    # ---- 2. minitron-8b training at full widths, 4 layers ----
+    base = get_bundle("minitron-8b", reduced=False)
+    seq = base.shapes["train_4k"].seq_len
+    bundle = make_lm_bundle(base.arch_id, dataclasses.replace(
+        base.cfg, n_layers=LM_TRAIN_LAYERS), base.opt_cfg)
+    cfg = bundle.cfg
+    n_params = sum(p.numel() for p in bundle.abstract_params().parameters())
+    p_bytes = n_params * torch.finfo(cfg.param_dtype).bits // 8
+    state_bytes = 2 * n_params * torch.finfo(
+        bundle.opt_cfg.state_dtype).bits // 8
+    # the logits in bf16, their float32 image in the loss, and the
+    # gradient of each
+    logit_bytes = 2 * seq * cfg.vocab * (2 + 4)
+    reckoned = 2 * p_bytes + state_bytes + logit_bytes
+    log(f"lm_train: {cfg.name} at full widths, {cfg.n_layers} layers, "
+        f"{n_params} params: P = {p_bytes} bytes ({cfg.param_dtype}), "
+        f"AdamW m + v {state_bytes} ({bundle.opt_cfg.state_dtype}), "
+        f"gradients P, logits + their float32 image and gradients "
+        f"{logit_bytes}: reckoned {reckoned} bytes; batch 1 x {seq} tokens, "
+        f"remat {cfg.remat}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = bundle.init_params(gen)
+    state = init_train_state(params, bundle.opt_cfg)
+    step = bundle._steps["train"]
+    batches = [syn.lm_train_batch(cfg.vocab, 1, seq, seed=s, device=dev)
+               for s in range(LM_TRAIN_STEPS)]
+    (state, ms, losses), wall, _, _ = counted(
+        torch, ops, launches, "lm_train",
+        lambda: timed_steps(torch, np, step, state, batches, "lm_train"))
+    peak = torch.cuda.max_memory_allocated() - resident
+    ran = {k: v for k, v in launches["lm_train"].items() if v}
+    if ran:
+        raise AssertionError(f"lm_train: the LM path launched {ran}")
+    # forward and backward of every weight but the embedding table (a
+    # gather): 6 flop per weight and token
+    flops = 6.0 * seq * (n_params - cfg.vocab * cfg.d_model)
+    log(f"lm_train: losses " + ", ".join(f"{x:.6f}" for x in losses)
+        + " | step ms " + ", ".join(f"{x:.3f}" for x in ms)
+        + f" (steps 2-{LM_TRAIN_STEPS} mean {sum(ms[1:]) / len(ms[1:]):.3f})"
+        f" | the weights' matmuls 6 (N - V d) S = {flops:.4g} flop = "
+        f"{flops / 989e12 * 1e3:.3f} ms at 989 TFLOP/s bf16 | peak {peak} "
+        f"bytes above resident = {peak / reckoned:.3f} x reckoned")
+    where_the_time_goes(torch, lambda: step(state, batches[0]), top=8)
+    del state, params, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    arm_done("arm 2 (minitron-8b trained, 4 layers)")
+
+    small_cfg = dataclasses.replace(base.cfg, n_layers=LM_REMAT_LAYERS)
+    on = make_lm_bundle(base.arch_id, small_cfg, base.opt_cfg)
+    off = make_lm_bundle(base.arch_id, dataclasses.replace(
+        small_cfg, remat=False), base.opt_cfg)
+    params = on.init_params(torch.Generator(device=dev).manual_seed(1))
+    leaves = list(params.parameters())
+    batch = syn.lm_train_batch(cfg.vocab, 1, seq, seed=7, device=dev)
+    got = {}
+    for name, b in (("on", on), ("off", off)):
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.enable_grad():
+            loss = b._loss_fn(params, batch)[0]
+            grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        got[name] = (loss.detach(), grads,
+                     torch.cuda.max_memory_allocated() - base_mem)
+        del loss, grads
+    (l_on, g_on, pk_on), (l_off, g_off, pk_off) = got["on"], got["off"]
+    num = sum(float(torch.sum((a.double() - b.double()) ** 2))
+              for a, b in zip(g_on, g_off))
+    den = sum(float(torch.sum(b.double() ** 2)) for b in g_off)
+    err = (num / den) ** 0.5
+    log(f"lm remat: {LM_REMAT_LAYERS} layers, 1 x {seq} tokens: loss remat "
+        f"on {float(l_on):.9f}, off {float(l_off):.9f} (equal: "
+        f"{bool(torch.equal(l_on, l_off))}); gradients relative L2 "
+        f"{err:.3e} (limit {LM_REMAT_REL_L2}); peak above the params "
+        f"{pk_on} bytes on, {pk_off} off")
+    if not torch.equal(l_on, l_off):
+        raise AssertionError(f"lm remat: loss {float(l_on)} on, "
+                             f"{float(l_off)} off")
+    if not err <= LM_REMAT_REL_L2:
+        raise AssertionError(f"lm remat: gradients relative L2 {err}")
+    del got, g_on, g_off, params, leaves, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    arm_done("arm 2b (remat on against off)")
+
+    # ---- 3. the card against the CPU at the reduced configs ----
+    rtol, atol = GNN_F32_TOL
+    worst = 0.0
+    cases = []
+    for arch in ("meshgraphnet", "graphsage-reddit", "dimenet",
+                 "graphcast"):
+        cases.append((arch, "train", lambda c, a=arch, s=0: (
+            train_cli.make_batch_fn(get_bundle(a, reduced=True), 8, 64,
+                                    device="cpu")(s))))
+    cases.append(("graphsage-reddit", "train_sampled", lambda c, s=0: (
+        syn.graphsage_sampled_batch(c, batch_nodes=32,
+                                    fanouts=c.sample_sizes, n_nodes=500,
+                                    n_edges=2500, seed=s, device="cpu"))))
+    for arch, kind, make in cases:
+        small = get_bundle(arch, reduced=True)
+        small = make_gnn_bundle(arch, small.cfg, dataclasses.replace(
+            small.opt_cfg, warmup_steps=0, schedule="constant"))
+        step = small._steps[kind]
+        cpu = small.init_params(torch.Generator().manual_seed(0))
+        card = copy.deepcopy(cpu).to(dev)
+        s_cpu = init_train_state(cpu, small.opt_cfg)
+        s_dev = init_train_state(card, small.opt_cfg)
+        for s in range(2):
+            batch = make(small.cfg, s=s)
+            s_cpu, m_cpu = step(s_cpu, batch)
+            s_dev, m_dev = step(s_dev, {k: v.to(dev)
+                                        for k, v in batch.items()})
+            a_, b_ = float(m_cpu["loss"]), float(m_dev["loss"])
+            if abs(a_ - b_) > atol + rtol * abs(a_):
+                raise AssertionError(f"gnn card vs CPU: {arch} {kind} step "
+                                     f"{s + 1} loss {b_} against {a_}")
+        for (n_, a), (_, b) in zip(cpu.named_parameters(),
+                                   card.named_parameters()):
+            a, b = a.detach().double(), b.detach().cpu().double()
+            if not bool(((a - b).abs() <= atol + rtol * a.abs()).all()):
+                raise AssertionError(f"gnn card vs CPU: {arch} {kind} {n_} "
+                                     "differs")
+            worst = max(worst, float((a - b).abs().max()))
+    log(f"gnn card vs CPU: {len(cases)} reduced cases (the four GNNs' "
+        f"train, GraphSAGE's train_sampled on the same blocks), two steps "
+        f"each: losses and params within rtol {rtol} / atol {atol} (largest "
+        f"absolute difference {worst:.3e})")
+    arm_done("arm 3 (card vs CPU)")
+
+    # ---- 4. the CLI, the reference's defaults ----
+    for arch in ALL_ARCHS:
+        ops.reset_launch_counts()
+        rc = train_cli.main(["--arch", arch, "--steps", "3"])
+        if rc != 0:
+            raise AssertionError(f"train --arch {arch}: rc {rc}")
+        launches[f"train_cli_{arch}"] = ops.launch_counts()
+    log(f"train cli: train.main(['--arch', a, '--steps', '3']) rc 0 for "
+        f"{ALL_ARCHS}")
+    arm_done("arm 4 (the CLI)")
+
+
 def sparse_edge_supports(np, a, eu, ev):
     """Closed-form edge supports of a card matrix at the slots, from a
     scipy sparse int64 product on the host (the slots' absent cells 0)."""
@@ -2430,6 +2862,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
 
+    from repro_torch.configs.shapes import GNN_SHAPES
     from repro_torch.core.graph import BipartiteGraph, powerlaw_bipartite
 
     # the plain versions' float32 products stay full float32
@@ -2467,6 +2900,11 @@ def main() -> int:
         for frac in REFRESH_FRACS:
             oracles[("tip", frac)] = pool.submit(
                 exact_theta_of, *arrays(mutations[frac][0]))
+        # phase 5i's host build of the GraphSAGE cell's neighbour table
+        cell = GNN_SHAPES["minibatch_lg"]
+        oracles[("nbr_table",)] = pool.submit(
+            host_nbr_table, cell.n_nodes, cell.n_edges, GNN_GRAPH_SEED,
+            GNN_MAX_DEG)
         return run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
                           wing_mutation, oracles, t_start)
     finally:
@@ -3201,6 +3639,11 @@ def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
     t0 = time.perf_counter()
     lm_phase(torch, np, dev, launches, ops)
     log(f"lm: phase 5h in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 5i. the training path of the GNN family and the LM ----------- #
+    t0 = time.perf_counter()
+    gnn_lm_train_phase(torch, np, dev, launches, ops, oracles)
+    log(f"train: phase 5i in {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. crossover: staircase + graph against tiled ---------------- #
     # the full-size graph's walls are phase 5's timed runs: the kernels and

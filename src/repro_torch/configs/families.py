@@ -13,8 +13,8 @@ the tests need:
 Shapes are the assigned public shape sets (``configs/shapes.py``); steps
 are functions of (state|params, batch).  The sharding methods of the
 reference's Bundle (``param_shardings``, ``input_shardings``,
-``state_shardings``) wait for the port's sharding rules (ROADMAP.md,
-queue 1).
+``state_shardings``) and the GNN family's input shardings wait for the
+port's sharding rules (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -23,13 +23,15 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..models import gnn as gnn_lib
 from ..models import recsys as rec_lib
 from ..models import transformer as tf_lib
 from ..train.optimizer import AdamWConfig
 from ..train.train_step import init_train_state, make_train_step
 from . import shapes as shp
 
-__all__ = ["ShapeDtype", "Bundle", "make_lm_bundle", "make_recsys_bundle"]
+__all__ = ["ShapeDtype", "Bundle", "make_lm_bundle", "make_gnn_bundle",
+           "make_recsys_bundle"]
 
 _META = torch.device("meta")
 
@@ -137,6 +139,146 @@ def make_lm_bundle(arch_id: str, cfg: tf_lib.LMConfig,
             "serve_decode": serve_decode,
         },
         _specs_fn=lambda sn: _lm_specs(cfg, shapes, sn),
+    )
+
+
+# ===================================================================== #
+# GNN family
+# ===================================================================== #
+def _round_up(n, m=8):
+    return ((n + m - 1) // m) * m
+
+
+def _gnn_graph_dims(shape) -> Tuple[int, int]:
+    """(n_nodes, n_edges) for the generic subgraph view of a shape."""
+    if shape.kind == "minibatch":
+        f1, f2 = shape.fanout
+        n = shape.batch_nodes * (1 + f1 + f1 * f2)
+        e = shape.batch_nodes * (f1 + f1 * f2)
+        return _round_up(n, 128), _round_up(e, 128)
+    if shape.kind == "molecule":
+        return shape.batch * shape.n_nodes, shape.batch * shape.n_edges
+    return _round_up(shape.n_nodes, 128), _round_up(shape.n_edges, 128)
+
+
+def _gnn_specs(arch_id, cfg, shapes, shape_name):
+    s = shapes[shape_name]
+    f32, i32 = torch.float32, torch.int32
+    SD = ShapeDtype
+
+    if arch_id == "graphsage-reddit" and s.kind == "minibatch":
+        # native sampled-block structure
+        f1, f2 = s.fanout
+        b = s.batch_nodes
+        d = cfg.d_in
+        specs = {
+            "feats_l0": SD((b, d), f32),
+            "feats_l1": SD((b * f1, d), f32),
+            "feats_l2": SD((b * f1 * f2, d), f32),
+            "idx_l0": SD((b, f1), i32),
+            "idx_l1": SD((b * f1, f2), i32),
+            "labels": SD((b,), i32),
+        }
+        return "train_sampled", specs
+
+    n, e = _gnn_graph_dims(s)
+    base = {
+        "senders": SD((e,), i32),
+        "receivers": SD((e,), i32),
+        "edge_mask": SD((e,), f32),
+    }
+    if arch_id == "meshgraphnet":
+        specs = dict(base)
+        specs["node_feats"] = SD((n, cfg.d_node_in), f32)
+        specs["edge_feats"] = SD((e, cfg.d_edge_in), f32)
+        specs["targets"] = SD((n, cfg.d_out), f32)
+        return "train", specs
+    if arch_id == "graphsage-reddit":
+        specs = dict(base)
+        specs["node_feats"] = SD((n, cfg.d_in), f32)
+        specs["labels"] = SD((n,), i32)
+        specs["node_mask"] = SD((n,), f32)
+        return "train", specs
+    if arch_id == "dimenet":
+        t = _round_up(e * s.triplet_fanout, 128)
+        specs = dict(base)
+        specs["node_feats"] = SD((n, cfg.d_node_in), f32)
+        specs["positions"] = SD((n, 3), f32)
+        specs["trip_kj"] = SD((t,), i32)
+        specs["trip_ji"] = SD((t,), i32)
+        specs["trip_mask"] = SD((t,), f32)
+        if s.kind == "molecule":
+            specs["graph_id"] = SD((n,), i32)
+            specs["targets"] = SD((s.batch,), f32)
+        else:
+            specs["targets"] = SD((1,), f32)
+        return "train", specs
+    if arch_id == "graphcast":
+        nm = cfg.n_mesh_nodes_padded
+        em = cfg.n_mesh_edges_padded
+        e_g2m, e_m2g = 4 * n, 3 * n
+        specs = {
+            "grid_feats": SD((n, cfg.n_vars), f32),
+            "mesh_feats": SD((nm, 4), f32),
+            "g2m_senders": SD((e_g2m,), i32),
+            "g2m_receivers": SD((e_g2m,), i32),
+            "g2m_feats": SD((e_g2m, 4), f32),
+            "g2m_mask": SD((e_g2m,), f32),
+            "mesh_senders": SD((em,), i32),
+            "mesh_receivers": SD((em,), i32),
+            "mesh_efeats": SD((em, 4), f32),
+            "mesh_mask": SD((em,), f32),
+            "m2g_senders": SD((e_m2g,), i32),
+            "m2g_receivers": SD((e_m2g,), i32),
+            "m2g_feats": SD((e_m2g, 4), f32),
+            "m2g_mask": SD((e_m2g,), f32),
+            "targets": SD((n, cfg.n_vars), f32),
+        }
+        return "train", specs
+    raise KeyError(arch_id)
+
+
+_GNN_MODELS = {
+    # arch -> (init, loss of (params, batch, cfg))
+    "meshgraphnet": (gnn_lib.init_meshgraphnet, gnn_lib.meshgraphnet_loss),
+    "graphsage-reddit": (gnn_lib.init_graphsage, gnn_lib.graphsage_loss),
+    "dimenet": (gnn_lib.init_dimenet, gnn_lib.dimenet_loss),
+    "graphcast": (gnn_lib.init_graphcast, gnn_lib.graphcast_loss),
+}
+
+
+def make_gnn_bundle(arch_id: str, cfg,
+                    opt_cfg: Optional[AdamWConfig] = None) -> Bundle:
+    """The GNN bundle: ``train`` (the full-graph / batched loss) and
+    ``train_sampled`` (GraphSAGE's sampled blocks; the other archs' loss
+    again)."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    shapes = shp.GNN_SHAPES
+    if arch_id not in _GNN_MODELS:
+        raise KeyError(arch_id)
+    init, loss_of = _GNN_MODELS[arch_id]
+
+    def loss(p, b):
+        return loss_of(p, b, cfg), {}
+
+    loss_sampled = loss
+    if arch_id == "graphsage-reddit":
+        def loss_sampled(p, b):
+            return gnn_lib.graphsage_loss(p, b, cfg, mode="sampled"), {}
+
+    return Bundle(
+        arch_id=arch_id,
+        family="gnn",
+        cfg=cfg,
+        shapes=shapes,
+        opt_cfg=opt_cfg,
+        _loss_fn=loss,
+        _init_fn=lambda gen, device: init(gen, cfg, device=device),
+        _steps={
+            "train": make_train_step(loss, opt_cfg),
+            "train_sampled": make_train_step(loss_sampled, opt_cfg),
+        },
+        _specs_fn=lambda sn: _gnn_specs(arch_id, cfg, shapes, sn),
     )
 
 

@@ -18,8 +18,9 @@ functions.
 * ``stats_fields`` — a port ``RunStats`` as a plain dict;
 * ``load_params`` — the reference's parameter tree (numpy arrays) into a
   port model: ``['user_tables'][0]`` is ``user_tables.0``,
-  ``['user_mlp']['layers'][0]['w']`` is ``user_mlp.layers.0.w``;
-  ``params_tree`` is the way back;
+  ``['user_mlp']['layers'][0]['w']`` is ``user_mlp.layers.0.w``, and the
+  GNNs' lists of dicts alike (``['processor'][15]['node_mlp']...`` is
+  ``processor.15.node_mlp...``); ``params_tree`` is the way back;
 * ``adamw_config_from_fields`` — the port's ``AdamWConfig`` from
   ``dataclasses.asdict`` of a reference one (``state_dtype`` anything
   ``numpy.dtype`` reads, a name among them).

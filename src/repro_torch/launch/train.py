@@ -7,7 +7,9 @@ pipeline, AdamW in place, checkpoint/restart through ``RestartManager``
 (atomic + async), straggler monitoring, and optional gradient
 compression / microbatch accumulation.  It runs on the card unless
 ``device`` says otherwise; the reduced configs also run on the CPU
-(``--device cpu``).  The archs are the port's (``configs.ALL_ARCHS``).
+(``--device cpu``).  Every arch of ``configs.ALL_ARCHS`` trains here:
+the language models on the token stream, the GNNs on the reference's
+synthetic graphs (its sizes), the two-tower model on its batches.
 """
 from __future__ import annotations
 
@@ -31,11 +33,27 @@ def make_batch_fn(bundle, batch_size: int, seq_len: int, device=None):
     """``step -> batch`` on ``device``, seeded by the step (a restart
     replays the same stream)."""
     cfg = bundle.cfg
+    if bundle.family == "lm":
+        return lambda step: syn.lm_train_batch(cfg.vocab, batch_size,
+                                               seq_len, seed=step,
+                                               device=device)
     if bundle.family == "recsys":
         return lambda step: syn.recsys_batch(cfg, batch_size, seed=step,
                                              device=device)
-    raise KeyError(f"no batches for the {bundle.family} family in the port "
-                   f"yet ({bundle.arch_id})")
+    arch = bundle.arch_id
+    if arch == "meshgraphnet":
+        return lambda step: syn.meshgraphnet_batch(cfg, 128, 512, seed=step,
+                                                   device=device)
+    if arch == "graphsage-reddit":
+        return lambda step: syn.graphsage_full_batch(cfg, 256, 1024,
+                                                     seed=step, device=device)
+    if arch == "dimenet":
+        return lambda step: syn.dimenet_batch(cfg, 64, 160, triplet_fanout=6,
+                                              seed=step, device=device)
+    if arch == "graphcast":
+        return lambda step: syn.graphcast_batch(cfg, 64, seed=step,
+                                                device=device)
+    raise KeyError(arch)
 
 
 def train_loop(
@@ -130,7 +148,8 @@ def main(argv=None):
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--full", action="store_true",
                     help="the full published config (the two-tower model "
-                         "needs 4 x 17.07 GB on the card)")
+                         "needs 4 x 17.07 GB on the card; the full language "
+                         "models do not fit one card)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)

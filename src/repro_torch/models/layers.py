@@ -22,13 +22,15 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.engine.peel_loop import resolve_device
 
 __all__ = ["draw", "dense_init", "layer_at", "embed_init", "RMSNorm",
            "init_rmsnorm", "rmsnorm", "LayerNorm", "init_layernorm", "layernorm", "SwiGLU",
            "init_swiglu", "swiglu", "Dense", "MLP", "init_mlp", "mlp",
-           "rope_freqs", "apply_rope", "softmax_cross_entropy"]
+           "matmul", "remat", "rope_freqs", "apply_rope",
+           "softmax_cross_entropy"]
 
 
 # --------------------------------------------------------------------- #
@@ -214,15 +216,35 @@ def init_mlp(generator, dims, dtype=torch.float32, bias: bool = True, *,
     return MLP(layers)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two (``jnp.matmul``'s rule:
+    a bfloat16 carry against float32 weights is a float32 product); equal
+    dtypes go straight through."""
+    if x.dtype != w.dtype:
+        dt = torch.result_type(x, w)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def mlp(p: MLP, x: torch.Tensor, act=torch.relu, final_act: bool = False):
     n = len(p.layers)
     for i, layer in enumerate(p.layers):
-        x = x @ layer.w
+        x = matmul(x, layer.w)
         if hasattr(layer, "b"):
             x = x + layer.b
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass (the
+    reference's ``jax.checkpoint``) while grad is enabled; a plain call
+    otherwise.  Non-reentrant checkpointing: the reentrant form does not
+    work under the ``torch.autograd.grad`` of the train step."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # --------------------------------------------------------------------- #

@@ -4,8 +4,11 @@
 * homogeneous layers are stacked along a leading L axis, as the
   reference's ``vmap``'d init builds them; where the reference drives the
   stack with ``lax.scan``, the port loops over L in Python over the views
-  ``leaf[l]`` (``layers.layer_at``: no copy).  Remat (``jax.checkpoint``)
-  has no role on the serving path, which runs without gradients;
+  ``leaf[l]`` (``layers.layer_at``: no copy).  With ``cfg.remat`` each
+  layer is rematerialized (``layers.remat``, the reference's
+  ``jax.checkpoint(body)``) while grad is enabled: the train step keeps
+  only the residual stream between layers; the serving path, which runs
+  without gradients, calls the layers plainly;
 * the first ``n_dense_layers`` of the MoE archs (DeepSeek-V2/V3 use dense
   FFNs there) are a separate homogeneous prefix stack;
 * DeepSeek-V3's MTP head (multi-token prediction) is one extra
@@ -30,7 +33,7 @@ from ..launch.sharding import shard_act
 from . import attention as attn
 from . import moe as moe_lib
 from .layers import (RMSNorm, _param, draw, embed_init, init_device,
-                     init_rmsnorm, init_swiglu, layer_at, rmsnorm,
+                     init_rmsnorm, init_swiglu, layer_at, remat, rmsnorm,
                      softmax_cross_entropy, swiglu)
 
 __all__ = ["LMConfig", "Layer", "MTP", "LM", "init_lm", "lm_hidden",
@@ -223,7 +226,10 @@ def _layer_fwd(p, x, cfg: LMConfig, use_moe: bool):
 def _run_stack(stack: Layer, n: int, x, cfg: LMConfig, use_moe: bool):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(n):
-        x, a = _layer_fwd(layer_at(stack, l), x, cfg, use_moe)
+        if cfg.remat:
+            x, a = remat(_layer_fwd, layer_at(stack, l), x, cfg, use_moe)
+        else:
+            x, a = _layer_fwd(layer_at(stack, l), x, cfg, use_moe)
         x = shard_act(x, ("batch", "sp", None))
         aux = aux + a
     return x, aux

@@ -1486,3 +1486,58 @@ def test_batched_server_on_card_defaults_to_it(card):
         out.max() < bundle.cfg.vocab
     assert server.cache["len"] == 24
     assert not any(ops.launch_counts().values())
+
+
+# --------------------------------------------------------------------- #
+# the GNN family on the card
+# --------------------------------------------------------------------- #
+@pytest.mark.gpu
+def test_nbr_table_on_card_equals_host_build(card):
+    """The vectorized neighbour table built on the card (its stable sort)
+    ``torch.equal`` to the same build on the CPU, at 500,000 edges with
+    senders truncated at 32 neighbours."""
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.models.sampler import build_nbr_table
+
+    snd, rcv = random_graph(20_000, 500_000, seed=3)
+    t_dev, d_dev = build_nbr_table(snd, rcv, 20_000, 32, device=card)
+    t_cpu, d_cpu = build_nbr_table(snd, rcv, 20_000, 32, device="cpu")
+    assert t_dev.device.type == "cuda"
+    assert torch.equal(t_dev.cpu(), t_cpu) and torch.equal(d_dev.cpu(), d_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["train", "train_sampled"])
+def test_reduced_gnn_train_step_on_card_matches_cpu(card, kind, monkeypatch):
+    """One train step of the reduced DimeNet (``train``) and of GraphSAGE
+    on sampled blocks (``train_sampled``) on the card against the same
+    step on the CPU (TF32 off): loss and params within rtol 1e-4 / atol
+    1e-5 (the card's scatter adds in no fixed order)."""
+    import copy
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.data import synthetic as syn
+    from repro_torch.train.train_step import init_train_state
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    if kind == "train":
+        bundle = get_bundle("dimenet", reduced=True)
+        batch = syn.dimenet_batch(bundle.cfg, 24, 60, n_graphs=4,
+                                  triplet_fanout=6, seed=0, device="cpu")
+    else:
+        bundle = get_bundle("graphsage-reddit", reduced=True)
+        batch = syn.graphsage_sampled_batch(
+            bundle.cfg, batch_nodes=16, fanouts=bundle.cfg.sample_sizes,
+            n_nodes=200, n_edges=900, seed=0, device="cpu")
+    cpu = bundle.init_params(torch.Generator().manual_seed(0))
+    dev = copy.deepcopy(cpu).to(card)
+    step = bundle._steps[kind]
+    _, m_cpu = step(init_train_state(cpu, bundle.opt_cfg), batch)
+    _, m_dev = step(init_train_state(dev, bundle.opt_cfg),
+                    {k: v.to(card) for k, v in batch.items()})
+    assert float(m_dev["loss"]) == pytest.approx(float(m_cpu["loss"]),
+                                                 rel=1e-4, abs=1e-5)
+    for (n, a), (_, b) in zip(cpu.named_parameters(), dev.named_parameters()):
+        np.testing.assert_allclose(b.detach().cpu().numpy(),
+                                   a.detach().numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=n)

@@ -276,14 +276,14 @@ def test_bundle_specs_and_abstract_params_match_reference():
 def test_get_bundle_of_an_arch_the_port_lacks_raises():
     from repro.configs import ALL_ARCHS as J_ALL
 
-    # the language models and the two-tower, in the reference's order;
-    # the GNN family is not ported yet
-    assert ALL_ARCHS == [a for a in J_ALL if a in ALL_ARCHS]
-    assert ALL_ARCHS[-1] == ARCH and len(ALL_ARCHS) == 6
-    with pytest.raises(KeyError):
-        get_bundle("meshgraphnet")
+    # every arch of the reference, in its order (the language models, the
+    # GNNs, the two-tower); an arch it does not have raises
+    assert ALL_ARCHS == J_ALL
+    assert ALL_ARCHS[-1] == ARCH and len(ALL_ARCHS) == 10
     with pytest.raises(KeyError):
         get_bundle("no-such-arch")
+    with pytest.raises(KeyError):
+        get_bundle("receipt-tip")
 
 
 def test_reduced_two_tower_trains_like_the_reference():

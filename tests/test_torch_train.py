@@ -6,10 +6,17 @@ restart and elastic-mesh tests.  Tolerances: float32 optimizer state
 rtol 1e-6 / atol 1e-7 (the two packages fuse multiply-adds differently);
 bfloat16 state one bfloat16 ulp on the moments (a float32 ulp apart can
 round to neighbouring bfloat16 values), rtol 1e-6 on the params.
+
+LM training through ``launch/train.py``: its token batches equal the
+reference's, remat on and off give the same loss and gradients, the
+loop's losses are the reference loop's (rtol / atol 1e-4, the LM tests'
+float32 tolerance) and ``main`` trains every reduced LM.
 """
 import dataclasses
+import importlib.util
 import os
 import tempfile
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -17,10 +24,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_bundle as j_get_bundle
+from repro.launch import train as jtrain
 from repro.train import optimizer as jopt
 from repro.train.train_step import init_train_state as j_init_state
 from repro.train.train_step import make_train_step as j_make_step
-from repro_torch.convert import adamw_config_from_fields, params_tree
+from repro_torch.configs import get_bundle
+from repro_torch.configs.families import make_lm_bundle
+from repro_torch.convert import (adamw_config_from_fields, load_params,
+                                 params_tree)
+from repro_torch.launch import train as ttrain
 from repro_torch.train import optimizer as topt
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault_tolerance import ElasticMesh, RestartManager
@@ -368,3 +381,91 @@ def test_checkpoint_async_write_failure_raises_on_wait(monkeypatch):
             ck.wait()
         assert ck.latest_step() is None
         ck.wait()                                       # raised once
+
+
+# --------------------------------------------------------------------- #
+# LM training through the launcher
+# --------------------------------------------------------------------- #
+LM_ARCHS = ["command-r-plus-104b", "minitron-8b", "deepseek-67b",
+            "deepseek-v2-236b", "deepseek-v3-671b"]
+
+
+def test_make_batch_fn_lm_batches_equal_reference():
+    jb = j_get_bundle("deepseek-v3-671b", reduced=True)
+    tb = get_bundle("deepseek-v3-671b", reduced=True)
+    for step in (0, 1, 9):
+        want = jtrain.make_batch_fn(jb, 8, 64)(step)
+        got = ttrain.make_batch_fn(tb, 8, 64, device=CPU)(step)
+        assert list(got) == list(want)
+        for k, v in want.items():
+            assert got[k].dtype == torch.int32 and got[k].shape == (8, 64)
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(v))
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "deepseek-v3-671b"])
+def test_remat_on_and_off_give_equal_gradients(arch):
+    """The reduced LM's loss and every gradient with each layer
+    rematerialized (``cfg.remat``, the default) and without: equal."""
+    tb = get_bundle(arch, reduced=True)
+    assert tb.cfg.remat
+    params = tb.init_params(torch.Generator().manual_seed(0))
+    batch = ttrain.make_batch_fn(tb, 2, 32, device=CPU)(0)
+    leaves = list(params.parameters())
+    out = []
+    for remat in (True, False):
+        b = make_lm_bundle(arch, dataclasses.replace(tb.cfg, remat=remat),
+                           tb.opt_cfg)
+        loss = b._loss_fn(params, batch)[0]
+        # (deepseek-v3's router bias takes no gradient)
+        out.append((loss, torch.autograd.grad(loss, leaves,
+                                              allow_unused=True)))
+    (l1, g1), (l2, g2) = out
+    assert torch.equal(l1, l2)
+    assert sum(g is not None for g in g1) > len(leaves) // 2
+    assert all(a is b is None or torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_lm_train_loop_matches_reference():
+    """``train_loop`` on the reduced minitron-8b from the reference's
+    params (each package's loop, its own batch function): three steps'
+    losses and the final params within the LM tests' tolerance."""
+    jb = j_get_bundle("minitron-8b", reduced=True)
+    tb = get_bundle("minitron-8b", reduced=True)
+    jp = jax.jit(jb.init_params)(jax.random.PRNGKey(0))
+    tp = load_params(tb.init_params(torch.Generator().manual_seed(0)),
+                     jax.tree.map(np.asarray, jp))
+    kw = dict(arch="minitron-8b", steps=3, batch_size=4, seq_len=32,
+              log_every=0)
+    want = jtrain.train_loop(bundle=dataclasses.replace(
+        jb, _init_fn=lambda rng: jp), **kw)
+    got = ttrain.train_loop(bundle=dataclasses.replace(
+        tb, _init_fn=lambda gen, device: tp), device=CPU, **kw)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4,
+                               atol=1e-4)
+    for a, b in zip(jax.tree.leaves(jax.tree.map(np.asarray,
+                                                 want["state"]["params"])),
+                    jax.tree.leaves(params_tree(got["state"]["params"]))):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_train_main_runs_each_lm_arch(arch, capsys):
+    """``python -m repro_torch.launch.train --arch A`` for every LM, at
+    the reference's defaults (reduced, batch 8 x 64 tokens)."""
+    assert ttrain.main(["--arch", arch, "--steps", "2", "--device",
+                        "cpu"]) == 0
+    assert "[train] done" in capsys.readouterr().out
+
+
+def test_train_lm_example_runs(capsys):
+    """``examples/train_lm_torch.py`` (the ~100M LM) for two steps of 8 x
+    32 tokens on the CPU, its checkpoints in a temporary directory; the
+    example's own check (no divergence) holds."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", root / "examples" / "train_lm_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    example.main(["--device", "cpu", "--steps", "2", "--seq-len", "32"])
+    out = capsys.readouterr().out
+    assert "96.8M params" in out and "(2 steps" in out
