@@ -176,6 +176,24 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    gradients within relative L2 1e-2); the reduced GNNs (and
    ``train_sampled``) on the card against the CPU (rtol 1e-4 / atol
    1e-5); ``train.main`` for all 10 archs (``gnn_lm_train_phase``);
+5j. the sharding layer (``launch.mesh``, ``launch.sharding``, the
+   Bundle's sharding methods, ``models.moe.moe_forward_sharded``), no
+   hand kernel on it (every count stays 0): every arch's full-config
+   param, state and input specs on the production meshes (16, 16) and
+   (2, 16, 16) over meta devices, each leaf's piece shape dividing, the
+   per-position bytes printed; minitron-8b's full params placed by
+   ``lm_param_specs`` on a (2, 2) mesh of ``cuda:0`` positions (every
+   piece a view: the peak above resident under 1% of P; ``unshard``
+   ``torch.equal``); deepseek-v2-236b's MoE layer at its published
+   widths on x (4, 2048, 5120) bf16 with cf = E / k, sharded over (2, 2)
+   and (1, 4) meshes of ``cuda:0`` positions against the local path
+   (relative L2 <= 5e-2; ms by CUDA events, the exchange bytes per
+   position, the peak above resident), a backward at (2, 2048) (the
+   gradients of x and of the routed weights within relative L2 1e-2);
+   ``lm_prefill`` of deepseek-v2-236b cut to 3 layers at (4, 2048) under
+   ``mesh_context`` of the (2, 2) mesh against the call without a mesh,
+   capacity factor E / k in both (relative L2 <= 5e-2)
+   (``sharding_phase``);
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
    on the sp_mid and sp_large graphs of the reference's benchmark ladder
@@ -264,6 +282,17 @@ LM_TRAIN_LAYERS = 4
 LM_TRAIN_STEPS = 3
 LM_REMAT_LAYERS = 2
 LM_REMAT_REL_L2 = 1e-2
+# the sharding path (phase 5j): deepseek-v2-236b's MoE layer at its
+# published widths on x of SHARD_MOE_X tokens, sharded over the
+# SHARD_MESHES meshes of cuda:0 positions against the local path, a
+# backward at SHARD_MOE_BWD tokens (gradients within relative L2
+# SHARD_GRAD_REL_L2); the placement of minitron-8b's full params may
+# hold at most SHARD_PLACE_SLACK x P above resident (its pieces are views)
+SHARD_MOE_X = (4, 2048)
+SHARD_MOE_BWD = (2, 2048)
+SHARD_MESHES = ((2, 2), (1, 4))
+SHARD_GRAD_REL_L2 = 1e-2
+SHARD_PLACE_SLACK = 0.01
 
 
 def log(*args):
@@ -2087,11 +2116,21 @@ def recsys_phase(torch, np, dev, launches, ops, bfly, bsp, measure):
         f"{worst:.3e})")
 
 
+REL_L2_CHUNK = 1 << 26          # elements in float64 at a time
+
+
 def rel_l2(torch, got, want) -> float:
-    """||got - want|| / ||want|| in float64."""
-    g, w = got.double(), want.double()
-    return float(torch.linalg.vector_norm(g - w)
-                 / torch.linalg.vector_norm(w))
+    """||got - want|| / ||want|| in float64, over chunks of at most
+    REL_L2_CHUNK elements (a float64 copy of a whole expert-weight
+    gradient would take 10 GB)."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    diff = ref = 0
+    for i in range(0, g.numel(), REL_L2_CHUNK):
+        gp = g[i:i + REL_L2_CHUNK].double()
+        wp = w[i:i + REL_L2_CHUNK].double()
+        diff = diff + torch.sum((gp - wp) ** 2)
+        ref = ref + torch.sum(wp ** 2)
+    return float(torch.sqrt(diff / ref))
 
 
 def lm_serve_arm(torch, np, dev, launches, ops, tag, bundle):
@@ -2833,6 +2872,405 @@ def gnn_lm_train_phase(torch, np, dev, launches, ops, oracles):
     log(f"train cli: train.main(['--arch', a, '--steps', '3']) rc 0 for "
         f"{ALL_ARCHS}")
     arm_done("arm 4 (the CLI)")
+
+
+def nbytes(torch, shape, dtype) -> int:
+    """Bytes of a tensor of ``shape`` and ``dtype``."""
+    n = 1
+    for m in shape:
+        n *= int(m)
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
+def spec_bytes(torch, leaves, specs):
+    """(bytes of every leaf, bytes of one position's pieces) over the
+    (path, tensor-or-ShapeDtype) ``leaves``, ``specs`` by path; each
+    piece's shape from ``shard_shape`` (which raises where a split dim
+    does not divide)."""
+    whole = per = 0
+    for path, leaf in leaves:
+        shape = tuple(leaf.shape)
+        whole += nbytes(torch, shape, leaf.dtype)
+        per += nbytes(torch, specs[path].shard_shape(shape), leaf.dtype)
+    return whole, per
+
+
+def sharding_phase(torch, np, dev, launches, ops):
+    """Phase 5j: the sharding layer on the card (no hand kernel runs on
+    it: every arm's launch counts stay 0).
+
+    a. every arch's full config: ``param_shardings`` and
+       ``state_shardings`` on ``make_production_mesh()`` and
+       ``make_production_mesh(multi_pod=True)`` over meta devices, and
+       ``input_shardings`` of every shape cell; each leaf's piece shape
+       divides; the bytes one position holds (host only, nothing
+       allocated);
+    b. minitron-8b's full params (seeded, on the card) placed by
+       ``lm_param_specs`` on a (2, 2) mesh whose four positions are
+       ``cuda:0``: every piece its spec's ``shard_shape`` and a view of
+       its param, the peak above resident under SHARD_PLACE_SLACK x P,
+       ``unshard`` ``torch.equal`` to the param;
+    c. deepseek-v2-236b's MoE layer at its published widths, x
+       SHARD_MOE_X bf16, cf = E / k (no token dropped: every group's and
+       every position's largest expert load checked against its
+       capacity): the local path against ``moe_forward`` under
+       ``mesh_context`` of each SHARD_MESHES mesh of ``cuda:0`` positions
+       (the sharded schedule; relative L2 <= LM_BF16_REL_L2), ms by CUDA
+       events (second call), the peak above resident, the bytes each
+       position sends in the two exchanges; then a backward at
+       SHARD_MOE_BWD on (2, 2): the gradients of x and of the routed
+       weights within SHARD_GRAD_REL_L2;
+    d. deepseek-v2-236b at full widths cut to LM_V2_LAYERS layers,
+       capacity factor E / k: ``lm_prefill`` on LM_PREFILL tokens under
+       ``mesh_context`` of the (2, 2) mesh (its two MoE layers on the
+       sharded schedule) against the call without a mesh, logits within
+       LM_BF16_REL_L2; both arms' ms (second call)."""
+    from repro_torch.configs import ALL_ARCHS, get_bundle
+    from repro_torch.configs.families import make_lm_bundle
+    from repro_torch.launch import sharding as shard_lib
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf_lib
+    from repro_torch.train.tree import leaves_with_paths
+
+    def flat(tree):
+        return [(shard_lib.norm_path(p), t) for p, t in
+                leaves_with_paths(tree)]
+
+    def no_kernel(tag):
+        ran = {k: v for k, v in launches[tag].items() if v}
+        if ran:
+            raise AssertionError(f"{tag}: the sharding path launched {ran}")
+
+    t_arm = time.perf_counter()
+
+    def arm_done(what):
+        nonlocal t_arm
+        log(f"sharding: {what} in {time.perf_counter() - t_arm:.1f} s")
+        t_arm = time.perf_counter()
+
+    # ---- a. the production meshes' spec trees, host only ----
+    meta = torch.device("meta")
+    for multi_pod in (False, True):
+        n = 512 if multi_pod else 256
+        mesh = make_production_mesh(multi_pod=multi_pod, devices=[meta] * n)
+        shape = tuple(mesh.shape.values())
+        for arch in ALL_ARCHS:
+            b = get_bundle(arch, reduced=False)
+            pspec = dict(flat(b.param_shardings(mesh)))
+            p_all, p_per = spec_bytes(torch, flat(b.abstract_params()), pspec)
+            sspec = dict(flat(b.state_shardings(mesh)))
+            s_all, s_per = spec_bytes(torch, flat(b.state_abstract()), sspec)
+            i_per = {}
+            for cell in b.shapes:
+                ispec = dict(flat(b.input_shardings(cell, mesh)))
+                i_per[cell] = spec_bytes(torch, flat(b.input_specs(cell)),
+                                         ispec)[1]
+            log(f"sharding specs {shape} {arch}: params {p_all} bytes, "
+                f"{p_per} per position (1/{p_all / p_per:.1f}); train "
+                f"state {s_all}, {s_per} per position; inputs per position "
+                + ", ".join(f"{c} {v}" for c, v in i_per.items()))
+    arm_done("a (production spec trees, host only)")
+
+    # ---- b. placement of minitron-8b's full params ----
+    bundle = get_bundle("minitron-8b", reduced=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0))
+    p_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    mesh22 = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    specs = dict(flat(bundle.param_shardings(mesh22)))
+    leaves = flat(params)
+
+    def place():
+        with torch.no_grad():
+            return {path: specs[path].shard(t) for path, t in leaves}
+
+    placed, wall, peak, resident = counted(torch, ops, launches,
+                                           "shard_placement", place)
+    no_kernel("shard_placement")
+    above = peak - resident
+    n_pieces = split = 0
+    with torch.no_grad():
+        for path, t in leaves:
+            spec = specs[path]
+            local = spec.shard_shape(t.shape)
+            split += local != tuple(t.shape)
+            for piece in placed[path]:
+                n_pieces += 1
+                if tuple(piece.shape) != local or \
+                        piece.untyped_storage().data_ptr() != \
+                        t.untyped_storage().data_ptr():
+                    raise AssertionError(f"placement {path}: piece "
+                                         f"{tuple(piece.shape)} of {local}, "
+                                         "or not a view")
+            if not torch.equal(spec.unshard(placed[path], dev), t):
+                raise AssertionError(f"placement {path}: unshard differs")
+    log(f"shard_placement: minitron-8b, P = {p_bytes} bytes, {len(leaves)} "
+        f"leaves ({split} split) on a (2, 2) mesh of cuda:0 positions: "
+        f"{n_pieces} pieces, each its shard_shape and a view, in {wall:.3f}"
+        f" s; peak above resident {above} (limit "
+        f"{SHARD_PLACE_SLACK * p_bytes:.0f}); unshard torch.equal for "
+        "every leaf")
+    if above > SHARD_PLACE_SLACK * p_bytes:
+        raise AssertionError(f"placement peak {above} above "
+                             f"{SHARD_PLACE_SLACK} x P")
+    del placed, params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    arm_done("b (placement at full width)")
+
+    # ---- c. deepseek-v2-236b's MoE layer at its published widths ----
+    v2 = get_bundle("deepseek-v2-236b", reduced=False)
+    cfg = v2.cfg
+    d, f, n_e, k = cfg.d_model, cfg.d_ff_moe, cfg.n_routed, cfg.top_k
+    cf = n_e / k
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = moe_lib.init_moe(gen, d, f, n_e, cfg.n_shared,
+                         dtype=cfg.param_dtype, device=dev)
+    routed = sum(t.numel() * t.element_size() for t in (p.gate, p.up, p.down))
+    shared_w = sum(t.numel() * t.element_size()
+                   for t in p.shared.parameters()) if cfg.n_shared else 0
+    bsz, seq = SHARD_MOE_X
+    x = torch.randn((bsz, seq, d), generator=gen, device=dev).to(
+        cfg.param_dtype)
+    gs = min(cfg.moe_group_size, seq)
+    el = x.element_size()
+    log(f"shard_moe: deepseek-v2-236b's MoE layer, d {d}, {n_e} routed "
+        f"experts top-{k} of d_ff {f} ({routed} bytes bf16), "
+        f"{cfg.n_shared} shared; x {tuple(x.shape)} bf16, cf = E / k = "
+        f"{cf:.4f}; reckoned: the local dispatch ({bsz * seq // gs}, {n_e}, "
+        f"{gs}, {d}) = {bsz * seq // gs * n_e * gs * d * el} bytes, its "
+        "output as much")
+
+    def largest_load(tokens, groups):
+        """The most tokens any expert receives in any of ``groups``
+        equal token groups of ``tokens`` (T, d)."""
+        with torch.no_grad():
+            idx, _, _ = moe_lib.route(
+                p, tokens.reshape(groups, -1, d), top_k=k,
+                mode=cfg.router_mode)
+            one = torch.zeros(groups, n_e, dtype=torch.int64, device=dev)
+            one.scatter_add_(1, idx.reshape(groups, -1),
+                             torch.ones_like(idx.reshape(groups, -1)))
+            return int(one.max())
+
+    load = largest_load(x.reshape(-1, d), bsz * seq // gs)
+    if load > int(gs * k / n_e * cf):
+        raise AssertionError(f"shard_moe: a local group drops ({load})")
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            fn()                                        # warm
+            torch.cuda.synchronize()
+            start.record()
+            out = fn()
+            stop.record()
+        return out, start, stop
+
+    def local_call():
+        return moe_lib.moe_forward(p, x, top_k=k, capacity_factor=cf,
+                                   mode=cfg.router_mode,
+                                   group_size=cfg.moe_group_size)
+
+    (want, _), start, stop = counted(torch, ops, launches, "shard_moe_local",
+                                     lambda: timed(local_call))[0]
+    no_kernel("shard_moe_local")
+    torch.cuda.synchronize()
+    local_ms = start.elapsed_time(stop)
+    def local_again():
+        with torch.no_grad():
+            return local_call()
+
+    peak_local = counted(torch, ops, launches, "shard_moe_local",
+                         local_again)
+    log(f"shard_moe_local: {local_ms:.3f} ms (CUDA events, second call); "
+        f"peak above resident {peak_local[2] - peak_local[3]}")
+    del peak_local
+    calls = []
+    real = moe_lib.moe_forward_sharded
+
+    def spy(*a, **kw):
+        calls.append(kw["mesh"])
+        return real(*a, **kw)
+
+    moe_lib.moe_forward_sharded = spy
+    try:
+        for shape in SHARD_MESHES:
+            mesh = make_mesh(shape, ("data", "model"), devices=[dev] * 4)
+            n_dp, n_model = shape
+            t_loc = bsz // n_dp * (seq // n_model)
+            cap = int(t_loc * k / n_e * cf)
+            pos_load = largest_load(
+                x.reshape(n_dp, bsz // n_dp, n_model, seq // n_model, d)
+                .transpose(1, 2).reshape(-1, d), n_dp * n_model)
+            if pos_load > cap:
+                raise AssertionError(f"shard_moe {shape}: a position drops")
+            tag = f"shard_moe_{shape[0]}x{shape[1]}"
+
+            def sharded():
+                with shard_lib.mesh_context(mesh):
+                    return timed(local_call)
+
+            calls.clear()
+            (got, _), start, stop = counted(torch, ops, launches, tag,
+                                            sharded)[0]
+            no_kernel(tag)
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(stop)
+            if len(calls) != 2 or calls[0] is not mesh:
+                raise AssertionError(f"{tag}: the sharded schedule ran "
+                                     f"{len(calls)} times, not twice")
+
+            def again():
+                with shard_lib.mesh_context(mesh), torch.no_grad():
+                    return local_call()
+
+            _, _, peak, resident = counted(torch, ops, launches, tag, again)
+            err = rel_l2(torch, got, want)
+            e_loc = n_e // n_model
+            a2a = (n_model - 1) * e_loc * cap * d * el
+            fsdp = (n_dp - 1) * routed // n_model // n_dp
+            # the shared experts' weights lie in n_dp * n_model pieces
+            # and every position puts them together whole
+            shared_in = shared_w - shared_w // (n_dp * n_model)
+            log(f"{tag}: {n_dp * n_model} positions on cuda:0, t_loc "
+                f"{t_loc} tokens, cap {cap} (largest position load "
+                f"{pos_load}, local group load {load}): {ms:.3f} ms (CUDA "
+                f"events, second call) against the local {local_ms:.3f}; "
+                f"relative L2 {err:.3e} (limit {LM_BF16_REL_L2}); "
+                f"reckoned from the shapes, not measured: each position "
+                f"sends {a2a} bytes in the dispatch exchange and {a2a} in "
+                f"the return (a ({e_loc}, {cap}, {d}) bf16 piece to each "
+                f"of {n_model - 1} others), receives {fsdp} bytes of "
+                f"routed expert weights in the FSDP gather and {shared_in}"
+                f" bytes of the shared experts' weights (put together "
+                f"whole); one position's dispatch ({n_e}, {cap}, {d}) = "
+                f"{n_e * cap * d * el} bytes; peak above resident "
+                f"{peak - resident}")
+            if not err <= LM_BF16_REL_L2:
+                raise AssertionError(f"{tag}: relative L2 {err}")
+            del got
+        # the backward at SHARD_MOE_BWD on the (2, 2) mesh
+        mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+        xb = x[:SHARD_MOE_BWD[0], :SHARD_MOE_BWD[1]].contiguous()
+        w = torch.randn(xb.shape, generator=gen, device=dev)
+        grads = {}
+        for arm in ("local", "sharded"):
+            tag = f"shard_moe_bwd_{arm}"
+
+            def step():
+                p.zero_grad(set_to_none=True)
+                xx = xb.clone().requires_grad_(True)
+                if arm == "sharded":
+                    with shard_lib.mesh_context(mesh):
+                        out, _ = moe_lib.moe_forward(
+                            p, xx, top_k=k, capacity_factor=cf,
+                            mode=cfg.router_mode)
+                else:
+                    out, _ = moe_lib.moe_forward(
+                        p, xx, top_k=k, capacity_factor=cf,
+                        mode=cfg.router_mode)
+                (out.float() * w).sum().backward()
+                return dict(x=xx.grad, gate=p.gate.grad, up=p.up.grad,
+                            down=p.down.grad)
+
+            calls.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+
+            def timed_step():
+                step()                                  # warm
+                torch.cuda.synchronize()
+                start.record()
+                g = step()
+                stop.record()
+                return g
+
+            grads[arm], _, peak, resident = counted(torch, ops, launches,
+                                                    tag, timed_step)
+            no_kernel(tag)
+            p.zero_grad(set_to_none=True)
+            log(f"{tag}: x {tuple(xb.shape)}, forward + backward "
+                f"{start.elapsed_time(stop):.3f} ms (CUDA events, second "
+                f"call), peak above resident {peak - resident}")
+            if (arm == "sharded") != bool(calls):
+                raise AssertionError(f"{tag}: the sharded schedule ran "
+                                     f"{len(calls)} times")
+    finally:
+        moe_lib.moe_forward_sharded = real
+    errs = {n: rel_l2(torch, grads["sharded"][n], grads["local"][n])
+            for n in grads["local"]}
+    log("shard_moe_bwd: gradients sharded vs local, relative L2 "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (limit {SHARD_GRAD_REL_L2})")
+    if not max(errs.values()) <= SHARD_GRAD_REL_L2:
+        raise AssertionError(f"shard_moe_bwd: {errs}")
+    del p, x, xb, want, grads, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    arm_done("c (deepseek-v2-236b's MoE layer sharded)")
+
+    # ---- d. the sharded LM forward: deepseek-v2-236b cut to 3 layers ----
+    bundle = make_lm_bundle(v2.arch_id, dataclasses.replace(
+        cfg, n_layers=LM_V2_LAYERS, capacity_factor=cf), v2.opt_cfg)
+    cfg3 = bundle.cfg
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0))
+    p_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    b_, s_ = LM_PREFILL
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg3.vocab, (b_, s_), dtype=np.int32)).to(dev)
+    arms = {}
+    for arm in ("local", "sharded"):
+        ctx = shard_lib.mesh_context(mesh) if arm == "sharded" else None
+        tag = f"shard_prefill_{arm}"
+        moe_lib.moe_forward_sharded = spy
+        calls.clear()
+        try:
+            def call():
+                if ctx is None:
+                    return timed(lambda: tf_lib.lm_prefill(params, toks,
+                                                           cfg3))
+                with ctx:
+                    return timed(lambda: tf_lib.lm_prefill(params, toks,
+                                                           cfg3))
+
+            (logits, start, stop), _, peak, resident = counted(
+                torch, ops, launches, tag, call)
+        finally:
+            moe_lib.moe_forward_sharded = real
+        no_kernel(tag)
+        want_calls = 2 * (cfg3.n_layers - cfg3.n_dense_layers) \
+            if ctx else 0
+        if len(calls) != want_calls:
+            raise AssertionError(f"{tag}: the sharded schedule ran "
+                                 f"{len(calls)} times, not {want_calls}")
+        if ctx is not None and not ctx.record:
+            raise AssertionError(f"{tag}: shard_act recorded nothing")
+        if not bool(torch.isfinite(logits).all()) or logits.shape != (
+                b_, cfg3.vocab):
+            raise AssertionError(f"{tag}: logits {tuple(logits.shape)}")
+        arms[arm] = (logits, start.elapsed_time(stop), peak - resident)
+        if ctx is not None:
+            log(f"{tag}: shard_act checked {len(ctx.record)} distinct "
+                "(entries, shape) specs, e.g. " + "; ".join(
+                    f"{e} {s} -> {tuple(sp)}" for (e, s), sp in
+                    list(ctx.record.items())[:3]))
+    err = rel_l2(torch, arms["sharded"][0], arms["local"][0])
+    log(f"shard_prefill: deepseek-v2-236b, {cfg3.n_layers} layers at full "
+        f"widths (P = {p_bytes} bytes), cf = E / k, ({b_}, {s_}) tokens: "
+        f"local {arms['local'][1]:.3f} ms, under the (2, 2) mesh "
+        f"{arms['sharded'][1]:.3f} ms (CUDA events, second call); peaks "
+        f"above resident {arms['local'][2]} / {arms['sharded'][2]}; logits "
+        f"relative L2 {err:.3e} (limit {LM_BF16_REL_L2})")
+    if not err <= LM_BF16_REL_L2:
+        raise AssertionError(f"shard_prefill: relative L2 {err}")
+    del params, arms, logits, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    arm_done("d (the sharded prefill)")
 
 
 def sparse_edge_supports(np, a, eu, ev):
@@ -3644,6 +4082,11 @@ def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
     t0 = time.perf_counter()
     gnn_lm_train_phase(torch, np, dev, launches, ops, oracles)
     log(f"train: phase 5i in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 5j. the sharding layer --------------------------------------- #
+    t0 = time.perf_counter()
+    sharding_phase(torch, np, dev, launches, ops)
+    log(f"sharding: phase 5j in {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. crossover: staircase + graph against tiled ---------------- #
     # the full-size graph's walls are phase 5's timed runs: the kernels and

@@ -9,12 +9,16 @@ the tests need:
     bundle.state_abstract()              train state incl. optimizer, meta
     bundle.step_for(shape)               ("train"|"serve_*"|"retrieval", fn)
     bundle.input_specs(shape)            dict[str, ShapeDtype]
+    bundle.input_shardings(shape, mesh)  matching NamedSharding tree
+    bundle.param_shardings(mesh)         NamedSharding tree
+    bundle.state_shardings(mesh)         the train state's, incl. optimizer
 
 Shapes are the assigned public shape sets (``configs/shapes.py``); steps
-are functions of (state|params, batch).  The sharding methods of the
-reference's Bundle (``param_shardings``, ``input_shardings``,
-``state_shardings``) and the GNN family's input shardings wait for the
-port's sharding rules (ROADMAP.md, queue 1).
+are functions of (state|params, batch).  The sharding trees come from
+``abstract_params()`` on the meta device (nothing is allocated) and the
+rules of ``launch.sharding``; a ``DeviceMesh`` over meta devices
+(``make_production_mesh(devices=[torch.device("meta")] * 256)``) gives
+the production layouts without cards.
 """
 from __future__ import annotations
 
@@ -23,11 +27,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..launch import sharding as shard_lib
+from ..launch.mesh import NamedSharding, PartitionSpec, dp_axes
 from ..models import gnn as gnn_lib
 from ..models import recsys as rec_lib
 from ..models import transformer as tf_lib
 from ..train.optimizer import AdamWConfig
 from ..train.train_step import init_train_state, make_train_step
+from ..train.tree import keystr, map_with_paths
 from . import shapes as shp
 
 __all__ = ["ShapeDtype", "Bundle", "make_lm_bundle", "make_gnn_bundle",
@@ -54,6 +61,8 @@ class Bundle:
     _init_fn: Callable                          # (generator, device) -> params
     _steps: Dict[str, Callable]                 # step kind -> fn
     _specs_fn: Callable                         # (shape) -> (kind, specs)
+    _input_shardings_fn: Callable               # (shape, mesh, specs) -> tree
+    _param_shardings_fn: Callable               # (mesh, abstract) -> tree
     _loss_fn: Optional[Callable] = None         # (params, batch) -> (loss, metrics)
 
     # ---------------- params ---------------- #
@@ -66,9 +75,15 @@ class Bundle:
         generator's device, else on the card (raising without one)."""
         return self._init_fn(generator, device)
 
+    def param_shardings(self, mesh):
+        return self._param_shardings_fn(mesh, self.abstract_params())
+
     # ---------------- train state ------------ #
     def state_abstract(self):
         return init_train_state(self.abstract_params(), self.opt_cfg)
+
+    def state_shardings(self, mesh):
+        return shard_lib.train_state_specs(self.param_shardings(mesh))
 
     # ---------------- steps ------------------ #
     def step_for(self, shape_name: str) -> Tuple[str, Callable]:
@@ -78,6 +93,10 @@ class Bundle:
     def input_specs(self, shape_name: str) -> Dict[str, ShapeDtype]:
         _, specs = self._specs_fn(shape_name)
         return specs
+
+    def input_shardings(self, shape_name: str, mesh):
+        _, specs = self._specs_fn(shape_name)
+        return self._input_shardings_fn(shape_name, mesh, specs)
 
 
 # ===================================================================== #
@@ -110,6 +129,37 @@ def _lm_specs(cfg: tf_lib.LMConfig, shapes, shape_name):
     }
 
 
+def _lm_input_shardings(cfg, shapes, shape_name, mesh, specs):
+    s = shapes[shape_name]
+    dp = dp_axes(mesh)
+    out = {}
+    for k, v in specs.items():
+        if k in ("tokens", "labels"):
+            out[k] = shard_lib.simple_spec(mesh, (dp, None), v.shape)
+        elif k == "token":
+            out[k] = shard_lib.simple_spec(mesh, (dp,), v.shape)
+        elif k == "cache":
+            # batch over dp, seq over model; for batch=1 (long_500k) the
+            # dp axes are idle, so the KV sequence splits over ALL axes
+            # instead (flash-decoding-style split-KV)
+            seq_ax = ("pod", "data", "model") if s.global_batch == 1 \
+                else "model"
+            b_ax = None if s.global_batch == 1 else dp
+
+            def cspec(path, leaf):
+                if len(leaf.shape) == 0:
+                    return NamedSharding(mesh, PartitionSpec())
+                if path[-1] in ("c_kv", "k_rope"):
+                    ent = (None, b_ax, seq_ax, None)        # (L, B, S, r)
+                else:
+                    ent = (None, b_ax, None, seq_ax, None)  # (L, B, H, S, D)
+                return NamedSharding(
+                    mesh, shard_lib._check_div(leaf.shape, ent, mesh))
+
+            out[k] = map_with_paths(cspec, v)
+    return out
+
+
 def make_lm_bundle(arch_id: str, cfg: tf_lib.LMConfig,
                    opt_cfg: Optional[AdamWConfig] = None) -> Bundle:
     opt_cfg = opt_cfg or AdamWConfig()
@@ -139,6 +189,10 @@ def make_lm_bundle(arch_id: str, cfg: tf_lib.LMConfig,
             "serve_decode": serve_decode,
         },
         _specs_fn=lambda sn: _lm_specs(cfg, shapes, sn),
+        _input_shardings_fn=lambda sn, mesh, specs: _lm_input_shardings(
+            cfg, shapes, sn, mesh, specs),
+        _param_shardings_fn=lambda mesh, ab: shard_lib.lm_param_specs(
+            ab, mesh),
     )
 
 
@@ -238,6 +292,34 @@ def _gnn_specs(arch_id, cfg, shapes, shape_name):
     raise KeyError(arch_id)
 
 
+_GNN_NODE_KEYS = (
+    "node_feats", "grid_feats", "mesh_feats", "positions", "labels",
+    "targets", "node_mask", "graph_id", "feats_l",
+)
+
+
+def _gnn_input_shardings(shape_name, mesh, specs):
+    """Node-dim arrays shard over `model`; edge/triplet arrays over dp
+    (matching the logical activation axes of ``launch.sharding``)."""
+    dp = dp_axes(mesh)
+
+    def assign(path, leaf):
+        if len(leaf.shape) == 0:
+            return NamedSharding(mesh, PartitionSpec())
+        key = shard_lib.norm_path(path)
+        axis = "model" if any(k in key for k in _GNN_NODE_KEYS) else dp
+        ent = [axis] + [None] * (len(leaf.shape) - 1)
+        return NamedSharding(mesh, shard_lib._check_div(leaf.shape, ent,
+                                                        mesh))
+
+    return map_with_paths(assign, specs)
+
+
+def _replicated(mesh, abstract):
+    return map_with_paths(
+        lambda _, __: NamedSharding(mesh, PartitionSpec()), abstract)
+
+
 _GNN_MODELS = {
     # arch -> (init, loss of (params, batch, cfg))
     "meshgraphnet": (gnn_lib.init_meshgraphnet, gnn_lib.meshgraphnet_loss),
@@ -279,6 +361,10 @@ def make_gnn_bundle(arch_id: str, cfg,
             "train_sampled": make_train_step(loss_sampled, opt_cfg),
         },
         _specs_fn=lambda sn: _gnn_specs(arch_id, cfg, shapes, sn),
+        _input_shardings_fn=lambda sn, mesh, specs: _gnn_input_shardings(
+            sn, mesh, specs),
+        # d_hidden 128-512 is too small to TP profitably: replicated
+        _param_shardings_fn=_replicated,
     )
 
 
@@ -306,6 +392,30 @@ def _rec_specs(cfg: rec_lib.TwoTowerConfig, shapes, shape_name):
         "user_ids": ShapeDtype((s.batch, fu, w), i32),
         "cand_emb": ShapeDtype((s.n_candidates, cfg.tower_mlp[-1]), f32),
     }
+
+
+def _rec_input_shardings(shape_name, mesh, specs):
+    dp = dp_axes(mesh)
+
+    def assign(path, leaf):
+        if "cand_emb" in keystr(path):
+            ent = ("model", None)
+        else:
+            ent = [dp] + [None] * (len(leaf.shape) - 1)
+        return NamedSharding(mesh, shard_lib._check_div(leaf.shape, ent,
+                                                        mesh))
+
+    return map_with_paths(assign, specs)
+
+
+def _rec_param_shardings(mesh, abstract):
+    def assign(path, leaf):
+        if "tables" in keystr(path):
+            return NamedSharding(mesh, shard_lib._check_div(
+                tuple(leaf.shape), ("model", None), mesh))
+        return NamedSharding(mesh, PartitionSpec())
+
+    return map_with_paths(assign, abstract)
 
 
 def make_recsys_bundle(arch_id: str, cfg: rec_lib.TwoTowerConfig,
@@ -341,4 +451,7 @@ def make_recsys_bundle(arch_id: str, cfg: rec_lib.TwoTowerConfig,
             "retrieval": retrieval,
         },
         _specs_fn=lambda sn: _rec_specs(cfg, shapes, sn),
+        _input_shardings_fn=lambda sn, mesh, specs: _rec_input_shardings(
+            sn, mesh, specs),
+        _param_shardings_fn=_rec_param_shardings,
     )

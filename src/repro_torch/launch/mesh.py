@@ -14,9 +14,14 @@ visible CUDA cards (one per position; fewer cards than positions raise).
 An explicit list may repeat a device: the CPU tests stack eight shards on
 ``cpu``, and one card can hold every shard of a small mesh.
 
-The model-sharding helpers of the reference module
-(``make_production_mesh``, ``filter_spec``, ``named``) serve the model
-substrate only and have no counterpart yet (ROADMAP.md, queue 1).
+The model substrate's part: ``PartitionSpec`` (a tuple of
+entries: ``None``, an axis name, or a tuple of names), ``NamedSharding``
+(a spec over a mesh, which lays a tensor out in pieces, one per mesh
+position on that position's device, and puts the pieces back together),
+``filter_spec``, ``named`` and ``make_production_mesh`` (the reference's
+(16, 16) and (2, 16, 16) meshes; over an explicit device list such as
+256 ``torch.device("meta")``, the rules' specs are computed without a
+card).
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["DeviceMesh", "make_mesh", "check_mesh", "dp_axes",
-           "axis_size"]
+           "axis_size", "PartitionSpec", "NamedSharding", "filter_spec",
+           "named", "make_production_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +70,13 @@ class DeviceMesh:
                 raise IndexError(f"{name}={i} outside a {name} axis of {n}")
             flat = flat * n + i
         return self.devices[flat]
+
+    def coords(self, flat: int) -> Dict[str, int]:
+        """The named position at a row-major flat index."""
+        out: Dict[str, int] = {}
+        for name, n in reversed(tuple(self.shape.items())):
+            flat, out[name] = divmod(flat, n)
+        return {name: out[name] for name in self.shape}
 
     def shards_per_device(self) -> Dict[torch.device, int]:
         """How many mesh positions each distinct device holds."""
@@ -128,3 +141,148 @@ def axis_size(mesh: DeviceMesh, name) -> int:
     if name is None:
         return 1
     return mesh.shape.get(name, 1)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> DeviceMesh:
+    """(16, 16) over ``("data", "model")``, or (2, 16, 16) over ``("pod",
+    "data", "model")`` with ``multi_pod``.  ``devices=None`` needs that
+    many CUDA cards (as ``make_mesh``); an explicit list (256 or 512
+    ``torch.device("meta")``) gives the mesh the sharding rules need
+    without cards."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
+
+
+class PartitionSpec(tuple):
+    """The port's ``jax.sharding.PartitionSpec``: one entry per leading
+    dim, each ``None`` (not split), an axis name, or a tuple of names (the
+    dim split over their product, the first name major).  Dims past the
+    entries are not split.  Equal to ``tuple(jax_spec)`` of the same
+    entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            tuple(e) if isinstance(e, list) else e for e in entries))
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def _names(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A ``PartitionSpec`` over a ``DeviceMesh``: which piece of a tensor
+    each mesh position holds.  A dim split over axes ``(a, b)`` has
+    ``size(a) * size(b)`` pieces, position ``(i_a, i_b)`` holding piece
+    ``i_a * size(b) + i_b``; positions that differ only on axes the spec
+    does not name hold the same piece (replicas)."""
+
+    mesh: DeviceMesh
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        object.__setattr__(self, "spec", PartitionSpec(*self.spec))
+        used = [n for e in self.spec for n in _names(e)]
+        missing = [n for n in used if n not in self.mesh.axis_names]
+        if missing:
+            raise ValueError(f"{self.spec} names axes {missing} that the "
+                             f"mesh {self.mesh.axis_names} lacks")
+        if len(set(used)) != len(used):
+            raise ValueError(f"{self.spec} uses an axis twice")
+
+    def _counts(self, rank: int) -> Tuple[int, ...]:
+        if len(self.spec) > rank:
+            raise ValueError(f"{self.spec} has more entries than a rank-"
+                             f"{rank} tensor has dims")
+        return tuple(axis_size(self.mesh, e) for e in self.spec) + (
+            1,) * (rank - len(self.spec))
+
+    def shard_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of each piece; every split dim must divide."""
+        shape = tuple(int(n) for n in global_shape)
+        counts = self._counts(len(shape))
+        for n, c in zip(shape, counts):
+            if n % c:
+                raise ValueError(f"{self.spec} splits a dim of {n} into "
+                                 f"{c} pieces: {shape} does not divide")
+        return tuple(n // c for n, c in zip(shape, counts))
+
+    def index(self, flat: int) -> Tuple[int, ...]:
+        """Which piece along each entry's dim the position at the
+        row-major flat index holds."""
+        at = self.mesh.coords(flat)
+        out = []
+        for e in self.spec:
+            i = 0
+            for name in _names(e):
+                i = i * self.mesh.shape[name] + at[name]
+            out.append(i)
+        return tuple(out)
+
+    def shard(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """The piece of every mesh position, in row-major order, on that
+        position's device: a view of ``t`` where the position's device is
+        ``t.device`` (no copy), a copy elsewhere.  Autograd flows through
+        both."""
+        local = self.shard_shape(t.shape)
+        out = []
+        for flat, dev in enumerate(self.mesh.devices):
+            piece = t
+            for dim, i in enumerate(self.index(flat)):
+                if local[dim] != t.shape[dim]:
+                    piece = piece.narrow(dim, i * local[dim], local[dim])
+            out.append(piece.to(dev))
+        return out
+
+    def unshard(self, pieces: Sequence[torch.Tensor],
+                device) -> torch.Tensor:
+        """The whole tensor on ``device`` from every position's piece
+        (the inverse of ``shard``, bit-equal; of replicas the first
+        position's is read)."""
+        if len(pieces) != self.mesh.size:
+            raise ValueError(f"{len(pieces)} pieces for a mesh of "
+                             f"{self.mesh.size} positions")
+        rank = pieces[0].dim()
+        counts = self._counts(rank)
+        first: Dict[Tuple[int, ...], torch.Tensor] = {}
+        for flat, piece in enumerate(pieces):
+            first.setdefault(self.index(flat), piece)
+        device = torch.device(device)
+
+        def build(prefix):
+            if len(prefix) == len(self.spec):
+                return first[prefix].to(device)
+            parts = [build(prefix + (i,)) for i in range(counts[len(prefix)])]
+            return parts[0] if len(parts) == 1 else torch.cat(
+                parts, dim=len(prefix))
+
+        return build(())
+
+
+def filter_spec(mesh: DeviceMesh, *entries) -> PartitionSpec:
+    """PartitionSpec dropping axes that are absent from ``mesh``.
+
+    Entries may be None, a name, or a tuple of names; absent names are
+    removed (e.g. ``("pod", "data")`` -> ``("data",)`` on a single pod).
+    """
+    out = []
+    for e in entries:
+        if e is None:
+            out.append(None)
+        elif isinstance(e, (tuple, list)):
+            kept = tuple(a for a in e if a in mesh.axis_names)
+            out.append(kept if len(kept) > 1 else (kept[0] if kept else None))
+        else:
+            out.append(e if e in mesh.axis_names else None)
+    return PartitionSpec(*out)
+
+
+def named(mesh: DeviceMesh, spec) -> NamedSharding:
+    return NamedSharding(mesh, spec)

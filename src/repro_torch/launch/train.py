@@ -10,10 +10,15 @@ compression / microbatch accumulation.  It runs on the card unless
 (``--device cpu``).  Every arch of ``configs.ALL_ARCHS`` trains here:
 the language models on the token stream, the GNNs on the reference's
 synthetic graphs (its sizes), the two-tower model on its batches.
+With ``mesh`` the loop runs inside ``mesh_context(mesh)`` and places
+nothing else, as the reference: the activations' specs are checked, and
+under a ``model`` axis the MoE layers take the expert-parallel schedule
+(``models.moe.moe_forward_sharded``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Any, Dict, Optional
 
@@ -22,6 +27,7 @@ import torch
 from ..configs import get_bundle
 from ..core.engine.peel_loop import resolve_device
 from ..data import synthetic as syn
+from .sharding import mesh_context
 from ..train.checkpoint import CheckpointManager
 from ..train.fault_tolerance import RestartManager, StragglerMonitor
 from ..train.train_step import init_train_state, make_train_step
@@ -65,6 +71,7 @@ def train_loop(
     ckpt_dir: Optional[str] = None,
     save_every: int = 50,
     reduced: bool = True,
+    mesh=None,
     microbatches: int = 1,
     compress_grads: bool = False,
     log_every: int = 10,
@@ -73,9 +80,10 @@ def train_loop(
     seed: int = 0,
 ) -> Dict[str, Any]:
     """``steps`` train steps from the newest checkpoint in ``ckpt_dir``
-    (if any) or from params drawn with ``torch.Generator`` seed ``seed``.
-    Returns the reference's keys (``final_loss``, ``first_loss``,
-    ``losses``, ``steps``, ``wall_s``, ``state``) and ``start_step``."""
+    (if any) or from params drawn with ``torch.Generator`` seed ``seed``,
+    under ``mesh_context(mesh)`` when a ``DeviceMesh`` is given.  Returns
+    the reference's keys (``final_loss``, ``first_loss``, ``losses``,
+    ``steps``, ``wall_s``, ``state``) and ``start_step``."""
     dev = resolve_device(device)
     bundle = bundle or get_bundle(arch, reduced=reduced)
     step_fn = bundle._steps["train"]
@@ -105,24 +113,26 @@ def train_loop(
 
     monitor = StragglerMonitor()
     losses = []
+    ctx = mesh_context(mesh) if mesh is not None else contextlib.nullcontext()
     try:
-        t_start = time.perf_counter()
-        for step in range(start_step, start_step + steps):
-            t0 = time.perf_counter()
-            batch = batch_fn(step)
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])
-            losses.append(loss)
-            monitor.record("train_step", time.perf_counter() - t0)
-            if restart:
-                restart.maybe_save(step + 1, state, blocking=False)
-            if log_every and (step % log_every == 0):
-                print(
-                    f"[train] {arch} step={step} loss={loss:.4f} "
-                    f"({(time.perf_counter()-t0)*1e3:.0f}ms)",
-                    flush=True,
-                )
-        wall = time.perf_counter() - t_start
+        with ctx:
+            t_start = time.perf_counter()
+            for step in range(start_step, start_step + steps):
+                t0 = time.perf_counter()
+                batch = batch_fn(step)
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])
+                losses.append(loss)
+                monitor.record("train_step", time.perf_counter() - t0)
+                if restart:
+                    restart.maybe_save(step + 1, state, blocking=False)
+                if log_every and (step % log_every == 0):
+                    print(
+                        f"[train] {arch} step={step} loss={loss:.4f} "
+                        f"({(time.perf_counter()-t0)*1e3:.0f}ms)",
+                        flush=True,
+                    )
+            wall = time.perf_counter() - t_start
     finally:
         if restart:
             restart.ckpt.wait()

@@ -21,22 +21,29 @@ which tokens a full expert drops).  The combine adds k pairs per token
 with ``index_add_``, whose float order on the card is not fixed: the
 outputs agree within tolerance, the routing and the drops exactly.
 
-``moe_forward_sharded`` (the expert exchange over a mesh's ``model``
-axis) is the sharded LM's (ROADMAP.md, queue 1).
+Under an active mesh with a ``model`` axis that the shapes divide,
+``moe_forward`` takes ``moe_forward_sharded``: the reference's explicit
+expert-parallel schedule, run position by position of the in-process
+``DeviceMesh`` on each position's device, its ``all_to_all`` and
+``all_gather`` done as copies and concatenations between the positions
+(autograd flows through them).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import types
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch.mesh import NamedSharding, PartitionSpec, axis_size, dp_axes
 from ..launch.sharding import current_mesh, shard_act
 from .layers import (SwiGLU, _param, dense_init, draw, init_device,
                      init_swiglu, swiglu)
 
-__all__ = ["MoE", "init_moe", "route", "topk_indices", "moe_forward"]
+__all__ = ["MoE", "init_moe", "route", "topk_indices", "moe_forward",
+           "moe_forward_sharded", "sharded_dispatch_applies"]
 
 
 class MoE(nn.Module):
@@ -160,6 +167,152 @@ def _combine(eout: torch.Tensor, meta, t: int) -> torch.Tensor:
     return out.reshape(n_g, t, d)
 
 
+def sharded_dispatch_applies(mesh, b: int, s: int, n_e: int) -> bool:
+    """The reference's condition for the explicit schedule: an active
+    mesh with a ``model`` axis, the batch dividing the data axes, the
+    sequence and the experts dividing ``model`` (so at ``model`` > 1 a
+    decode step, s = 1, stays local)."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return False
+    n_model = mesh.shape["model"]
+    n_dp = axis_size(mesh, dp_axes(mesh))
+    return (b % n_dp == 0 and s % n_model == 0 and n_e % n_model == 0
+            and s >= n_model)
+
+
+def _gathered(pieces: List[torch.Tensor], dim: int) -> torch.Tensor:
+    """The all_gather of pieces already on one device: their
+    concatenation (one piece is itself: no copy)."""
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=dim)
+
+
+def moe_forward_sharded(
+    p,
+    x: torch.Tensor,                 # (B, S, d); batch over dp, seq over model
+    *,
+    top_k: int,
+    capacity_factor: float,
+    mode: str,
+    no_drop: bool,
+    mesh,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's explicit expert-parallel MoE block over ``mesh``.
+
+    Each position routes and dispatches ONLY its local (b_loc x s_loc)
+    tokens, capacity ``t_loc * k / E * capacity_factor`` (at least 1;
+    ``t_loc`` with ``no_drop``).  The expert exchange (the ``all_to_all``
+    over ``model``) splits each position's (E, cap, d) dispatch on E
+    between the positions of its data row, each receiving (E / n_model,
+    n_model * cap, d) concatenated on the capacity axis, and the inverse
+    brings the expert outputs back; each position's experts' weight
+    slices are concatenated over the data positions (the FSDP
+    ``all_gather``).  The shared experts' weights are put together whole
+    and applied token-locally; ``aux`` is the mean over every position.
+
+    One process runs the positions in turn, data row by data row: each
+    position's dispatch is copied into its row's receive buffers and
+    dropped before the next position dispatches, and each expert
+    position's received tokens are dropped once its outputs are sent
+    back.  Every piece lives on its position's device (a view where that
+    is ``x``'s device); the output is put together on ``x``'s device.
+    Autograd flows through every copy."""
+    dp = dp_axes(mesh)
+    dp_spec = (dp if len(dp) > 1 else dp[0]) if dp else None
+    n_model = mesh.shape["model"]
+    n_dp = axis_size(mesh, dp)
+    b, s, d = x.shape
+    n_e = p.router.shape[-1]
+    b_loc, s_loc = b // n_dp, s // n_model
+    t_loc = b_loc * s_loc
+    e_loc = n_e // n_model
+    cap = t_loc if no_drop else max(
+        int(t_loc * top_k / n_e * capacity_factor), 1)
+
+    # the position holding data row r, model column j (of replicas along
+    # any other axis, the first)
+    at: dict = {}
+    for k in range(mesh.size):
+        c = mesh.coords(k)
+        r = 0
+        for a in dp:
+            r = r * mesh.shape[a] + c[a]
+        at.setdefault((r, c["model"]), k)
+
+    def sharding(*spec):
+        return NamedSharding(mesh, PartitionSpec(*spec))
+
+    tokens = sharding(dp_spec, "model", None)
+    x_pc = tokens.shard(x)
+    gate_pc = sharding("model", dp_spec, None).shard(p.gate)
+    up_pc = sharding("model", dp_spec, None).shard(p.up)
+    down_pc = sharding("model", None, dp_spec).shard(p.down)
+    shared = []
+    if hasattr(p, "shared"):
+        for w, spec in ((p.shared.gate, (dp_spec, "model")),
+                        (p.shared.up, (dp_spec, "model")),
+                        (p.shared.down, ("model", dp_spec))):
+            shared.append((sharding(*spec), sharding(*spec).shard(w)))
+
+    out_pc: List[Optional[torch.Tensor]] = [None] * mesh.size
+    auxes = []
+    for r in range(n_dp):
+        row = [at[r, j] for j in range(n_model)]
+        devs = [mesh.devices[k] for k in row]
+        # 1. route and dispatch position by position, each dispatch split
+        #    on E into the row's receive buffers (the all_to_all)
+        recv = [torch.empty((e_loc, n_model * cap, d), dtype=x.dtype,
+                            device=dv) for dv in devs]
+        metas, x2s = [], []
+        for j, k in enumerate(row):
+            x2 = x_pc[k].reshape(1, t_loc, d)
+            rp = types.SimpleNamespace(router=p.router.to(devs[j]),
+                                       router_bias=p.router_bias.to(devs[j]))
+            idx, gates, aux = route(rp, x2, top_k=top_k, mode=mode)
+            disp, meta = _dispatch(x2, idx, gates, n_e, cap)  # (1, E, cap, d)
+            for jj in range(n_model):
+                recv[jj][:, j * cap:(j + 1) * cap].copy_(
+                    disp[0, jj * e_loc:(jj + 1) * e_loc])
+            del disp
+            metas.append(meta)
+            x2s.append(x2[0])
+            auxes.append(aux[0].to(x.device))
+        # 2. each expert position in turn: gather its experts' weights
+        #    over the data positions, run them, send the outputs back
+        back: List[Optional[torch.Tensor]] = [None] * n_model
+        for j in range(n_model):
+            col = [at[rr, j] for rr in range(n_dp)]
+            gate_w = _gathered([gate_pc[k].to(devs[j]) for k in col], 1)
+            up_w = _gathered([up_pc[k].to(devs[j]) for k in col], 1)
+            down_w = _gathered([down_pc[k].to(devs[j]) for k in col], 2)
+            h, recv[j] = recv[j], None
+            g = F.silu(torch.einsum("ecd,edf->ecf", h, gate_w))
+            u = torch.einsum("ecd,edf->ecf", h, up_w)
+            eout = torch.einsum("ecf,efd->ecd", g * u, down_w)
+            del h, g, u, gate_w, up_w, down_w
+            for jj in range(n_model):
+                if back[jj] is None:
+                    back[jj] = torch.empty((n_e, cap, d), dtype=eout.dtype,
+                                           device=devs[jj])
+                back[jj][j * e_loc:(j + 1) * e_loc].copy_(
+                    eout[:, jj * cap:(jj + 1) * cap])
+            del eout
+        # 3. combine on each token position, plus the shared experts
+        for j, k in enumerate(row):
+            out2 = _combine(back[j][None], metas[j], t_loc)[0]
+            back[j] = None
+            if shared:
+                sw = types.SimpleNamespace(**{
+                    name: spec.unshard(pc, devs[j])
+                    for name, (spec, pc) in zip(("gate", "up", "down"),
+                                                shared)})
+                out2 = out2 + swiglu(sw, x2s[j])
+            out_pc[k] = out2.reshape(b_loc, s_loc, d)
+    # replicas along any other axis stay None: unshard reads the first
+    # position of each piece, the one that ran
+    out = tokens.unshard(out_pc, x.device)
+    return out, torch.stack(auxes).mean()
+
+
 def moe_forward(
     p,
     x: torch.Tensor,                 # (B, S, d)
@@ -175,12 +328,15 @@ def moe_forward(
     ``min(group_size, S)`` tokens; capacity per group ``group_size * k /
     E * capacity_factor`` (at least 1), or every token of the group with
     ``no_drop`` (the decode path: serving never drops a token)."""
-    if current_mesh() is not None:
-        raise NotImplementedError(
-            "moe_forward_sharded (the expert exchange over a mesh) is not "
-            "ported yet; run the MoE without a mesh context")
     b, s, d = x.shape
     n_e = p.router.shape[-1]
+    # distributed path: the explicit schedule when a mesh context is
+    # active and the shapes divide it (training / prefill cells)
+    mesh = current_mesh()
+    if sharded_dispatch_applies(mesh, b, s, n_e):
+        return moe_forward_sharded(
+            p, x, top_k=top_k, capacity_factor=capacity_factor, mode=mode,
+            no_drop=no_drop, mesh=mesh)
     gs = min(group_size, s)
     n_g = s // gs
     assert n_g * gs == s, f"seq {s} not divisible by group {gs}"

@@ -15,7 +15,8 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 from torch import nn
 
-__all__ = ["leaves_with_paths", "keystr", "nest", "map_leaves"]
+__all__ = ["leaves_with_paths", "keystr", "nest", "map_leaves",
+           "map_with_paths"]
 
 Path = Tuple[Any, ...]
 
@@ -67,3 +68,9 @@ def map_leaves(fn: Callable, tree) -> Any:
             tree, (nn.Module, dict, list, tuple)):
         return fn(tree)
     return nest([(p, fn(v)) for p, v in leaves_with_paths(tree)])
+
+
+def map_with_paths(fn: Callable, tree) -> Any:
+    """``fn(path, leaf)`` over every leaf, the result nested as the tree
+    (a module maps to the nested dicts of its parameters' paths)."""
+    return nest([(p, fn(p, v)) for p, v in leaves_with_paths(tree)])

@@ -328,15 +328,33 @@ def test_moe_dispatch_matches_dense_compute():
 # the activation-sharding hooks
 # --------------------------------------------------------------------- #
 def test_shard_act_is_the_identity_without_a_mesh_and_raises_under_one():
+    """Without a mesh ``shard_act`` returns its input.  Since the sharding
+    slice it returns it under a ``DeviceMesh`` too (the spec checked and
+    recorded), and ``moe_forward`` there takes the expert-parallel
+    schedule, equal to the local path without drops; what still raises
+    is a mesh that is not a ``DeviceMesh`` (a JAX mesh among them)."""
     x = torch.ones(2, 3)
     assert current_mesh() is None
     assert shard_act(x, ("batch", None)) is x
     mesh = make_mesh((2,), ("data",), devices=[CPU] * 2)
-    with mesh_context(mesh):
-        assert current_mesh() is mesh
-        with pytest.raises(NotImplementedError, match="sharding rules"):
-            shard_act(x, ("batch", None))
-        _, tp = _moe_pair()
-        with pytest.raises(NotImplementedError, match="moe_forward_sharded"):
-            tm.moe_forward(tp, torch.ones(1, 4, 16), top_k=2)
+    _, tp = _moe_pair()
+    xm = _t(_normal(np.random.default_rng(12), (2, 4, 16)))
+    with torch.no_grad():
+        local, _ = tm.moe_forward(tp, xm, top_k=2, no_drop=True)
+    ctx = mesh_context(mesh)
+    with ctx as entered:
+        assert entered is mesh and current_mesh() is mesh
+        assert shard_act(x, ("batch", None)) is x
+        assert ctx.record[("batch", None), (2, 3)] == ("data", None)
+        with torch.no_grad():
+            out, _ = tm.moe_forward(tp, xm, top_k=2, no_drop=True)
+        assert torch.equal(out, local)       # no model axis: local path
+    mesh2 = make_mesh((2, 2), ("data", "model"), devices=[CPU] * 4)
+    with mesh_context(mesh2), torch.no_grad():
+        out, _ = tm.moe_forward(tp, xm, top_k=2, no_drop=True)
+    _close(out, local.numpy(), dict(rtol=2e-5, atol=2e-5))
+    assert current_mesh() is None
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        with mesh_context(object()):
+            pass
     assert current_mesh() is None
