@@ -194,6 +194,19 @@ Phases (any failure exits nonzero; no phase is caught and ignored):
    ``mesh_context`` of the (2, 2) mesh against the call without a mesh,
    capacity factor E / k in both (relative L2 <= 5e-2)
    (``sharding_phase``);
+5k. the dry run (``repro_torch.launch.dryrun``): the whole CLI
+   (``--all --multi-pod both``) in a pool worker started before phase 2,
+   every record ``ok``, one line per cell and the worker's wall time;
+   then four arms costed on a one-position meta mesh (in a pool worker)
+   and run on the card: a CD sweep of ``_CDShards`` on a (1, 1) mesh
+   (kernel 1's peel body), ``fd_stack_step`` on an (8, 2048, 8192) stack
+   (kernel 3, the sequential peel), minitron-8b's decode step at phase
+   5h's slots and cache length, its 4-layer train step at (1, 4096).
+   Held: arguments within 1% of the bytes made resident, the peak within
+   10% of ``max_memory_allocated``, the median ms (CUDA events) at least
+   ``t_compute``, the decode's ``t_memory`` within 10% of phase 5h's
+   bound; kernels 1 and 3 counted and ``torch.equal`` to their plain
+   versions (``dryrun_phase``);
 6. crossover: tile occupancy at the card's 128 x 512 tiles and the warm
    wall (second run) of the staircase + graph path against the tiled path
    on the sp_mid and sp_large graphs of the reference's benchmark ladder
@@ -218,10 +231,14 @@ import types
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-INT8_OPS_PER_S = 1979e12     # 0/1 operands, counts < 2^24: exact in int8
-FP64_FLOP_PER_S = 67e12      # FP64 tensor cores (the edge closed form)
-HBM_BYTES_PER_S = 3.35e12
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.launch.roofline import HBM_BW, PEAK_OPS  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit), from the
+# dry run's roofline: one source for both
+INT8_OPS_PER_S = PEAK_OPS["int8"]   # 0/1 operands, counts < 2^24: exact
+FP64_FLOP_PER_S = PEAK_OPS["fp64"]  # FP64 tensor cores (the edge closed form)
+HBM_BYTES_PER_S = HBM_BW
 EXACT_LIMIT = 2 ** 24        # f32 integer regime (DESIGN.md section 8)
 
 FULL = dict(n_u=6486, n_v=12942, m=96662, seed=0, partitions=150)
@@ -293,6 +310,29 @@ SHARD_MOE_BWD = (2, 2048)
 SHARD_MESHES = ((2, 2), (1, 4))
 SHARD_GRAD_REL_L2 = 1e-2
 SHARD_PLACE_SLACK = 0.01
+# the dry run (phase 5k): its whole CLI in a pool worker (records in
+# DRYRUN_OUT), and four calibration arms, each costed on a one-position
+# meta mesh in a pool worker and run on the card: a CD sweep of CAL_CD
+# (n_u, n_v, peel rows) at density CAL_CD_DENSITY (every 32-column stripe
+# of the peel rows live, so the data-free count is the work done, and
+# every support below 2^24, so kernel 1 equals its plain version
+# bit for bit), kernel 3 and the sequential peel on a CAL_FD stack at
+# density CAL_FD_DENSITY, minitron-8b's decode step at phase 5h's slots
+# and cache length, and phase 5i's 4-layer train step at (1, 4,096).
+# Held: predicted arguments within CAL_ARGS_TOL of the bytes made
+# resident, the predicted peak within CAL_PEAK_TOL of
+# max_memory_allocated, the measured ms (median of CAL_REPS after a
+# warm-up, CUDA events) at least t_compute, and the decode arm's t_memory
+# within CAL_DECODE_TOL of phase 5h's own bound at the same shapes
+DRYRUN_OUT = "build/dryrun.json"
+CAL_CD = (65536, 16384, 4096)
+CAL_CD_DENSITY = 0.01
+CAL_FD = (8, 2048, 8192)
+CAL_FD_DENSITY = 0.5
+CAL_REPS = 5
+CAL_ARGS_TOL = 0.01
+CAL_PEAK_TOL = 0.10
+CAL_DECODE_TOL = 0.10
 
 
 def log(*args):
@@ -2200,7 +2240,7 @@ def lm_serve_arm(torch, np, dev, launches, ops, tag, bundle):
     weights = p_bytes if cfg.tie_embeddings else (
         p_bytes - embed_bytes + LM_SLOTS * embed_bytes // cfg.vocab)
     per_pos = cache_bytes / server.max_len
-    step_bytes = [weights + per_pos * (i + 2) + logit_bytes[i]
+    step_bytes = [decode_step_bytes(weights, per_pos, i + 1, logit_bytes[i])
                   for i in range(1, len(steps))]
     bound = sum(step_bytes) / len(step_bytes) / HBM_BYTES_PER_S * 1e3
     mean = sum(steps[1:]) / len(steps[1:])
@@ -3289,6 +3329,300 @@ def sparse_edge_supports(np, a, eu, ev):
     return (b * (dense[eu, ev] > 0)).astype(np.float32)
 
 
+def host_dryrun(root: str, out: str):
+    """Phase 5k's dry run in a pool worker: ``repro_torch.launch.dryrun``
+    over every cell on both production meshes of meta positions, its
+    stdout and stderr to ``out`` + ``.log``.  Returns (exit code, wall s,
+    the records)."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, str(Path(root) / "src"))
+    from repro_torch.launch import dryrun
+
+    Path(out).parent.mkdir(parents=True, exist_ok=True)
+    Path(out).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rc = dryrun.main(["--all", "--multi-pod", "both", "--out", out])
+    wall = time.perf_counter() - t0
+    Path(out + ".log").write_text(buf.getvalue())
+    return rc, wall, json.loads(Path(out).read_text())
+
+
+def calibration_bundles():
+    """Phase 5k's two LM arms: minitron-8b at its full widths with a
+    decode shape of phase 5h's slots and cache length, and cut to phase
+    5i's LM_TRAIN_LAYERS layers with a train shape of (1, 4,096)."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.configs.families import make_lm_bundle
+    from repro_torch.configs.shapes import LMShape
+
+    base = get_bundle("minitron-8b")
+    seq = base.shapes["train_4k"].seq_len
+    decode = make_lm_bundle(base.arch_id, base.cfg, base.opt_cfg, shapes={
+        "decode": LMShape("decode", LM_PROMPT + LM_GEN + 4, LM_SLOTS)})
+    train = make_lm_bundle(
+        base.arch_id, dataclasses.replace(base.cfg, n_layers=LM_TRAIN_LAYERS),
+        base.opt_cfg, shapes={"train": LMShape("train", seq, 1)})
+    return decode, train
+
+
+def host_calibration_costs(root: str):
+    """Phase 5k's four arms costed in a pool worker, each on a
+    one-position mesh of a meta position (float32 products in full
+    float32, as on the card).  Returns {arm: predicted figures}."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     devices=[torch.device("meta")])
+    decode, train = calibration_bundles()
+    n_u, n_v, rows = CAL_CD
+    costs = {
+        "A": dist.lower_cd_sweep(mesh, n_u=n_u, n_v=n_v, peel_rows=rows),
+        "B": dist.lower_fd_stack(mesh, n_subsets=CAL_FD[0], rows=CAL_FD[1],
+                                 cols=CAL_FD[2]),
+        "C": dryrun.cost_step(decode, "decode", mesh),
+        "D": dryrun.cost_step(train, "train", mesh),
+    }
+    out = {}
+    for arm, c in costs.items():
+        r = dryrun.roofline_of(c, chips=1)
+        out[arm] = dict(args=int(c.args), peak=float(c.peak),
+                        flops=r.flops, units=r.flops_by_unit,
+                        t_compute=r.t_compute, t_memory=r.t_memory,
+                        t_bound=r.t_bound, bottleneck=r.bottleneck)
+    return out
+
+
+def decode_step_bytes(weights: float, per_pos: float, attended: int,
+                      logit_bytes: float) -> float:
+    """Phase 5h's reckoning of what a decode step must move: the weights
+    (less the embedding table's unread rows), the ``attended`` cache
+    positions read and the one written, and the logits."""
+    return weights + per_pos * (attended + 1) + logit_bytes
+
+
+def cal_ms(torch, fn, reps: int = CAL_REPS) -> float:
+    """Median device ms of ``fn`` over ``reps`` calls after one warm-up,
+    each call between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+    return sorted(ms)[len(ms) // 2]
+
+
+def calibrate(torch, ops, launches, arm, pred, make):
+    """One calibration arm: ``make()`` puts the arm's arguments on the
+    card and returns the step; the bytes it made resident, the step's
+    peak (both from the same base) and its median ms are held against the
+    prediction ``pred``.  Returns (the measured figures, the step)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    run = make()
+    gc.collect()
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated() - base
+    out, _, peak, _ = counted(torch, ops, launches, f"dryrun_{arm}", run)
+    peak -= base
+    del out
+    ms = cal_ms(torch, run)
+    got = dict(args=args, peak=peak, ms=ms)
+    log(f"dryrun calibration {arm}: arguments predicted {pred['args']} | "
+        f"made resident {args} ({pred['args'] / max(args, 1):.4f}x); peak "
+        f"predicted {pred['peak']:.0f} | max_memory_allocated {peak} "
+        f"({pred['peak'] / max(peak, 1):.4f}x); t_compute "
+        f"{pred['t_compute'] * 1e3:.4f} ms {pred['units']}, t_memory "
+        f"{pred['t_memory'] * 1e3:.4f} ms, t_bound {pred['t_bound'] * 1e3:.4f}"
+        f" ms ({pred['bottleneck']}); measured {ms:.4f} ms (median of "
+        f"{CAL_REPS}, CUDA events) = {ms / (pred['t_bound'] * 1e3):.3f} x "
+        f"t_bound")
+    if abs(pred["args"] - args) > CAL_ARGS_TOL * args:
+        raise AssertionError(f"dryrun {arm}: predicted arguments "
+                             f"{pred['args']} vs {args} resident")
+    if abs(pred["peak"] - peak) > CAL_PEAK_TOL * peak:
+        raise AssertionError(f"dryrun {arm}: predicted peak {pred['peak']}"
+                             f" vs max_memory_allocated {peak}")
+    if ms < pred["t_compute"] * 1e3:
+        raise AssertionError(f"dryrun {arm}: {ms} ms under t_compute "
+                             f"{pred['t_compute'] * 1e3} ms")
+    return got, run
+
+
+def dryrun_phase(torch, np, dev, launches, ops, bfly, bsp, host):
+    """Phase 5k: the dry run (``repro_torch.launch.dryrun``).
+
+    a. The whole dry run, from the pool worker started before phase 2:
+       every record ``ok``, one line per cell, the worker's wall time.
+    b. Four calibration arms on the card, each costed by the same
+       functions on a one-position meta mesh (``host_calibration_costs``):
+       A, one CD sweep of ``_CDShards`` on a (1, 1) mesh of the card
+       (kernel 1's peel body); B, ``fd_stack_step`` (kernel 3, then the
+       sequential peel); C, minitron-8b's decode step; D, its 4-layer
+       train step.  Kernels 1 and 3 are counted and held ``torch.equal``
+       to their plain versions on the arguments the arm handed them."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.data import synthetic as syn
+    from repro_torch.launch.dryrun import all_cells
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.train.train_step import init_train_state
+
+    # ---- a. the whole dry run ----
+    t0 = time.perf_counter()
+    rc, wall, records = host[("dryrun",)].result()
+    waited = time.perf_counter() - t0
+    bad = [(r["arch"], r["shape"], r["mesh"]) for r in records
+           if not r.get("ok")]
+    want = 2 * len(all_cells())
+    for r in records:
+        if not r.get("ok"):
+            continue
+        rf, mem = r["roofline"], r["memory_analysis"]
+        log(f"dryrun {r['arch']:20s} {r['shape']:14s} {r['mesh']:8s} "
+            f"t_comp {rf['t_compute_s'] * 1e3:11.3f} ms t_mem "
+            f"{rf['t_memory_s'] * 1e3:11.3f} ms t_coll "
+            f"{rf['t_collective_s'] * 1e3:10.3f} ms {rf['bottleneck']:10s} "
+            f"args/position {mem['argument_size_in_bytes']} "
+            f"({r['lower_compile_s']:.1f} s)")
+    log(f"dryrun: {len(records)} records of {want}, exit code {rc}, worker "
+        f"wall {wall:.1f} s (waited {waited:.1f} s for it here)")
+    if rc != 0 or bad or len(records) != want:
+        raise AssertionError(f"dryrun: exit code {rc}, {len(records)} "
+                             f"records of {want}, failed {bad}")
+
+    # ---- b. calibration on the card ----
+    pred = host[("calibration",)].result()
+    mesh = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    got = {}
+
+    def arm_a():
+        n_u, n_v, rows = CAL_CD
+        a = (torch.rand((n_u, n_v), generator=gen, device=dev)
+             < CAL_CD_DENSITY).to(torch.float32)
+        sh = dist._CDShards(mesh, a)
+        del a
+        sup = sh.split(torch.rand(n_u, generator=gen, device=dev) * 1e3,
+                       torch.float32)
+        alv = sh.split(torch.ones(n_u, dtype=torch.bool, device=dev),
+                       torch.bool)
+        peel = torch.randperm(n_u, generator=gen, device=dev)[:rows]
+        peel = peel.sort().values.to(torch.int32)
+        valid = torch.ones(rows, dtype=torch.float32, device=dev)
+        return lambda: sh.sweep(sup, alv, peel, valid, 0.0, 16384)
+
+    def arm_b():
+        g, m, n_v = CAL_FD
+        a = (torch.rand((g, m, n_v), generator=gen, device=dev)
+             < CAL_FD_DENSITY).to(torch.float32)
+        sup0 = torch.rand((g, m), generator=gen, device=dev) * 1e6
+        n_members = torch.full((g,), m, dtype=torch.int32, device=dev)
+        lo = torch.zeros(g, dtype=torch.float32, device=dev)
+        return lambda: dist.fd_stack_step(a, sup0, n_members, lo)
+
+    for arm, make, targets in (("A", arm_a, [(bfly, "butterfly_update")]),
+                               ("B", arm_b, [(bsp, "b2_stack")])):
+        got[arm], run = calibrate(torch, ops, launches, arm, pred[arm],
+                                  make)
+        # one more call, its kernel's arguments kept (clones: outside the
+        # measured calls), for the comparison with the plain version
+        seen, restore = first_calls(torch, targets)
+        try:
+            run()
+        finally:
+            restore()
+        del run
+        (fname, (args, kw)), = seen.items()
+        if fname == "butterfly_update":
+            k_out = bfly.butterfly_update(*args, **kw)
+            p_out = bfly.butterfly_update_plain(*args)
+        else:
+            k_out = bsp.b2_stack(*args, **kw)
+            p_out = bsp.b2_stack_plain(*args[:3], blocks=kw["blocks"])
+        if not torch.equal(k_out, p_out):
+            raise AssertionError(f"dryrun {arm}: {fname} differs from its "
+                                 "plain version")
+        ran = {k: v for k, v in launches[f"dryrun_{arm}"].items() if v}
+        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        log(f"dryrun calibration {arm}: {fname} torch.equal to its plain "
+            f"version on the arm's first call {shapes}; launches {ran}")
+        del seen, args, k_out, p_out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    decode, train = calibration_bundles()
+    cfg = decode.cfg
+    max_len = decode.shapes["decode"].seq_len
+    keep = {}
+
+    def arm_c():
+        keep["params"] = params = decode.init_params(gen)
+        cache = init_cache(cfg, LM_SLOTS, max_len, device=dev)
+        cache["len"] = max_len - 1
+        tok = torch.randint(0, cfg.vocab, (LM_SLOTS,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        step = decode.step_for("decode")[1]
+        return lambda: step(params, {"token": tok, "cache": cache})
+
+    got["C"], _ = calibrate(torch, ops, launches, "C", pred["C"], arm_c)
+    params = keep.pop("params")
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    embed_bytes = params.embed.numel() * params.embed.element_size()
+    del params
+    weights = p_bytes if cfg.tie_embeddings else (
+        p_bytes - embed_bytes + LM_SLOTS * embed_bytes // cfg.vocab)
+    cache_bytes = sum(v.numel() * v.element_size() for v in init_cache(
+        cfg, LM_SLOTS, max_len, device="meta").values() if torch.is_tensor(v))
+    logit_bytes = LM_SLOTS * cfg.vocab * torch.finfo(cfg.param_dtype).bits // 8
+    reckoned = decode_step_bytes(weights, cache_bytes / max_len, max_len,
+                                 logit_bytes) / HBM_BYTES_PER_S
+    log(f"dryrun calibration C: t_memory {pred['C']['t_memory'] * 1e3:.4f} ms"
+        f" vs phase 5h's bound at the same shapes {reckoned * 1e3:.4f} ms "
+        f"({pred['C']['t_memory'] / reckoned:.4f}x)")
+    if abs(pred["C"]["t_memory"] - reckoned) > CAL_DECODE_TOL * reckoned:
+        raise AssertionError(f"dryrun C: t_memory {pred['C']['t_memory']} "
+                             f"vs phase 5h's bound {reckoned}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def arm_d():
+        params = train.init_params(gen)
+        state = init_train_state(params, train.opt_cfg)
+        seq = train.shapes["train"].seq_len
+        batch = syn.lm_train_batch(train.cfg.vocab, 1, seq, seed=0,
+                                   device=dev)
+        step = train.step_for("train")[1]
+        return lambda: step(state, batch)
+
+    got["D"], _ = calibrate(torch, ops, launches, "D", pred["D"], arm_d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("dryrun calibration table (arm, measured ms / t_bound, predicted / "
+        "measured peak, predicted / resident arguments): " + json.dumps({
+            arm: [round(g["ms"] / (pred[arm]["t_bound"] * 1e3), 4),
+                  round(pred[arm]["peak"] / max(g["peak"], 1), 4),
+                  round(pred[arm]["args"] / max(g["args"], 1), 4)]
+            for arm, g in got.items()}))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3329,12 +3663,20 @@ def main() -> int:
     def arrays(g):
         return g.n_u, g.n_v, g.edges_u, g.edges_v
 
-    pool = ProcessPoolExecutor(max_workers=3,
+    # two more for phase 5k's dry run and the calibration arms' costs,
+    # submitted first: their host time overlaps the card phases
+    pool = ProcessPoolExecutor(max_workers=5,
                                mp_context=multiprocessing.get_context("spawn"))
+    root = str(Path(__file__).resolve().parent)
     try:
-        oracles = {("wing", 0.0): pool.submit(exact_psi, *arrays(sp_mid)),
+        oracles = {("dryrun",): pool.submit(host_dryrun, root,
+                                            str(Path(root) / DRYRUN_OUT)),
+                   ("calibration",): pool.submit(host_calibration_costs,
+                                                 root)}
+        oracles.update({
+                   ("wing", 0.0): pool.submit(exact_psi, *arrays(sp_mid)),
                    ("wing", WING_REFRESH_FRAC): pool.submit(
-                       exact_psi, *arrays(wing_mutation[0]))}
+                       exact_psi, *arrays(wing_mutation[0]))})
         for frac in REFRESH_FRACS:
             oracles[("tip", frac)] = pool.submit(
                 exact_theta_of, *arrays(mutations[frac][0]))
@@ -4087,6 +4429,11 @@ def run_phases(torch, np, dev, name, g_full, sp_mid, mutations,
     t0 = time.perf_counter()
     sharding_phase(torch, np, dev, launches, ops)
     log(f"sharding: phase 5j in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 5k. the dry run and its calibration on the card -------------- #
+    t0 = time.perf_counter()
+    dryrun_phase(torch, np, dev, launches, ops, bfly, bsp, oracles)
+    log(f"dryrun: phase 5k in {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. crossover: staircase + graph against tiled ---------------- #
     # the full-size graph's walls are phase 5's timed runs: the kernels and

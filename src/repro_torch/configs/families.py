@@ -161,9 +161,12 @@ def _lm_input_shardings(cfg, shapes, shape_name, mesh, specs):
 
 
 def make_lm_bundle(arch_id: str, cfg: tf_lib.LMConfig,
-                   opt_cfg: Optional[AdamWConfig] = None) -> Bundle:
+                   opt_cfg: Optional[AdamWConfig] = None, *,
+                   shapes: Optional[Dict[str, shp.LMShape]] = None) -> Bundle:
+    """The LM bundle over the assigned shapes, or over ``shapes`` (a
+    caller's own ``LMShape`` set, as the dry run's calibration uses)."""
     opt_cfg = opt_cfg or AdamWConfig()
-    shapes = shp.LM_SHAPES
+    shapes = shp.LM_SHAPES if shapes is None else shapes
 
     def loss_fn(params, batch):
         return tf_lib.lm_loss(params, batch, cfg)

@@ -2,8 +2,11 @@
 (port of ``repro.configs.registry``).
 
 ``ALL_ARCHS`` holds the reference's 10 assigned architectures in its
-order: the five language models, the four GNNs, the recsys family.  An
-arch that is not here raises ``KeyError``, as in the reference.
+order: the five language models, the four GNNs, the recsys family.  The
+paper's own distributed RECEIPT cells (arch id ``"receipt-tip"``,
+``configs/receipt_tip.py``) are handled by ``launch/dryrun.py``'s
+receipt path.  An arch that is not here raises ``KeyError``, as in the
+reference.
 """
 from __future__ import annotations
 

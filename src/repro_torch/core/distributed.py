@@ -45,9 +45,12 @@ sweep (``batched_level_loop``).  ``shard_level_group`` lays a shape group
 out with ``scheduler.lpt_shard_plan`` (Graham's rule, the paper's
 workload-aware scheduling, Fig. 3).
 
-The reference's ``lower_cd_sweep`` and ``lower_fd_stack`` abstract-lower
-programs for the dry run of the model substrate and have no eager
-counterpart here (ROADMAP.md, queue 1).
+``lower_cd_sweep`` and ``lower_fd_stack`` cost one production-scale step
+for the dry run (``launch/dryrun.py``): the step runs on meta pieces under
+``utils.op_cost.OpCost``, each shard's work booked to its mesh position,
+and the exchanges above recorded as collectives.  One ``_CDShards.sweep``
+stands for both of the reference's schedules (``"shardmap"`` and
+``"gspmd"``), which are one schedule here.
 """
 from __future__ import annotations
 
@@ -58,7 +61,8 @@ import torch
 
 from ..kernels import butterfly_sparse as ksparse
 from ..kernels import ops as kops
-from ..launch.mesh import axis_size, check_mesh, dp_axes
+from ..launch.mesh import (NamedSharding, PartitionSpec, at_position,
+                           axis_size, check_mesh, dp_axes, record_collective)
 from .engine.fd import _fd_peel_b2, first_level_delta
 from .engine.peel_loop import batched_level_loop, fetch
 from .scheduler import lpt_shard_plan
@@ -73,6 +77,8 @@ __all__ = [
     "fd_level_launch",
     "fd_level_run",
     "fd_stack_step",
+    "lower_cd_sweep",
+    "lower_fd_stack",
 ]
 
 _F32 = torch.float32
@@ -85,8 +91,10 @@ _IMPLS = ("gspmd", "shardmap")
 # --------------------------------------------------------------------- #
 class _CDShards:
     """``A`` split over a mesh: ``grid[d][m]`` is the device of dp shard
-    ``d`` and model shard ``m``, ``a[d][m]`` its block (f32 0/1),
-    ``ids[d][m]`` the block's global row ids (int32)."""
+    ``d`` and model shard ``m`` (``pos[d][m]`` its mesh position),
+    ``a[d][m]`` its block (f32 0/1), ``ids[d][m]`` the block's global row
+    ids (int32).  Each shard's work runs ``at_position`` of its shard, and
+    every exchange is recorded (``record_collective``)."""
 
     def __init__(self, mesh, a):
         check_mesh(mesh)
@@ -95,6 +103,7 @@ class _CDShards:
             raise ValueError(f"the CD layout shards over {_CD_AXES}; the "
                              f"mesh has axes {extra} too")
         dp = dp_axes(mesh)
+        self.dp = dp
         self.n_dp, self.n_tp = axis_size(mesh, dp), axis_size(mesh, "model")
         a = torch.as_tensor(a)
         self.n_u, self.n_v = a.shape
@@ -104,16 +113,17 @@ class _CDShards:
                 f"{self.n_dp} dp x {self.n_tp} model shards")
         self.n_loc = self.n_u // self.n_dp
         c_loc = self.n_v // self.n_tp
-        self.grid = []
+        self.pos = []
         for d in range(self.n_dp):
             coords, rem = {}, d
             for name in reversed(dp):
                 n = mesh.shape[name]
                 coords[name], rem = rem % n, rem // n
-            self.grid.append([
-                mesh.device_at(**coords, **({"model": m}
-                                            if "model" in mesh.shape else {}))
+            self.pos.append([
+                mesh.flat_at(**coords, **({"model": m}
+                                          if "model" in mesh.shape else {}))
                 for m in range(self.n_tp)])
+        self.grid = [[mesh.devices[k] for k in row] for row in self.pos]
         self.out_device = mesh.devices[0]
         self.a, self.ids = [], []
         for d, row in enumerate(self.grid):
@@ -135,7 +145,11 @@ class _CDShards:
     def join(self, parts):
         """All-gather of dp-sharded vectors onto the mesh's first
         device."""
-        return torch.cat([p.to(self.out_device) for p in parts])
+        out = torch.cat([p.to(self.out_device) for p in parts])
+        record_collective("all-gather", out.numel() * out.element_size(),
+                          self.n_dp, positions=[r[0] for r in self.pos],
+                          axes=self.dp)
+        return out
 
     # ---- collectives
     def gather_rows(self, rows):
@@ -148,13 +162,18 @@ class _CDShards:
             acc = None
             for d in range(self.n_dp):
                 dev = self.grid[d][m]
-                local = rows.to(dev).long() - d * self.n_loc
-                mine = (local >= 0) & (local < self.n_loc)
-                part = torch.where(
-                    mine[:, None],
-                    self.a[d][m][local.clamp(0, self.n_loc - 1)], 0.0)
-                part = part.to(self.grid[0][m])
-                acc = part if acc is None else acc + part
+                with at_position(self.pos[d][m]):
+                    local = rows.to(dev).long() - d * self.n_loc
+                    mine = (local >= 0) & (local < self.n_loc)
+                    part = torch.where(
+                        mine[:, None],
+                        self.a[d][m][local.clamp(0, self.n_loc - 1)], 0.0)
+                    part = part.to(self.grid[0][m])
+                    acc = part if acc is None else acc + part
+            record_collective("all-reduce", acc.numel() * acc.element_size(),
+                              self.n_dp,
+                              positions=[r[m] for r in self.pos],
+                              axes=self.dp)
             for d in range(self.n_dp):
                 out[d][m] = acc.to(self.grid[d][m])
         return out
@@ -167,19 +186,28 @@ class _CDShards:
         for m in range(self.n_tp):
             dev = self.grid[d][m]
             acc = None
-            for p in parts:
-                blk = p[:, m * scat:(m + 1) * scat].to(dev)
-                acc = blk if acc is None else acc + blk
+            for i, p in enumerate(parts):
+                with at_position(self.pos[d][i]):
+                    blk = p[:, m * scat:(m + 1) * scat].to(dev)
+                    acc = blk if acc is None else acc + blk
             out.append(acc)
+        record_collective("reduce-scatter",
+                          out[0].numel() * out[0].element_size(), self.n_tp,
+                          positions=self.pos[d], axes=("model",))
         return out
 
     def sum_model(self, d, parts):
         """Sum of dp shard ``d``'s per-model partials, on its model-0
         device."""
         acc = None
-        for p in parts:
-            p = p.to(self.grid[d][0])
-            acc = p if acc is None else acc + p
+        for i, p in enumerate(parts):
+            with at_position(self.pos[d][i]):
+                p = p.to(self.grid[d][0])
+                acc = p if acc is None else acc + p
+        # a reduce onto the model-0 device, costed as the all-reduce the
+        # reference's psum is
+        record_collective("all-reduce", acc.numel() * acc.element_size(),
+                          self.n_tp, positions=self.pos[d], axes=("model",))
         return acc
 
     # ---- one sweep's support delta
@@ -205,27 +233,35 @@ class _CDShards:
             for d, row in enumerate(self.grid):
                 if self.n_tp == 1:
                     dev = row[0]
-                    part = kops.butterfly_update(
-                        self.a[d][0], a_s[d][0], valid_c.to(dev),
-                        self.ids[d][0], rows_c.to(dev))
+                    with at_position(self.pos[d][0]):
+                        part = kops.butterfly_update(
+                            self.a[d][0], a_s[d][0], valid_c.to(dev),
+                            self.ids[d][0], rows_c.to(dev))
                 else:
-                    w_par = [torch.matmul(self.a[d][m], a_s[d][m].T)
-                             for m in range(self.n_tp)]
+                    w_par = []
+                    for m in range(self.n_tp):
+                        with at_position(self.pos[d][m]):
+                            w_par.append(torch.matmul(self.a[d][m],
+                                                      a_s[d][m].T))
                     w = self.reduce_scatter_model(d, w_par)
                     scat = csz // self.n_tp
                     parts = []
                     for m, dev in enumerate(row):
-                        sl = slice(m * scat, (m + 1) * scat)
-                        rows_s = rows_c[sl].to(dev)
-                        valid_s = valid_c[sl].to(dev)
-                        b2 = w[m] * (w[m] - 1.0) * 0.5
-                        keep = ((self.ids[d][m][:, None] != rows_s[None, :])
-                                .to(_F32) * valid_s[None, :])
-                        # a masked sum, not a product: full f32 whatever
-                        # the TF32 setting (the entries pass 2048)
-                        parts.append((b2 * keep).sum(dim=1))
+                        with at_position(self.pos[d][m]):
+                            sl = slice(m * scat, (m + 1) * scat)
+                            rows_s = rows_c[sl].to(dev)
+                            valid_s = valid_c[sl].to(dev)
+                            b2 = w[m] * (w[m] - 1.0) * 0.5
+                            keep = ((self.ids[d][m][:, None]
+                                     != rows_s[None, :]).to(_F32)
+                                    * valid_s[None, :])
+                            # a masked sum, not a product: full f32
+                            # whatever the TF32 setting (the entries pass
+                            # 2048)
+                            parts.append((b2 * keep).sum(dim=1))
                     part = self.sum_model(d, parts)
-                acc[d] = acc[d] + part
+                with at_position(self.pos[d][0]):
+                    acc[d] = acc[d] + part
         return acc
 
     def sweep(self, support, alive, rows, valid, lo, chunk: int):
@@ -235,21 +271,28 @@ class _CDShards:
         delta = self.delta(rows, valid, chunk)
         out_s, out_a = [], []
         for d, row in enumerate(self.grid):
-            dev = row[0]
-            local = rows.to(dev).long() - d * self.n_loc
-            mine = ((local >= 0) & (local < self.n_loc)
-                    & (valid.to(dev) > 0.5))
-            peeled = torch.zeros(self.n_loc, dtype=torch.int8, device=dev)
-            peeled = peeled.scatter_reduce(
-                0, local.clamp(0, self.n_loc - 1), mine.to(torch.int8),
-                "amax").to(torch.bool) & alive[d]
-            alive_after = alive[d] & ~peeled
-            lo_t = torch.as_tensor(lo, dtype=_F32, device=dev)
-            out_s.append(torch.where(
-                alive_after, torch.maximum(support[d] - delta[d], lo_t),
-                support[d]))
-            out_a.append(alive_after)
+            with at_position(self.pos[d][0]):
+                s, a = self._sweep_shard(d, row[0], support, alive, rows,
+                                         valid, lo, delta)
+            out_s.append(s)
+            out_a.append(a)
         return out_s, out_a
+
+    def _sweep_shard(self, d, dev, support, alive, rows, valid, lo, delta):
+        """Dp shard ``d``'s part of a sweep: its valid peel rows marked
+        dead, its survivors' supports less ``delta`` floored at ``lo``."""
+        local = rows.to(dev).long() - d * self.n_loc
+        mine = ((local >= 0) & (local < self.n_loc)
+                & (valid.to(dev) > 0.5))
+        peeled = torch.zeros(self.n_loc, dtype=torch.int8, device=dev)
+        peeled = peeled.scatter_reduce(
+            0, local.clamp(0, self.n_loc - 1), mine.to(torch.int8),
+            "amax").to(torch.bool) & alive[d]
+        alive_after = alive[d] & ~peeled
+        lo_t = torch.as_tensor(lo, dtype=_F32, device=dev)
+        return torch.where(
+            alive_after, torch.maximum(support[d] - delta[d], lo_t),
+            support[d]), alive_after
 
 
 def distributed_cd_sweep(mesh, a, support, alive, rows, valid, lo,
@@ -294,29 +337,45 @@ def distributed_cd_fused_loop(mesh, a, support, alive, hi, lo, *,
     Returns (support, alive, rho, overflow): the vectors gathered on the
     mesh's first device, ``rho`` the sweeps run, ``overflow`` a bool."""
     sh = _CDShards(mesh, a)
-    dev0 = sh.out_device
     sup, alv = sh.split(support, _F32), sh.split(alive, torch.bool)
     hi = float(hi)
-    width = torch.arange(peel_width, device=dev0)
+    width = torch.arange(peel_width, device=sh.out_device)
     rho, overflow = 0, False
     while rho < max_sweeps:
-        peel = sh.join([al & (sp < hi) for sp, al in zip(sup, alv)])
+        peel = _peel_mask(sh, sup, alv, hi)
         n_peel = int(fetch(stats, peel.sum())[0])
         if n_peel == 0:
             break
         if n_peel > peel_width:
             overflow = True
             break
-        order = torch.argsort((~peel).to(torch.int8), stable=True)
-        order = order[:peel_width].to(torch.int32)
-        if order.numel() < peel_width:
-            order = torch.cat([order, torch.zeros(
-                peel_width - order.numel(), dtype=torch.int32, device=dev0)])
-        valid = width < n_peel
-        rows = torch.where(valid, order, 0)
-        sup, alv = sh.sweep(sup, alv, rows, valid.to(_F32), lo, chunk)
+        rows, valid = _peel_rows(peel, n_peel, width)
+        sup, alv = sh.sweep(sup, alv, rows, valid, lo, chunk)
         rho += 1
     return sh.join(sup), sh.join(alv), rho, overflow
+
+
+def _peel_mask(sh, sup, alv, hi):
+    """The alive rows below ``hi``, joined on the mesh's first device."""
+    parts = []
+    for d, (sp, al) in enumerate(zip(sup, alv)):
+        with at_position(sh.pos[d][0]):
+            parts.append(al & (sp < hi))
+    return sh.join(parts)
+
+
+def _peel_rows(peel, n_peel: int, width):
+    """The range loop's peel buffer: the ascending global ids of the
+    ``n_peel`` rows of ``peel``, padded with row 0 to ``len(width)``, and
+    their validity (f32)."""
+    n = width.numel()
+    order = torch.argsort((~peel).to(torch.int8), stable=True)
+    order = order[:n].to(torch.int32)
+    if order.numel() < n:
+        order = torch.cat([order, torch.zeros(
+            n - order.numel(), dtype=torch.int32, device=peel.device)])
+    valid = width < n_peel
+    return torch.where(valid, order, 0), valid.to(_F32)
 
 
 # --------------------------------------------------------------------- #
@@ -520,3 +579,140 @@ def fd_stack_step(a_stack, sup0, n_members, lo, *,
     return _fd_peel_b2(b2, torch.as_tensor(sup0).to(dev, _F32),
                        torch.as_tensor(n_members).to(dev),
                        torch.as_tensor(lo).to(dev, _F32))
+
+
+# --------------------------------------------------------------------- #
+# the dry run's steps (costed over meta pieces)
+# --------------------------------------------------------------------- #
+_META = torch.device("meta")
+_CHUNK = 16384          # the peel-set chunk of the sweeps' defaults
+
+
+def _meta_mesh(mesh):
+    check_mesh(mesh)
+    if any(d.type != "meta" for d in mesh.devices):
+        raise ValueError("a step is costed over a mesh of meta positions "
+                         "(make_mesh(..., devices=[torch.device('meta')] "
+                         "* n))")
+    return mesh
+
+
+def _piece_bytes(mesh, spec, shape, dtype) -> int:
+    n = 1
+    for k in NamedSharding(mesh, PartitionSpec(*spec)).shard_shape(shape):
+        n *= k
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
+def lower_cd_sweep(mesh, *, n_u: int, n_v: int, peel_rows: int,
+                   impl: str = "shardmap"):
+    """Cost one production-scale CD step on ``mesh`` (meta positions):
+    ``_CDShards`` pieces of an (n_u, n_v) 0/1 matrix, traced under
+    ``utils.op_cost.OpCost``.  Returns the ``op_cost.Cost`` (the record
+    the reference's ``Lowered`` gives its dry run).
+
+    ``impl`` ``"shardmap"`` / ``"gspmd"``: one ``_CDShards.sweep`` of a
+    ``peel_rows``-wide gathered peel set (the reference's two schedules
+    are one here).  ``"fused"``: one sweep of the range loop's body (the
+    peel set, the buffer of ``peel_rows`` rows, the sweep), the buffer
+    full: the loop's read of the set's size is a host read, which meta
+    tensors cannot answer.  Arguments per position are the reference's
+    (``A`` over (dp, model), the vectors over dp, the peel rows and the
+    scalars replicated), with ``A``'s piece in f32.
+
+    The sweep's chunk loop (``peel_rows / 16384`` equal chunks, the
+    engine's default chunk) is traced
+    at one and two chunks and extrapolated to its trip count (the cost
+    is affine in it; the peak is the second chunk's, which each later
+    chunk repeats, plus the longer peel-row arguments); ``cost.depths``
+    records that."""
+    from ..utils.op_cost import Cost
+
+    chunk = _CHUNK
+    n_chunks = -(-peel_rows // chunk)
+    if n_chunks <= 2 or peel_rows % chunk:
+        return _cost_cd_sweep(mesh, n_u, n_v, peel_rows, impl, chunk)
+    costs = [_cost_cd_sweep(mesh, n_u, n_v, k * chunk, impl, chunk)
+             for k in (1, 2)]
+    out = Cost.combine(costs, [2 - n_chunks, n_chunks - 1], depths={
+        "chunks": {"traced": [1, 2], "config": n_chunks}})
+    out.peak = costs[1].peak + (out.args - costs[1].args)
+    return out
+
+
+def _cost_cd_sweep(mesh, n_u, n_v, peel_rows, impl, chunk):
+    """``lower_cd_sweep``'s one trace, the chunk loop whole."""
+    from ..utils.op_cost import OpCost
+
+    if impl not in _IMPLS + ("fused",):
+        raise ValueError(f"impl {impl!r}: one of {_IMPLS + ('fused',)}")
+    mesh = _meta_mesh(mesh)
+    sh = _CDShards(mesh, torch.empty((n_u, n_v), dtype=_F32, device=_META))
+    sup = sh.split(torch.empty(n_u, dtype=_F32, device=_META), _F32)
+    alv = sh.split(torch.empty(n_u, dtype=torch.bool, device=_META),
+                   torch.bool)
+    dp = sh.dp if len(sh.dp) > 1 else (sh.dp[0] if sh.dp else None)
+    tp = "model" if "model" in mesh.shape else None
+    piece = {
+        "a": _piece_bytes(mesh, (dp, tp), (n_u, n_v), _F32),
+        "vec": _piece_bytes(mesh, (dp,), (n_u,), _F32),
+        "mask": _piece_bytes(mesh, (dp,), (n_u,), torch.bool),
+        "ids": _piece_bytes(mesh, (dp,), (n_u,), torch.int32),
+    }
+    held = []
+    for d in range(sh.n_dp):
+        p0 = sh.pos[d][0]
+        held += [(sup[d], piece["vec"], p0), (alv[d], piece["mask"], p0)]
+        for m in range(sh.n_tp):
+            held += [(sh.a[d][m], piece["a"], sh.pos[d][m]),
+                     (sh.ids[d][m], piece["ids"], sh.pos[d][m])]
+    # A, support, alive, ids and the scalars lo (and hi, fused)
+    args = piece["a"] + piece["vec"] + piece["mask"] + piece["ids"] + 4
+    with OpCost(mesh.size) as oc:
+        if impl == "fused":
+            oc.add_arguments(held)
+            args += 4
+            peel = _peel_mask(sh, sup, alv, 1.0)
+            peel.sum()
+            rows, valid = _peel_rows(
+                peel, peel_rows, torch.arange(peel_rows, device=_META))
+        else:
+            rows = torch.empty(peel_rows, dtype=torch.int32, device=_META)
+            valid = torch.empty(peel_rows, dtype=_F32, device=_META)
+            oc.add_arguments(held + [(rows, 4 * peel_rows),
+                                     (valid, 4 * peel_rows)])
+            args += 8 * peel_rows
+        sh.sweep(sup, alv, rows, valid, 0.0, chunk)
+    cost = oc.cost
+    cost.args = args
+    cost.outputs = piece["vec"] + piece["mask"]
+    return cost
+
+
+def lower_fd_stack(mesh, *, n_subsets: int, rows: int, cols: int):
+    """Cost one position's FD stack on ``mesh`` (meta positions): its
+    ``n_subsets / mesh.size`` members through ``fd_stack_step`` (kernel 3,
+    then the sequential peel's ``rows`` steps), traced under
+    ``utils.op_cost.OpCost`` and booked to every position, since every
+    position holds the same shape.  The subsets are independent: no
+    collective.  Returns the ``op_cost.Cost``."""
+    from ..utils.op_cost import ALL, OpCost
+
+    mesh = _meta_mesh(mesh)
+    if n_subsets % mesh.size:
+        raise ValueError(f"{n_subsets} subsets do not split over "
+                         f"{mesh.size} positions")
+    g = n_subsets // mesh.size
+    a = torch.empty((g, rows, cols), dtype=_F32, device=_META)
+    sup0 = torch.empty((g, rows), dtype=_F32, device=_META)
+    n_members = torch.empty(g, dtype=torch.int32, device=_META)
+    lo = torch.empty(g, dtype=_F32, device=_META)
+    held = [(t, t.numel() * t.element_size())
+            for t in (a, sup0, n_members, lo)]
+    with OpCost(mesh.size, unmarked=ALL) as oc:
+        oc.add_arguments(held)
+        theta = fd_stack_step(a, sup0, n_members, lo)
+    cost = oc.cost
+    cost.args = sum(n for _, n in held)
+    cost.outputs = theta.numel() * theta.element_size()
+    return cost

@@ -44,6 +44,9 @@ Each body counts its launches under its own key,
 
 Each wrapper takes its plain version (beside it) for CPU tensors and
 launches its kernel for CUDA tensors, counting the launch in ``LAUNCHES``.
+On meta tensors (the dry run) it runs the plain version for the shapes,
+and a cost mode books the body's own work (``peel_work``,
+``count_work``) in its place (``utils.op_cost.run_kernel``).
 There is no fallback from one to the other.  ``_launch`` is the one
 launch of those bodies, shared with the stripe-skipping kernels 4 and 5
 (``butterfly_sparse``); ``check_body`` and ``check_stack_body`` hold a
@@ -64,6 +67,8 @@ __all__ = [
     "check_stack_body",
     "count_scratch_bytes",
     "peel_scratch_bytes",
+    "peel_work",
+    "count_work",
     "butterfly_update",
     "butterfly_update_plain",
     "butterfly_update_batched",
@@ -135,6 +140,42 @@ def peel_scratch_bytes(n_b: int, n_v: int, groups: int = 1) -> int:
     n_chunks = groups * -(-n_b // _PEEL_CHUNK)
     flag_bytes = -(-4 * n_chunks * n_str // 16) * 16
     return flag_bytes + n_chunks * _PEEL_CHUNK * n_str * _STRIPE
+
+
+def peel_work(n_a: int, n_b: int, n_v: int, groups: int = 1):
+    """(operations, bytes) of the peel body over ``groups`` graphs with
+    every row valid and every stripe live (``chip_smoke.peel_live_work``
+    with no data): 2 per (A row, B row, column); A, B, s, both ids and
+    out moved once in f32 / int32."""
+    ops = 2 * n_a * n_b * n_v
+    nbytes = 4 * (n_a * n_v + n_b * n_v + 2 * n_b + 2 * n_a)
+    return groups * ops, groups * nbytes
+
+
+def count_work(n: int, n_v: int):
+    """(operations, bytes) of the count body (B = A) with every row
+    holding mass and every stripe live (``chip_smoke.count_pair_ops``
+    with no data): 2 per unordered pair of distinct rows per column; A,
+    s, the ids and out moved once."""
+    return (n * n - n) * n_v, 4 * (n * n_v + 3 * n)
+
+
+def _on_meta(plain, a, b, s, ids_a, ids_b, body, groups=1):
+    """The plain version on meta tensors, costed as ``body``'s work."""
+    from ..utils.op_cost import run_kernel
+
+    n_a, n_v = a.shape[-2:]
+    n_b = b.shape[-2]
+    if body == "count":
+        ops, nbytes = count_work(n_a, n_v)
+        scratch = count_scratch_bytes(n_a, n_v)
+    else:
+        ops, nbytes = peel_work(n_a, n_b, n_v, groups)
+        scratch = peel_scratch_bytes(n_b, n_v, groups) if body == "peel" \
+            else 0
+    return run_kernel(plain, (a, b, s, ids_a, ids_b), ops=ops,
+                      nbytes=nbytes, scratch=scratch,
+                      unit="fp32" if body == "tile" else "int8")
 
 
 def butterfly_update_plain(a, b, s, ids_a, ids_b):
@@ -250,6 +291,8 @@ def butterfly_update(a, b, s, ids_a, ids_b, *, body="peel"):
     check_body(body, a, b, ids_a, ids_b)
     if a.device.type == "cpu":
         return butterfly_update_plain(a, b, s, ids_a, ids_b)
+    if a.device.type == "meta":
+        return _on_meta(butterfly_update_plain, a, b, s, ids_a, ids_b, body)
     return _launch(LAUNCHES, "butterfly_update", a, b, s, ids_a, ids_b,
                    body=body)
 
@@ -262,5 +305,8 @@ def butterfly_update_batched(a, b, s, ids_a, ids_b, *, body="peel"):
     check_stack_body(body)
     if a.device.type == "cpu":
         return butterfly_update_batched_plain(a, b, s, ids_a, ids_b)
+    if a.device.type == "meta":
+        return _on_meta(butterfly_update_batched_plain, a, b, s, ids_a,
+                        ids_b, body, groups=a.shape[0])
     return _launch(LAUNCHES, "butterfly_update_batched", a, b, s, ids_a,
                    ids_b, body=body)

@@ -27,9 +27,11 @@ them.  This module holds the extent helpers (``row_extents``,
 
 Each wrapper takes its plain version (beside it) for CPU tensors and
 launches its kernel for CUDA tensors, counting the launch in ``LAUNCHES``.
-The plain versions of kernels 4 and 5 honour the extents stripe by stripe,
-as the Pallas grid does, so they are the same function as the Pallas
-kernels for ANY extents, even ones too tight to be exact.
+``b2_stack`` on meta tensors (the dry run) runs its plain version for the
+shapes, costed as the pairs body's work (``b2_work``).  The plain
+versions of kernels 4 and 5 honour the extents stripe by stripe, as the
+Pallas grid does, so they are the same function as the Pallas kernels
+for ANY extents, even ones too tight to be exact.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ __all__ = [
     "butterfly_update_sparse_batched_plain",
     "B2_BODIES",
     "b2_scratch_bytes",
+    "b2_work",
     "b2_stack",
     "b2_stack_plain",
 ]
@@ -77,6 +80,14 @@ def b2_scratch_bytes(g: int, m: int, n_v: int) -> int:
     ``csrc/b2_stack.cu``): the s8 copy of the (g, m, n_v) stack, each
     group padded as the count body pads its one matrix."""
     return g * _bfly.count_scratch_bytes(m, n_v)
+
+
+def b2_work(g: int, m: int, n_v: int, n_extents: int = 0):
+    """(operations, bytes) of kernel 3's pairs body with every row and
+    stripe live (``chip_smoke.b2_pair_ops`` with no data): 2 per
+    unordered pair of distinct rows per column; the stack read once, the
+    (g, m, m) output written once, the extents read."""
+    return g * m * (m - 1) * n_v, 4 * (g * m * n_v + g * m * m + n_extents)
 
 
 def row_extents(a: np.ndarray, block_k: int) -> np.ndarray:
@@ -268,6 +279,16 @@ def b2_stack(a, kmax_a, kmax_b, *, blocks, body="pairs"):
         raise ValueError(f"body {body!r}: one of {B2_BODIES}")
     if a.device.type == "cpu":
         return b2_stack_plain(a, kmax_a, kmax_b, blocks=blocks)
+    if a.device.type == "meta":
+        from ..utils.op_cost import run_kernel
+
+        g_n, m, n_v = a.shape
+        ops, nbytes = b2_work(g_n, m, n_v, kmax_a.numel() + kmax_b.numel())
+        return run_kernel(
+            lambda x: b2_stack_plain(x, kmax_a, kmax_b, blocks=blocks),
+            (a,), ops=ops, nbytes=nbytes,
+            scratch=b2_scratch_bytes(g_n, m, n_v) if body == "pairs" else 0,
+            unit="int8" if body == "pairs" else "fp32")
     if a.device.type != "cuda":
         raise ValueError(f"no b2_stack kernel for device {a.device}")
     bi, bj, bk = (int(x) for x in blocks)

@@ -22,9 +22,16 @@ position on that position's device, and puts the pieces back together),
 (16, 16) and (2, 16, 16) meshes; over an explicit device list such as
 256 ``torch.device("meta")``, the rules' specs are computed without a
 card).
+
+The dry run's part: the mesh loops mark the position they run
+(``at_position``), since every meta position is the same device, and
+every exchange the port lays out calls ``record_collective``.  Both do
+nothing outside a cost mode (``utils.op_cost.OpCost``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -33,7 +40,44 @@ import torch
 
 __all__ = ["DeviceMesh", "make_mesh", "check_mesh", "dp_axes",
            "axis_size", "PartitionSpec", "NamedSharding", "filter_spec",
-           "named", "make_production_mesh"]
+           "named", "make_production_mesh", "at_position",
+           "current_position", "record_collective"]
+
+# the mesh position whose work the running code is (a row-major flat
+# index), and the active cost mode's collective sink
+_POSITION: contextvars.ContextVar = contextvars.ContextVar(
+    "mesh_position", default=None)
+_COLLECTIVE_SINK: list = [None]
+
+
+@contextlib.contextmanager
+def at_position(flat: int):
+    """Book the work done inside to mesh position ``flat``."""
+    token = _POSITION.set(int(flat))
+    try:
+        yield
+    finally:
+        _POSITION.reset(token)
+
+
+def current_position():
+    """The position marked by the innermost ``at_position``, else None."""
+    return _POSITION.get()
+
+
+def record_collective(op: str, out_bytes: int, group_size: int, *,
+                      positions=None, axes=(), param: str = "") -> None:
+    """Record one collective of ``launch.roofline.Collective``'s ``op``
+    with ``out_bytes`` of output per participant over a group of
+    ``group_size`` positions spanning the mesh ``axes``.  ``positions``
+    lists the participants (None: the marked position, else every
+    position); ``param`` names the parameters (a path suffix such as
+    ``moe/gate``) an all-gather puts together.  A no-op outside a cost
+    mode."""
+    sink = _COLLECTIVE_SINK[0]
+    if sink is not None and group_size > 1:
+        sink(op, int(out_bytes), int(group_size), positions, tuple(axes),
+             param)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,15 +105,20 @@ class DeviceMesh:
     def size(self) -> int:
         return math.prod(self.shape.values())
 
-    def device_at(self, **index: int) -> torch.device:
-        """The device at the named position (axes not named: index 0)."""
+    def flat_at(self, **index: int) -> int:
+        """The row-major flat index of the named position (axes not
+        named: index 0)."""
         flat = 0
         for name, n in self.shape.items():
             i = int(index.get(name, 0))
             if not 0 <= i < n:
                 raise IndexError(f"{name}={i} outside a {name} axis of {n}")
             flat = flat * n + i
-        return self.devices[flat]
+        return flat
+
+    def device_at(self, **index: int) -> torch.device:
+        """The device at the named position (axes not named: index 0)."""
+        return self.devices[self.flat_at(**index)]
 
     def coords(self, flat: int) -> Dict[str, int]:
         """The named position at a row-major flat index."""

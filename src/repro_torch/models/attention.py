@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..launch.sharding import shard_act
+from ..utils import op_cost
 from .layers import _param, apply_rope, dense_init, init_rmsnorm, rmsnorm
 
 __all__ = ["flash_attention", "decode_attention", "GQA", "init_gqa",
@@ -59,7 +60,17 @@ def flash_attention(
     Supports Hkv < H (GQA) by head-group broadcasting.  q_offset shifts
     query positions for causal masking (prefill continuation).  Scores
     and the softmax statistics are float32; the accumulator and the
-    output stay in v's dtype, as in the reference."""
+    output stay in v's dtype, as in the reference.  Every call of the
+    same shapes costs the same: a cost mode traces the blocked loop once
+    (``utils.op_cost.repeat_call``)."""
+    opts = dict(causal=causal, q_block=q_block, kv_block=kv_block,
+                q_offset=q_offset)
+    return op_cost.repeat_call(
+        lambda q_, k_, v_: (_flash_attention(q_, k_, v_, **opts),),
+        [q, k, v], ("flash_attention", tuple(opts.items())))[0]
+
+
+def _flash_attention(q, k, v, *, causal, q_block, kv_block, q_offset):
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dv = v.shape[-1]

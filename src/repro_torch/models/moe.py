@@ -37,8 +37,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..launch.mesh import NamedSharding, PartitionSpec, axis_size, dp_axes
+from ..launch.mesh import (NamedSharding, PartitionSpec, at_position,
+                           axis_size, dp_axes, record_collective)
 from ..launch.sharding import current_mesh, shard_act
+from ..utils import op_cost
 from .layers import (SwiGLU, _param, dense_init, draw, init_device,
                      init_swiglu, swiglu)
 
@@ -207,7 +209,8 @@ def moe_forward_sharded(
     brings the expert outputs back; each position's experts' weight
     slices are concatenated over the data positions (the FSDP
     ``all_gather``).  The shared experts' weights are put together whole
-    and applied token-locally; ``aux`` is the mean over every position.
+    once per device and applied token-locally; ``aux`` is the mean over
+    every position.
 
     One process runs the positions in turn, data row by data row: each
     position's dispatch is copied into its row's receive buffers and
@@ -215,7 +218,9 @@ def moe_forward_sharded(
     position's received tokens are dropped once its outputs are sent
     back.  Every piece lives on its position's device (a view where that
     is ``x``'s device); the output is put together on ``x``'s device.
-    Autograd flows through every copy."""
+    Autograd flows through every copy.  Each position's work runs
+    ``at_position`` of it, and the exchanges are recorded
+    (``record_collective``) for the dry run."""
     dp = dp_axes(mesh)
     dp_spec = (dp if len(dp) > 1 else dp[0]) if dp else None
     n_model = mesh.shape["model"]
@@ -255,6 +260,7 @@ def moe_forward_sharded(
 
     out_pc: List[Optional[torch.Tensor]] = [None] * mesh.size
     auxes = []
+    shared_on: dict = {}     # the shared experts put together, per device
     for r in range(n_dp):
         row = [at[r, j] for j in range(n_model)]
         devs = [mesh.devices[k] for k in row]
@@ -264,49 +270,66 @@ def moe_forward_sharded(
                             device=dv) for dv in devs]
         metas, x2s = [], []
         for j, k in enumerate(row):
-            x2 = x_pc[k].reshape(1, t_loc, d)
-            rp = types.SimpleNamespace(router=p.router.to(devs[j]),
-                                       router_bias=p.router_bias.to(devs[j]))
-            idx, gates, aux = route(rp, x2, top_k=top_k, mode=mode)
-            disp, meta = _dispatch(x2, idx, gates, n_e, cap)  # (1, E, cap, d)
-            for jj in range(n_model):
-                recv[jj][:, j * cap:(j + 1) * cap].copy_(
-                    disp[0, jj * e_loc:(jj + 1) * e_loc])
-            del disp
-            metas.append(meta)
-            x2s.append(x2[0])
-            auxes.append(aux[0].to(x.device))
+            with at_position(k):
+                x2 = x_pc[k].reshape(1, t_loc, d)
+                rp = types.SimpleNamespace(
+                    router=p.router.to(devs[j]),
+                    router_bias=p.router_bias.to(devs[j]))
+                idx, gates, aux = route(rp, x2, top_k=top_k, mode=mode)
+                disp, meta = _dispatch(x2, idx, gates, n_e, cap)
+                for jj in range(n_model):                # (1, E, cap, d)
+                    recv[jj][:, j * cap:(j + 1) * cap].copy_(
+                        disp[0, jj * e_loc:(jj + 1) * e_loc])
+                del disp
+                metas.append(meta)
+                x2s.append(x2[0])
+                auxes.append(aux[0].to(x.device))
+        a2a_bytes = n_e * cap * d * x.element_size()
+        record_collective("all-to-all", a2a_bytes, n_model, positions=row,
+                          axes=("model",))
         # 2. each expert position in turn: gather its experts' weights
         #    over the data positions, run them, send the outputs back
         back: List[Optional[torch.Tensor]] = [None] * n_model
         for j in range(n_model):
             col = [at[rr, j] for rr in range(n_dp)]
-            gate_w = _gathered([gate_pc[k].to(devs[j]) for k in col], 1)
-            up_w = _gathered([up_pc[k].to(devs[j]) for k in col], 1)
-            down_w = _gathered([down_pc[k].to(devs[j]) for k in col], 2)
-            h, recv[j] = recv[j], None
-            g = F.silu(torch.einsum("ecd,edf->ecf", h, gate_w))
-            u = torch.einsum("ecd,edf->ecf", h, up_w)
-            eout = torch.einsum("ecf,efd->ecd", g * u, down_w)
-            del h, g, u, gate_w, up_w, down_w
-            for jj in range(n_model):
-                if back[jj] is None:
-                    back[jj] = torch.empty((n_e, cap, d), dtype=eout.dtype,
-                                           device=devs[jj])
-                back[jj][j * e_loc:(j + 1) * e_loc].copy_(
-                    eout[:, jj * cap:(jj + 1) * cap])
-            del eout
+            with at_position(row[j]):
+                gate_w = _gathered([gate_pc[k].to(devs[j]) for k in col], 1)
+                up_w = _gathered([up_pc[k].to(devs[j]) for k in col], 1)
+                down_w = _gathered([down_pc[k].to(devs[j]) for k in col], 2)
+                for name, w in (("gate", gate_w), ("up", up_w),
+                                ("down", down_w)):
+                    record_collective("all-gather",
+                                      w.numel() * w.element_size(), n_dp,
+                                      positions=[row[j]], axes=dp,
+                                      param=f"moe/{name}")
+                h, recv[j] = recv[j], None
+                g = F.silu(torch.einsum("ecd,edf->ecf", h, gate_w))
+                u = torch.einsum("ecd,edf->ecf", h, up_w)
+                eout = torch.einsum("ecf,efd->ecd", g * u, down_w)
+                del h, g, u, gate_w, up_w, down_w
+                for jj in range(n_model):
+                    if back[jj] is None:
+                        back[jj] = torch.empty((n_e, cap, d),
+                                               dtype=eout.dtype,
+                                               device=devs[jj])
+                    back[jj][j * e_loc:(j + 1) * e_loc].copy_(
+                        eout[:, jj * cap:(jj + 1) * cap])
+                del eout
+        record_collective("all-to-all", a2a_bytes, n_model, positions=row,
+                          axes=("model",))
         # 3. combine on each token position, plus the shared experts
         for j, k in enumerate(row):
-            out2 = _combine(back[j][None], metas[j], t_loc)[0]
-            back[j] = None
-            if shared:
-                sw = types.SimpleNamespace(**{
-                    name: spec.unshard(pc, devs[j])
-                    for name, (spec, pc) in zip(("gate", "up", "down"),
-                                                shared)})
-                out2 = out2 + swiglu(sw, x2s[j])
-            out_pc[k] = out2.reshape(b_loc, s_loc, d)
+            with at_position(k):
+                out2 = _combine(back[j][None], metas[j], t_loc)[0]
+                back[j] = None
+                if shared:
+                    if devs[j] not in shared_on:
+                        shared_on[devs[j]] = types.SimpleNamespace(**{
+                            name: spec.unshard(pc, devs[j])
+                            for name, (spec, pc) in zip(
+                                ("gate", "up", "down"), shared)})
+                    out2 = out2 + swiglu(shared_on[devs[j]], x2s[j])
+                out_pc[k] = out2.reshape(b_loc, s_loc, d)
     # replicas along any other axis stay None: unshard reads the first
     # position of each piece, the one that ran
     out = tokens.unshard(out_pc, x.device)
@@ -334,9 +357,25 @@ def moe_forward(
     # active and the shapes divide it (training / prefill cells)
     mesh = current_mesh()
     if sharded_dispatch_applies(mesh, b, s, n_e):
-        return moe_forward_sharded(
-            p, x, top_k=top_k, capacity_factor=capacity_factor, mode=mode,
-            no_drop=no_drop, mesh=mesh)
+        # the same cost for every layer: a cost mode traces it once
+        names = ("router", "router_bias", "gate", "up", "down")
+        leaves = [getattr(p, k) for k in names]
+        if hasattr(p, "shared"):
+            leaves += [p.shared.gate, p.shared.up, p.shared.down]
+
+        def run(x_, *ws):
+            q = types.SimpleNamespace(**dict(zip(names, ws)))
+            if len(ws) > len(names):
+                q.shared = types.SimpleNamespace(
+                    **dict(zip(("gate", "up", "down"), ws[len(names):])))
+            return moe_forward_sharded(
+                q, x_, top_k=top_k, capacity_factor=capacity_factor,
+                mode=mode, no_drop=no_drop, mesh=mesh)
+
+        return op_cost.repeat_call(
+            run, [x] + leaves,
+            ("moe_forward_sharded", top_k, capacity_factor, mode, no_drop,
+             tuple(mesh.shape.items()), mesh.devices))
     gs = min(group_size, s)
     n_g = s // gs
     assert n_g * gs == s, f"seq {s} not divisible by group {gs}"
