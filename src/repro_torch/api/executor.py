@@ -65,6 +65,7 @@ from ..kernels import butterfly_sparse as ksparse
 from ..kernels import ops as kops
 from ..launch.mesh import check_mesh
 from ..train.fault_tolerance import StragglerMonitor
+from ..utils.spans import note_run
 from . import faults
 from .errors import (
     FleetPartialFailure,
@@ -358,7 +359,8 @@ class Executor:
     def repeel(self, graph: BipartiteGraph, *, sup0: np.ndarray,
                numbers_old: np.ndarray, stops: Sequence[float],
                watch: np.ndarray,
-               plan: Optional[ExecutionPlan] = None
+               plan: Optional[ExecutionPlan] = None,
+               stats: Optional[RunStats] = None
                ) -> Tuple[np.ndarray, RunStats]:
         """Exact incremental refresh: prefix re-peel of the POST-mutation
         ``graph`` from delta-maintained supports, stopping at the first
@@ -375,7 +377,9 @@ class Executor:
         representation are rejected (the refresh loops are dense).
         Returns ``(numbers_new int64, stats)`` with ``refresh_mode`` and
         ``refresh_stop`` set — bit-identical to
-        ``decompose(graph).numbers``.
+        ``decompose(graph).numbers``.  ``stats``: the ``RunStats`` to
+        fill (a fresh one by default), so that a caller's own spans and
+        reads of the refresh land on the same run.
         """
         from ..core.engine.refresh import (repeel_tip_prefix,
                                            repeel_wing_prefix)
@@ -392,7 +396,7 @@ class Executor:
         rcfg = self._run_cfg(plan.backend, plan)
         if self.workload == "tip" and self.side == "V":
             graph = graph.transposed()
-        stats = RunStats()
+        stats = RunStats() if stats is None else stats
         stats.refresh_mode = "delta"
         repeel = (repeel_wing_prefix if self.workload == "wing"
                   else repeel_tip_prefix)
@@ -402,6 +406,7 @@ class Executor:
                                     plan=plan)
         stats.backend_used = plan.backend
         self._absorb(plan, entry)
+        note_run(stats)
         return numbers, stats
 
     def _run_cfg(self, backend: str, plan: ExecutionPlan) -> ReceiptConfig:
@@ -437,6 +442,7 @@ class Executor:
                     plan_signature=plan.signature, dispatch=plan.cd_dispatch,
                     backend=backend) from e
         stats.backend_used = backend
+        note_run(stats)
         return theta, stats
 
     def _engine_run(self, graph: BipartiteGraph, cfg: ReceiptConfig,

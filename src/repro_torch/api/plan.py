@@ -85,6 +85,7 @@ from ..kernels import butterfly as kbfly
 from ..kernels import butterfly_tiled as ktiled
 from ..kernels import ops as kops
 from ..launch.mesh import check_mesh
+from ..utils.spans import span
 from .config import EngineConfig
 from .errors import PlanInfeasibleError
 
@@ -436,6 +437,12 @@ class Planner:
 
     # ------------------------------------------------------------------ #
     def plan(self, graph: BipartiteGraph, *, mesh=None) -> ExecutionPlan:
+        """The plan of ``graph`` (module docstring), under the span
+        ``plan`` (a profiler range only: no run exists yet)."""
+        with span("plan"):
+            return self._plan(graph, mesh)
+
+    def _plan(self, graph: BipartiteGraph, mesh) -> ExecutionPlan:
         if mesh is not None:
             check_mesh(mesh)
         if not isinstance(graph, BipartiteGraph):

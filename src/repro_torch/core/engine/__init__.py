@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ...launch.mesh import check_mesh
+from ...utils.spans import span
 from ..graph import BipartiteGraph
 from .baselines import parb_tip_decompose
 from .cd import cd_checkpoint_state, find_hi_np, receipt_cd
@@ -110,6 +111,9 @@ def tip_decompose(
     runs the tiled engine, anything else the dense pipeline (the Planner
     resolves ``"auto"`` before a run reaches here).
 
+    The span ``engine.prepare`` (``utils.spans``) times the degree sort
+    and relabel, on the returned stats' ``trace``.
+
     Returns (theta int64[n_side], RunStats).
     """
     cfg = cfg or ReceiptConfig()
@@ -123,17 +127,18 @@ def tip_decompose(
     stats = RunStats()
     if cfg.degree_sort:
         # relabel for tile density; map results back at the end
-        du = g.degrees_u()
-        perm_u = np.argsort(-du, kind="stable")
-        dv = g.degrees_v()
-        perm_v = np.argsort(-dv, kind="stable")
-        inv_u = np.empty_like(perm_u)
-        inv_u[perm_u] = np.arange(g.n_u)
-        inv_v = np.empty_like(perm_v)
-        inv_v[perm_v] = np.arange(g.n_v)
-        g_work = BipartiteGraph.from_edges(
-            g.n_u, g.n_v, inv_u[g.edges_u], inv_v[g.edges_v]
-        )
+        with span("engine.prepare", stats):
+            du = g.degrees_u()
+            perm_u = np.argsort(-du, kind="stable")
+            dv = g.degrees_v()
+            perm_v = np.argsort(-dv, kind="stable")
+            inv_u = np.empty_like(perm_u)
+            inv_u[perm_u] = np.arange(g.n_u)
+            inv_v = np.empty_like(perm_v)
+            inv_v[perm_v] = np.arange(g.n_v)
+            g_work = BipartiteGraph.from_edges(
+                g.n_u, g.n_v, inv_u[g.edges_u], inv_v[g.edges_v]
+            )
     else:
         perm_u = np.arange(g.n_u)
         g_work = g

@@ -34,6 +34,7 @@ import torch
 from ...api.errors import KernelBackendError
 from ...api.faults import fault_point
 from ...kernels import ops as kops
+from ...utils.spans import span
 from ..graph import BipartiteGraph
 from .peel_loop import (
     _INF,
@@ -46,6 +47,7 @@ from .peel_loop import (
     fetch,
     host_sweep,
     support_all,
+    upload,
 )
 
 __all__ = ["receipt_cd", "cd_checkpoint_state", "find_hi_np"]
@@ -93,15 +95,16 @@ def cd_checkpoint_state(subset_id, init_support, bounds, members, support_np,
     }
 
 
-def _fresh_state(dg: DeviceGraph, sup_keep: np.ndarray, cfg: ReceiptConfig):
+def _fresh_state(dg: DeviceGraph, sup_keep: np.ndarray, cfg: ReceiptConfig,
+                 stats: RunStats):
     """Device support/alive vectors of a (re-)induced graph whose first
-    ``n_rows`` rows are alive with supports ``sup_keep``."""
+    ``n_rows`` rows are alive with supports ``sup_keep`` (uploaded, and
+    counted in ``stats.trace``)."""
     dev = dg.a.device
     alive = torch.zeros(dg.rows_pad, dtype=torch.bool, device=dev)
     alive[: dg.n_rows] = True
     support = torch.full((dg.rows_pad,), _INF, dtype=cfg.dtype, device=dev)
-    support[: dg.n_rows] = torch.as_tensor(sup_keep, dtype=cfg.dtype,
-                                           device=dev)
+    support[: dg.n_rows] = upload(stats, sup_keep, dev, cfg.dtype)
     return support, alive
 
 
@@ -125,6 +128,11 @@ def receipt_cd(
     every subset boundary.  resume_state: continue an interrupted run
     from such a state.  Both need ``cd_dispatch="subset"``.  ``plan``:
     see the module docstring (``None`` sizes everything from the graph).
+
+    Spans (``utils.spans``, on ``stats.trace``): ``cd`` the whole phase,
+    ``cd.dgm`` each ``DeviceGraph`` built (host induce, dense fill,
+    upload) with its fresh state, ``cd.find_hi`` each subset's snapshot
+    and range choice.
     """
     if cfg.max_sweeps < 1:
         raise ValueError(
@@ -140,7 +148,18 @@ def receipt_cd(
                 "and requires device_loop=True")
         if checkpoint_cb is not None or resume_state is not None:
             raise ValueError(_GRAPH_CHECKPOINT_ERROR)
-        return _receipt_cd_graph(g, cfg, stats, device=device, plan=plan)
+    with span("cd", stats):
+        if cfg.cd_dispatch == "graph":
+            return _receipt_cd_graph(g, cfg, stats, device=device, plan=plan)
+        return _receipt_cd_subset(g, cfg, stats, device=device,
+                                  checkpoint_cb=checkpoint_cb,
+                                  resume_state=resume_state, plan=plan)
+
+
+def _receipt_cd_subset(g: BipartiteGraph, cfg: ReceiptConfig,
+                       stats: RunStats, *, device, checkpoint_cb,
+                       resume_state, plan):
+    """The subset dispatch of ``receipt_cd`` (module docstring)."""
     backend = kops.resolve_backend(cfg.backend, device)
     sparse = backend in kops.SPARSE_BACKENDS
     blocks = cfg.kernel_blocks
@@ -153,10 +172,12 @@ def receipt_cd(
         subset_id = np.asarray(st["subset_id"]).copy()
         init_support = np.asarray(st["init_support"]).copy()
         bounds = [float(b) for b in st["bounds"]]
-        dg = DeviceGraph(g, np.asarray(st["members"]), cfg, device=device,
-                         plan=plan)
+        with span("cd.dgm", stats):
+            dg = DeviceGraph(g, np.asarray(st["members"]), cfg,
+                             device=device, plan=plan, stats=stats)
+            support, alive = _fresh_state(dg, st["support"][: dg.n_rows],
+                                          cfg, stats)
         stats.wedges_pvbcnt = g.counting_wedge_bound()
-        support, alive = _fresh_state(dg, st["support"][: dg.n_rows], cfg)
         dv = dg.dv0
         sup_np, alive_np = fetch(stats, support, alive)
         alive_np = alive_np.astype(bool)
@@ -169,7 +190,9 @@ def receipt_cd(
         init_support = np.zeros(n_u, np.float64)
         bounds = [0.0]
 
-        dg = DeviceGraph(g, np.arange(n_u), cfg, device=device, plan=plan)
+        with span("cd.dgm", stats):
+            dg = DeviceGraph(g, np.arange(n_u), cfg, device=device,
+                             plan=plan, stats=stats)
         stats.wedges_pvbcnt = g.counting_wedge_bound()
 
         # --- initial per-vertex counting (pvBcnt) ---------------------- #
@@ -204,14 +227,15 @@ def receipt_cd(
         catch_all = i >= p_total - 1
         tgt = np.inf if catch_all else max(rem_wedges / (p_total - i) * scale, 1.0)
 
-        # support snapshot -> FD init vector (Alg. 3 lines 6-7)
-        live_rows = np.where(alive_np)[0]
-        init_support[dg.members[live_rows]] = sup_np[live_rows]
+        with span("cd.find_hi", stats):
+            # support snapshot -> FD init vector (Alg. 3 lines 6-7)
+            live_rows = np.where(alive_np)[0]
+            init_support[dg.members[live_rows]] = sup_np[live_rows]
 
-        if catch_all:
-            hi = float(np.max(np.where(alive_np, sup_np, -np.inf))) + 1.0
-        else:
-            hi = find_hi_np(sup_np, dg.w_np, alive_np, tgt)
+            if catch_all:
+                hi = float(np.max(np.where(alive_np, sup_np, -np.inf))) + 1.0
+            else:
+                hi = find_hi_np(sup_np, dg.w_np, alive_np, tgt)
 
         sweeps = 0
         covered_wedges = 0.0
@@ -288,21 +312,23 @@ def receipt_cd(
         if cfg.use_dgm and n_alive < cfg.dgm_row_threshold * dg.rows_pad:
             fault_point("dgm_boundary", KernelBackendError,
                         dispatch="subset", subset=i, backend=backend)
-            live = np.where(alive_np)[0]
-            new_members = dg.members[live]
-            sup_keep = sup_np[live]
-            # the old matrix goes before the new one is uploaded: the
-            # card never holds two
-            dg = support = alive = dv = None
-            dg = DeviceGraph(g, new_members, cfg, device=device, plan=plan)
-            stats.dgm_compactions += 1
-            support, alive = _fresh_state(dg, sup_keep, cfg)
-            dv = dg.dv0
-            alive_np = np.zeros(dg.rows_pad, bool)
-            alive_np[: dg.n_rows] = True
-            sup_np = np.full(dg.rows_pad, np.inf)
-            sup_np[: dg.n_rows] = sup_keep
-            rem_wedges = dg.total_wedges
+            with span("cd.dgm", stats):
+                live = np.where(alive_np)[0]
+                new_members = dg.members[live]
+                sup_keep = sup_np[live]
+                # the old matrix goes before the new one is uploaded: the
+                # card never holds two
+                dg = support = alive = dv = None
+                dg = DeviceGraph(g, new_members, cfg, device=device,
+                                 plan=plan, stats=stats)
+                stats.dgm_compactions += 1
+                support, alive = _fresh_state(dg, sup_keep, cfg, stats)
+                dv = dg.dv0
+                alive_np = np.zeros(dg.rows_pad, bool)
+                alive_np[: dg.n_rows] = True
+                sup_np = np.full(dg.rows_pad, np.inf)
+                sup_np[: dg.n_rows] = sup_keep
+                rem_wedges = dg.total_wedges
 
     stats.num_subsets = i
     stats.bounds = [float(b) for b in bounds]
@@ -335,7 +361,9 @@ def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
     t0 = time.perf_counter()
     subset_id = np.full(n_u, -1, np.int64)
     init_support = np.zeros(n_u, np.float64)
-    dg = DeviceGraph(g, np.arange(n_u), cfg, device=device, plan=plan)
+    with span("cd.dgm", stats):
+        dg = DeviceGraph(g, np.arange(n_u), cfg, device=device, plan=plan,
+                         stats=stats)
     stats.wedges_pvbcnt = g.counting_wedge_bound()
 
     alive = torch.zeros(dg.rows_pad, dtype=torch.bool, device=device)

@@ -64,6 +64,7 @@ from ...api.faults import fault_point
 from ...kernels import butterfly as kbfly
 from ...kernels import butterfly_sparse as ksparse
 from ...kernels import ops as kops
+from ...utils.spans import span
 from ..graph import BipartiteGraph, pad_to_multiple
 from ..scheduler import lpt_shard_plan, pack_by_shape
 from .peel_loop import (
@@ -73,6 +74,7 @@ from .peel_loop import (
     batched_level_loop,
     bucket,
     fetch,
+    upload,
 )
 
 __all__ = ["receipt_fd", "build_fd_tasks", "pre_peel_tasks",
@@ -189,26 +191,28 @@ def _fd_peel_matvec(a_sub, sup0, n_members, lo):
 def build_fd_tasks(g: BipartiteGraph, subset_id: np.ndarray,
                    bounds: np.ndarray, stats: RunStats) -> List[Dict]:
     """Induce each subset's subgraph (the paper's "only traverse its
-    wedges" saving) and record per-subset size/wedge-bound stats."""
+    wedges" saving) and record per-subset size/wedge-bound stats (the
+    span ``fd.tasks``)."""
     n_sub = int(subset_id.max()) + 1 if subset_id.size else 0
     tasks = []
-    for i in range(n_sub):
-        members = np.where(subset_id == i)[0]
-        stats.subset_sizes.append(len(members))
-        if len(members) == 0:
-            stats.subset_wedges_fd.append(0)
-            continue
-        sub, _ = g.induced_on_u(members)
-        wsub = int(sub.wedge_counts_u().sum())
-        stats.subset_wedges_fd.append(wsub)
-        tasks.append(
-            dict(
-                members=members,
-                sub=sub,
-                lo=float(bounds[i]),
-                wedges=wsub,
+    with span("fd.tasks", stats):
+        for i in range(n_sub):
+            members = np.where(subset_id == i)[0]
+            stats.subset_sizes.append(len(members))
+            if len(members) == 0:
+                stats.subset_wedges_fd.append(0)
+                continue
+            sub, _ = g.induced_on_u(members)
+            wsub = int(sub.wedge_counts_u().sum())
+            stats.subset_wedges_fd.append(wsub)
+            tasks.append(
+                dict(
+                    members=members,
+                    sub=sub,
+                    lo=float(bounds[i]),
+                    wedges=wsub,
+                )
             )
-        )
     return tasks
 
 
@@ -446,7 +450,8 @@ def receipt_fd(
     (``_run_level_groups_mesh``); tip numbers are identical to the
     single-device path, and the per-shard loads are reconciled into
     ``stats.fd_shard_rho`` / ``fd_shard_wedges``.  Requires
-    ``fd_mode="level"``."""
+    ``fd_mode="level"``.  The span ``fd`` times the whole phase, the
+    window of ``stats.time_fd``."""
     if cfg.fd_mode not in ("level", "b2", "matvec"):
         raise ValueError(f"unknown fd_mode {cfg.fd_mode!r}")
     if mesh is not None and cfg.fd_mode != "level":
@@ -457,28 +462,29 @@ def receipt_fd(
         raise ValueError(
             f"max_sweeps must be >= 1 (got {cfg.max_sweeps}): the valve "
             "bounds one loop invocation; a sub-1 cap makes no progress")
-    t0 = time.perf_counter()
-    theta = np.zeros(g.n_u, np.float64)
-    backend = kops.resolve_backend(cfg.backend, device)
-    tasks = build_fd_tasks(g, subset_id, bounds, stats)
-    if cfg.fd_mode == "level" and mesh is not None:
-        theta = _run_level_groups_mesh(tasks, init_support, cfg, stats,
-                                       theta, mesh, plan=plan)
-    elif cfg.fd_mode == "level":
-        theta = _run_level_groups(tasks, init_support, cfg, backend, stats,
-                                  theta, device=device, plan=plan)
-    else:
-        stats.wedges_fd += int(sum(t["wedges"] for t in tasks))
-        groups = pack_by_shape(
-            tasks,
-            size_of=lambda t: (len(t["members"]), max(t["sub"].n_v, 1)),
-            weight_of=lambda t: t["wedges"],
-            bucket=lambda n: bucket(n, 8),
-        )
-        stats.fd_groups = len(groups)
-        theta = _run_legacy_groups(groups, init_support, cfg, backend, stats,
-                                   theta, device=device)
-    stats.time_fd = time.perf_counter() - t0
+    with span("fd", stats):
+        t0 = time.perf_counter()
+        theta = np.zeros(g.n_u, np.float64)
+        backend = kops.resolve_backend(cfg.backend, device)
+        tasks = build_fd_tasks(g, subset_id, bounds, stats)
+        if cfg.fd_mode == "level" and mesh is not None:
+            theta = _run_level_groups_mesh(tasks, init_support, cfg, stats,
+                                           theta, mesh, plan=plan)
+        elif cfg.fd_mode == "level":
+            theta = _run_level_groups(tasks, init_support, cfg, backend,
+                                      stats, theta, device=device, plan=plan)
+        else:
+            stats.wedges_fd += int(sum(t["wedges"] for t in tasks))
+            groups = pack_by_shape(
+                tasks,
+                size_of=lambda t: (len(t["members"]), max(t["sub"].n_v, 1)),
+                weight_of=lambda t: t["wedges"],
+                bucket=lambda n: bucket(n, 8),
+            )
+            stats.fd_groups = len(groups)
+            theta = _run_legacy_groups(groups, init_support, cfg, backend,
+                                       stats, theta, device=device)
+        stats.time_fd = time.perf_counter() - t0
     return theta
 
 
@@ -506,10 +512,10 @@ def _run_legacy_groups(groups, init_support, cfg, backend, stats, theta, *,
         used += int(sum(len(t["members"]) * max(t["sub"].n_v, 1)
                         for t in group))
 
-        a_dev = torch.as_tensor(a_stack).to(device=device, dtype=cfg.dtype)
-        sup_dev = torch.as_tensor(sup0).to(device=device, dtype=cfg.dtype)
-        nm_dev = torch.as_tensor(nmem).to(device)
-        lo_dev = torch.as_tensor(los).to(device=device, dtype=cfg.dtype)
+        a_dev = upload(stats, a_stack, device, cfg.dtype)
+        sup_dev = upload(stats, sup0, device, cfg.dtype)
+        nm_dev = upload(stats, nmem, device)
+        lo_dev = upload(stats, los, device, cfg.dtype)
         if cfg.fd_mode == "b2":
             b2 = kops.b2_stack(a_dev.to(torch.float32), backend=backend,
                                blocks=cfg.kernel_blocks).to(cfg.dtype)
@@ -540,7 +546,7 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
                     group_shape=(built["a"].shape[0], built["mm"]))
 
         def up(x, dtype):
-            return torch.as_tensor(x).to(device=device, dtype=dtype)
+            return upload(stats, x, device, dtype)
 
         a_dev = up(built["a"], cfg.dtype)
         sup1, row_ext = first_level_delta(

@@ -74,6 +74,7 @@ import torch
 
 from ...kernels import butterfly_sparse as ksparse
 from ...kernels import ops as kops
+from ...utils.spans import RunTrace, span
 from ..graph import BipartiteGraph
 
 __all__ = [
@@ -85,6 +86,7 @@ __all__ = [
     "DELTA_RULES",
     "DeltaRule",
     "fetch",
+    "upload",
     "resolve_device",
     "DeviceGraph",
     "device_peel_loop",
@@ -223,6 +225,21 @@ class RunStats:
     ``host_round_trips`` counts this port's blocking device->host
     transfers; ``device_loop_calls`` counts peel-loop invocations;
     ``overflow_fallbacks`` stays 0 (see the module docstring).
+
+    The phase times are host ``perf_counter`` seconds.  On the subset
+    dispatch each ends in a blocking read, so it holds the device work
+    it launched: ``time_count`` ends in the ``fetch`` of the counted
+    supports, ``time_cd`` after the last ``fetch`` of the sweep loop (a
+    DGM re-induction is always followed by more sweeps), and ``time_fd``
+    with theta on the host (each group's drain ends in its ``fetch``).
+    On the graph dispatch ``time_count`` ends when the count is launched;
+    its device time is charged to ``time_cd``, which ends in the final
+    ``fetch``.
+
+    ``trace`` (a ``utils.spans.RunTrace``, a plain attribute and not a
+    field, so ``asdict`` and ``==`` leave it out) holds the run's span
+    seconds and calls by name (``utils.spans.span``) and its host-to-card
+    uploads (``upload``).
     """
 
     rho_cd: int = 0                 # CD sync rounds (peel sweeps)
@@ -267,6 +284,9 @@ class RunStats:
     refresh_subsets_total: int = 0
     refresh_dirty_edges: int = 0
 
+    def __post_init__(self):
+        self.trace = RunTrace()
+
     @property
     def wedges_total(self) -> int:
         return self.wedges_pvbcnt + self.wedges_cd + self.wedges_fd
@@ -298,9 +318,13 @@ def resolve_device(device=None) -> torch.device:
 def fetch(stats: Optional[RunStats], *tensors) -> List[np.ndarray]:
     """Bring ``tensors`` to the host in ONE blocking transfer (packed as
     float64, which holds every f32, int32 and bool value exactly) and
-    count it in ``stats.host_round_trips``."""
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
-    host = flat.cpu().numpy()
+    count it in ``stats.host_round_trips``.
+
+    The span ``read`` times the call: the wait for the work queued
+    before it, and the copy."""
+    with span("read", stats):
+        flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+        host = flat.cpu().numpy()
     if stats is not None:
         stats.host_round_trips += 1
     out, at = [], 0
@@ -309,6 +333,20 @@ def fetch(stats: Optional[RunStats], *tensors) -> List[np.ndarray]:
         out.append(host[at: at + n].reshape(tuple(t.shape)))
         at += n
     return out
+
+
+def upload(stats: Optional[RunStats], array, device,
+           dtype=None) -> torch.Tensor:
+    """``array`` (numpy) on ``device``, cast to ``dtype`` when given: the
+    same copy as ``torch.as_tensor(array).to(...)`` (pageable, no sync).
+    Counts its ``nbytes`` and one upload in ``stats.trace``."""
+    array = np.asarray(array)
+    if stats is not None:
+        stats.trace.upload_bytes += int(array.nbytes)
+        stats.trace.uploads += 1
+    t = torch.as_tensor(array)
+    return t.to(device) if dtype is None else t.to(device=device,
+                                                    dtype=dtype)
 
 
 def _f32_scalar(x, device) -> torch.Tensor:
@@ -1025,11 +1063,12 @@ class DeviceGraph:
 
     With a ``plan`` (``repro_torch.api.ExecutionPlan``) the padded shape
     is recorded through ``plan.quantize_dim("dgm_rows" / "dgm_cols")``,
-    the reference's shape hook, and left as built.
+    the reference's shape hook, and left as built.  With ``stats`` its
+    two uploads (the matrix and ``dv0``) count in ``stats.trace``.
     """
 
     def __init__(self, g: BipartiteGraph, members: np.ndarray,
-                 cfg: ReceiptConfig, *, device, plan=None):
+                 cfg: ReceiptConfig, *, device, plan=None, stats=None):
         bi, bj, bk = cfg.kernel_blocks
         sparse = kops.resolve_backend(cfg.backend, device) in \
             kops.SPARSE_BACKENDS
@@ -1054,13 +1093,13 @@ class DeviceGraph:
 
         a = np.zeros((self.rows_pad, self.cols_pad), np.float32)
         a[eu, ev] = 1.0
-        self.a = torch.from_numpy(a).to(device=device, dtype=cfg.dtype)
+        self.a = upload(stats, a, device, cfg.dtype)
         self.ids = torch.arange(self.rows_pad, dtype=torch.int32,
                                 device=device)
         # residual V degrees at construction (everything alive)
         dv_pad = np.zeros(self.cols_pad, np.float32)
         dv_pad[: len(dvk)] = dvk
-        self.dv0 = torch.from_numpy(dv_pad).to(device)
+        self.dv0 = upload(stats, dv_pad, device)
         # static per-row wedge counts in this residual graph (range proxy)
         w = np.zeros(self.rows_pad, np.float64)
         np.add.at(w, eu, (dvk[ev] - 1).astype(np.float64))

@@ -38,6 +38,7 @@ import torch
 
 from ...kernels import butterfly_sparse as ksparse
 from ...kernels import ops as kops
+from ...utils.spans import span
 from ..graph import BipartiteGraph
 from .peel_loop import (
     _INF,
@@ -53,6 +54,7 @@ from .peel_loop import (
     record_theta,
     resolve_device,
     select_peel,
+    upload,
 )
 from .wing import build_edge_state
 
@@ -176,11 +178,13 @@ def _drain(run_one, stops: Sequence[float], watch: np.ndarray,
         return alive_h, th_acc, stop
 
 
-def _carry(support0: np.ndarray, alive0: np.ndarray, dv, device) -> dict:
+def _carry(support0: np.ndarray, alive0: np.ndarray, dv, device,
+           stats: RunStats) -> dict:
     """The prefix loops' carried state: supports (+inf where not alive),
-    alive mask, residual degrees, theta, sweep and wedge counters."""
-    alive = torch.from_numpy(alive0).to(device)
-    sup = torch.from_numpy(support0.astype(np.float32)).to(device)
+    alive mask, residual degrees, theta, sweep and wedge counters (its
+    uploads counted in ``stats.trace``)."""
+    alive = upload(stats, alive0, device)
+    sup = upload(stats, support0.astype(np.float32), device)
     return dict(support=torch.where(alive, sup, _INF), alive=alive, dv=dv,
                 theta=torch.zeros(alive0.shape, dtype=_F32, device=device),
                 rho=0, wedges=torch.zeros((), dtype=_F32, device=device))
@@ -217,10 +221,18 @@ def repeel_tip_prefix(
     ``device=None`` runs on the card.
 
     Returns ``(theta_new int64[n_u], stop_used)`` — bit-identical to a
-    from-scratch decomposition of ``g``.
+    from-scratch decomposition of ``g``.  The span ``refresh.repeel``
+    (``utils.spans``, on ``stats.trace``) times the whole call.
     """
     cfg = cfg or ReceiptConfig()
     stats = stats or RunStats()
+    with span("refresh.repeel", stats):
+        return _repeel_tip(g, sup0, theta_old, stops, watch, cfg, stats,
+                           device=device, plan=plan)
+
+
+def _repeel_tip(g, sup0, theta_old, stops, watch, cfg, stats, *, device,
+                plan):
     dev = resolve_device(device)
     backend = kops.resolve_backend(cfg.backend, dev)
     blocks = cfg.kernel_blocks
@@ -241,14 +253,14 @@ def repeel_tip_prefix(
     alive0 = np.arange(rows_pad) < n_u
     sup_pad = np.full(rows_pad, np.inf, np.float64)
     sup_pad[:n_u] = np.asarray(sup0, np.float64)[:n_u]
-    a_dev = torch.from_numpy(a).to(dev)
+    a_dev = upload(stats, a, dev)
     ids = torch.arange(rows_pad, dtype=torch.int32, device=dev)
     if backend in kops.SPARSE_BACKENDS:
         row_ext = ksparse.row_extents_device(a_dev, bk)
         kmax = ksparse.tile_extents(row_ext, bi)
     else:
         row_ext = kmax = None
-    st = _carry(sup_pad, alive0, a_dev.sum(dim=0), dev)
+    st = _carry(sup_pad, alive0, a_dev.sum(dim=0), dev, stats)
 
     def loop(st_, stop):
         _tip_prefix_loop(a_dev, ids, row_ext, kmax, st_, stop,
@@ -279,10 +291,17 @@ def repeel_wing_prefix(
     deleted edges).  Inserted edges carry any placeholder in ``psi_old``.
 
     Returns ``(psi_new int64[m], stop_used)`` — bit-identical to
-    from-scratch.
+    from-scratch.  The span ``refresh.repeel`` times the whole call.
     """
     cfg = cfg or ReceiptConfig()
     stats = stats or RunStats()
+    with span("refresh.repeel", stats):
+        return _repeel_wing(g, sup0, psi_old, stops, watch, cfg, stats,
+                            device=device, plan=plan)
+
+
+def _repeel_wing(g, sup0, psi_old, stops, watch, cfg, stats, *, device,
+                 plan):
     dev = resolve_device(device)
     backend = kops.resolve_backend(cfg.backend, dev)
     blocks = cfg.kernel_blocks
@@ -292,7 +311,7 @@ def repeel_wing_prefix(
     sup_pad = np.full(m_pad, np.inf, np.float64)
     sup_pad[:m] = np.asarray(sup0, np.float64)[:m]
     alive0 = es["alive0"]
-    st = _carry(sup_pad, alive0, es["dv0"], dev)
+    st = _carry(sup_pad, alive0, es["dv0"], dev, stats)
     st["a"] = es.pop("a")
 
     def loop(st_, stop):

@@ -20,6 +20,13 @@ a refresh needs on the host comes back in ONE blocking read, added to the
 run's ``RunStats.host_round_trips``, as float64 numpy, so the maintained
 supports (``DatasetState.supports``) are the reference's to the byte.
 
+A delta refresh is one run: ``refresh_dataset`` makes its ``RunStats``
+first and hands it to ``Executor.repeel``, so that its spans land there
+(``utils.spans``): ``flush.route`` (the route and the key differences),
+``refresh.delta`` (the union matrix, the support prime or deltas, their
+read and the ladder), then the engine's ``refresh.repeel``; the uploads
+of the edge ids count in its ``trace``.
+
 Support maintenance per axis:
 
 * **tip** — pure delta: ``vertex_support_edge_delta`` on the union
@@ -48,8 +55,9 @@ import torch
 
 from ..api.errors import PlanInfeasibleError, ReceiptError
 from ..api.executor import TipDecomposition, WingDecomposition
-from ..core.engine.peel_loop import fetch
+from ..core.engine.peel_loop import RunStats, fetch, upload
 from ..kernels import ops as kops
+from ..utils.spans import span
 from .state import DatasetState, ServiceConfig, edge_keys
 
 __all__ = ["refresh_dataset", "classify_refresh", "tip_supports"]
@@ -65,17 +73,25 @@ def _route(executor):
             executor.config.kernel_blocks)
 
 
-def _matrix(n_u: int, n_v: int, eu, ev, device) -> torch.Tensor:
+def _matrix(n_u: int, n_v: int, eu, ev, device, stats=None) -> torch.Tensor:
     """The (n_u, n_v) f32 0/1 matrix with ones at ``(eu, ev)``, built on
     ``device`` by a scatter into zeros."""
     a = torch.zeros((n_u, n_v), dtype=torch.float32, device=device)
-    _scatter(a, eu, ev)
+    _scatter(a, eu, ev, stats)
     return a
 
 
-def _scatter(a: torch.Tensor, eu, ev) -> None:
-    a[torch.as_tensor(np.asarray(eu, np.int64), device=a.device),
-      torch.as_tensor(np.asarray(ev, np.int64), device=a.device)] = 1.0
+def _scatter(a: torch.Tensor, eu, ev, stats) -> None:
+    a[upload(stats, np.asarray(eu, np.int64), a.device),
+      upload(stats, np.asarray(ev, np.int64), a.device)] = 1.0
+
+
+def _read(stats: RunStats, parts) -> List[np.ndarray]:
+    """The refresh's one blocking read, timed as a ``read`` of the
+    cycle's run; the caller counts it in ``host_round_trips`` beside the
+    re-peel's own reads."""
+    with span("read", stats):
+        return fetch(None, *parts)
 
 
 def tip_supports(a: torch.Tensor, *, backend=None,
@@ -130,57 +146,59 @@ def _full(ds: DatasetState, executor, *, fallback: bool):
     return stats
 
 
-def _tip_delta(ds: DatasetState, executor, kI: np.ndarray, kD: np.ndarray):
+def _tip_delta(ds: DatasetState, executor, kI: np.ndarray, kD: np.ndarray,
+               stats: RunStats):
     base, cur = ds.base_graph, ds.graph
-    n_v = base.n_v
-    iu, iv = kI // n_v, kI % n_v
-    du, dv = kD // n_v, kD % n_v
-    if executor.side == "V":
-        gb = base.transposed()
-        iu, iv, du, dv = iv, iu, dv, du
-    else:
-        gb = base
-    backend, blocks = _route(executor)
-    dev = executor.device
-    a = _matrix(gb.n_u, gb.n_v, gb.edges_u, gb.edges_v, dev)
-    prime = ds.supports is None
-    parts = [tip_supports(a, backend=backend, blocks=blocks)] if prime else []
-    _scatter(a, iu, iv)                  # union matrix = base + inserts
-    for ru, rv in ((iu, iv), (du, dv)):
-        if ru.size:
-            parts.append(kops.vertex_support_edge_delta(
-                a, torch.as_tensor(ru, device=dev),
-                torch.as_tensor(rv, device=dev),
-                torch.ones(ru.size, dtype=torch.bool, device=dev),
-                backend=backend, blocks=blocks))
-    del a                                # the re-peel builds its own
-    host = fetch(None, *parts)           # one blocking read
-    if prime:
-        ds.supports = host.pop(0)
-        top = float(ds.supports.max(initial=0.0))
-        if top >= EXACT_LIMIT:
-            raise PlanInfeasibleError(
-                f"butterfly support {top:.0f} is past the f32 integer "
-                "regime (2^24, DESIGN.md section 8): the maintained "
-                "supports cannot be primed exactly — refresh by full "
-                "recompute instead", dispatch="refresh")
-    gains = host.pop(0) if kI.size else 0.0
-    losses = host.pop(0) if kD.size else 0.0
-    sup_new = np.asarray(ds.supports, np.float64) + gains - losses
+    with span("refresh.delta", stats):
+        n_v = base.n_v
+        iu, iv = kI // n_v, kI % n_v
+        du, dv = kD // n_v, kD % n_v
+        if executor.side == "V":
+            gb = base.transposed()
+            iu, iv, du, dv = iv, iu, dv, du
+        else:
+            gb = base
+        backend, blocks = _route(executor)
+        dev = executor.device
+        a = _matrix(gb.n_u, gb.n_v, gb.edges_u, gb.edges_v, dev, stats)
+        prime = ds.supports is None
+        parts = ([tip_supports(a, backend=backend, blocks=blocks)] if prime
+                 else [])
+        _scatter(a, iu, iv, stats)           # union matrix = base + inserts
+        for ru, rv in ((iu, iv), (du, dv)):
+            if ru.size:
+                parts.append(kops.vertex_support_edge_delta(
+                    a, upload(stats, ru, dev), upload(stats, rv, dev),
+                    torch.ones(ru.size, dtype=torch.bool, device=dev),
+                    backend=backend, blocks=blocks))
+        del a                                # the re-peel builds its own
+        host = _read(stats, parts)
+        if prime:
+            ds.supports = host.pop(0)
+            top = float(ds.supports.max(initial=0.0))
+            if top >= EXACT_LIMIT:
+                raise PlanInfeasibleError(
+                    f"butterfly support {top:.0f} is past the f32 integer "
+                    "regime (2^24, DESIGN.md section 8): the maintained "
+                    "supports cannot be primed exactly — refresh by full "
+                    "recompute instead", dispatch="refresh")
+        gains = host.pop(0) if kI.size else 0.0
+        losses = host.pop(0) if kD.size else 0.0
+        sup_new = np.asarray(ds.supports, np.float64) + gains - losses
 
-    numbers_old = np.asarray(ds.result.numbers, np.int64)
-    # deletion ceiling is certified by stored numbers; the insert
-    # endpoints' stored numbers only SEED the ladder higher (fewer
-    # escalations when their level won't have dropped) — correctness
-    # comes from the watch set, not the seed
-    t_known = float(numbers_old[du].max()) if kD.size else 0.0
-    seed = max(t_known,
-               float(numbers_old[iu].max()) if kI.size else 0.0)
-    stops = _ladder(ds.bounds, seed)
-    watch = np.unique(iu)
+        numbers_old = np.asarray(ds.result.numbers, np.int64)
+        # deletion ceiling is certified by stored numbers; the insert
+        # endpoints' stored numbers only SEED the ladder higher (fewer
+        # escalations when their level won't have dropped) — correctness
+        # comes from the watch set, not the seed
+        t_known = float(numbers_old[du].max()) if kD.size else 0.0
+        seed = max(t_known,
+                   float(numbers_old[iu].max()) if kI.size else 0.0)
+        stops = _ladder(ds.bounds, seed)
+        watch = np.unique(iu)
     numbers_new, stats = executor.repeel(
         cur, sup0=sup_new, numbers_old=numbers_old, stops=stops,
-        watch=watch)
+        watch=watch, stats=stats)
     stats.host_round_trips += 1
     stats.refresh_dirty_edges = int(kI.size + kD.size)
     ceil = t_known
@@ -195,42 +213,45 @@ def _tip_delta(ds: DatasetState, executor, kI: np.ndarray, kD: np.ndarray):
     return stats
 
 
-def _wing_delta(ds: DatasetState, executor, kI: np.ndarray, kD: np.ndarray):
+def _wing_delta(ds: DatasetState, executor, kI: np.ndarray, kD: np.ndarray,
+                stats: RunStats):
     base, cur = ds.base_graph, ds.graph
-    n_v = base.n_v
-    k_base = edge_keys(base)
-    k_cur = edge_keys(cur)
-    ku = np.sort(np.concatenate([k_base, kI]))
-    backend, blocks = _route(executor)
-    dev = executor.device
-    a = _matrix(base.n_u, n_v, ku // n_v, ku % n_v, dev)
-    eu_dev = torch.as_tensor(ku // n_v, device=dev)
-    ev_dev = torch.as_tensor(ku % n_v, device=dev)
-    parts = [kops.edge_support_all(a, eu_dev, ev_dev, backend=backend,
-                                   blocks=blocks)]
-    if kD.size:
-        del_slots = torch.as_tensor(np.searchsorted(ku, kD), device=dev)
-        parts.append(kops.edge_support_delta(
-            a, eu_dev, ev_dev, del_slots,
-            torch.ones(kD.size, dtype=torch.bool, device=dev),
-            backend=backend, blocks=blocks))
-    del a
-    host = fetch(None, *parts)           # one blocking read
-    b_union = host[0]
-    d_del = host[1] if kD.size else 0.0
-    kept = np.isin(ku, k_cur)          # ku and k_cur both sorted: aligned
-    sup_new = (b_union - d_del)[kept]
+    with span("refresh.delta", stats):
+        n_v = base.n_v
+        k_base = edge_keys(base)
+        k_cur = edge_keys(cur)
+        ku = np.sort(np.concatenate([k_base, kI]))
+        backend, blocks = _route(executor)
+        dev = executor.device
+        a = _matrix(base.n_u, n_v, ku // n_v, ku % n_v, dev, stats)
+        eu_dev = upload(stats, ku // n_v, dev)
+        ev_dev = upload(stats, ku % n_v, dev)
+        parts = [kops.edge_support_all(a, eu_dev, ev_dev, backend=backend,
+                                       blocks=blocks)]
+        if kD.size:
+            del_slots = upload(stats, np.searchsorted(ku, kD), dev)
+            parts.append(kops.edge_support_delta(
+                a, eu_dev, ev_dev, del_slots,
+                torch.ones(kD.size, dtype=torch.bool, device=dev),
+                backend=backend, blocks=blocks))
+        del a
+        host = _read(stats, parts)
+        b_union = host[0]
+        d_del = host[1] if kD.size else 0.0
+        kept = np.isin(ku, k_cur)          # ku and k_cur both sorted: aligned
+        sup_new = (b_union - d_del)[kept]
 
-    psi_base = np.asarray(ds.result.numbers, np.int64)
-    psi_old = np.zeros(cur.m, np.int64)            # inserts: placeholder —
-    in_base = np.isin(k_cur, k_base)               # always peeled via watch
-    psi_old[in_base] = psi_base[np.searchsorted(k_base, k_cur[in_base])]
-    t_known = (float(psi_base[np.searchsorted(k_base, kD)].max())
-               if kD.size else 0.0)
-    stops = _ladder(ds.bounds, t_known)
-    watch = np.nonzero(np.isin(k_cur, kI))[0]
+        psi_base = np.asarray(ds.result.numbers, np.int64)
+        psi_old = np.zeros(cur.m, np.int64)        # inserts: placeholder —
+        in_base = np.isin(k_cur, k_base)           # always peeled via watch
+        psi_old[in_base] = psi_base[np.searchsorted(k_base, k_cur[in_base])]
+        t_known = (float(psi_base[np.searchsorted(k_base, kD)].max())
+                   if kD.size else 0.0)
+        stops = _ladder(ds.bounds, t_known)
+        watch = np.nonzero(np.isin(k_cur, kI))[0]
     numbers_new, stats = executor.repeel(
-        cur, sup0=sup_new, numbers_old=psi_old, stops=stops, watch=watch)
+        cur, sup0=sup_new, numbers_old=psi_old, stops=stops, watch=watch,
+        stats=stats)
     stats.host_round_trips += 1
     stats.refresh_dirty_edges = int(kI.size + kD.size)
     ceil = t_known
@@ -288,7 +309,13 @@ def refresh_dataset(ds: DatasetState, executor,
     ``PlanInfeasibleError``, or a support prime past the f32 integer
     regime).
     """
-    route = classify_refresh(ds, scfg, force_full=force_full)
+    stats = RunStats()
+    with span("flush.route", stats):
+        route = classify_refresh(ds, scfg, force_full=force_full)
+        if route == "delta":
+            k_cur, k_base = edge_keys(ds.graph), edge_keys(ds.base_graph)
+            kI = np.setdiff1d(k_cur, k_base)
+            kD = np.setdiff1d(k_base, k_cur)
     if route == "noop":
         if not ds.fresh and ds.result is not None:
             # net no-op mutation sequence: the stored result IS current
@@ -302,12 +329,10 @@ def refresh_dataset(ds: DatasetState, executor,
         fallback = not (force_full or ds.result is None
                         or ds.base_graph is None)
         return _full(ds, executor, fallback=fallback)
-    kI = np.setdiff1d(edge_keys(ds.graph), edge_keys(ds.base_graph))
-    kD = np.setdiff1d(edge_keys(ds.base_graph), edge_keys(ds.graph))
     try:
         if ds.workload == "wing":
-            return _wing_delta(ds, executor, kI, kD)
-        return _tip_delta(ds, executor, kI, kD)
+            return _wing_delta(ds, executor, kI, kD, stats)
+        return _tip_delta(ds, executor, kI, kD, stats)
     except ReceiptError as exc:
         ds.last_error = exc
         return _full(ds, executor, fallback=True)

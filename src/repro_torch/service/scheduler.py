@@ -65,6 +65,7 @@ from ..api.errors import ReceiptError, ServiceUnavailableError, \
     ServiceWorkerError
 from ..core.scheduler import lpt_assign
 from ..train.fault_tolerance import RestartManager
+from ..utils.spans import span
 from .queue import WorkItem
 from .refresh import classify_refresh, refresh_dataset
 from .state import DatasetState
@@ -180,6 +181,13 @@ class FlushScheduler:
     # -- entry point --------------------------------------------------- #
     def drain_and_run(self, name: Optional[str] = None, *,
                       background: bool = False) -> Dict:
+        """One drain cycle (class docstring) under the span ``flush``,
+        its phases under ``flush.prepare``, ``flush.run`` and
+        ``flush.commit`` (profiler ranges only)."""
+        with span("flush"):
+            return self._cycle(name, background)
+
+    def _cycle(self, name: Optional[str], background: bool) -> Dict:
         svc = self._svc
         report = {"items": 0, "mapped": 0, "fleets": 0,
                   "repeel_fleets": 0, "refreshed": 0, "full": 0,
@@ -194,10 +202,12 @@ class FlushScheduler:
                 svc._fresh_cv.notify_all()     # idle-waiters recheck
                 return report
             svc._exec_busy = True
-            jobs = self._prepare(items, report)
+            with span("flush.prepare"):
+                jobs = self._prepare(items, report)
         done = False
         try:
-            self._run(jobs, report)
+            with span("flush.run"):
+                self._run(jobs, report)
             done = True
         finally:
             with svc._lock:
@@ -307,34 +317,35 @@ class FlushScheduler:
 
     # -- phase 3: versioned commit (under the service lock) ------------ #
     def _commit(self, job: _Job, report: Dict) -> None:
-        svc = self._svc
-        job.committed = True
-        with svc._lock:
-            live = svc._datasets.get(job.name)
-            if live is not job.live:             # dropped or replaced
-                report["dropped"] += 1
-                return
-            copy = job.copy
-            if job.produced and copy.result is not None:
-                # consistent (result, version, base graph) triple from
-                # the snapshot — the LIVE graph may already be ahead
-                live.commit_at(copy.result, version=copy.result_version,
-                               graph=copy.base_graph, bounds=copy.bounds,
-                               supports=copy.supports)
-            live.refreshes = copy.refreshes
-            live.full_recomputes = copy.full_recomputes
-            live.last_error = copy.last_error
-            svc._governor.touch(live)
-            if (job.produced and live.result is not None
-                    and live.version > live.result_version
-                    and not svc._queue.pending(job.name)):
-                # a mutation raced the compute: keep the dataset queued
-                with contextlib.suppress(ServiceUnavailableError):
-                    svc._queue.submit(
-                        WorkItem(job.name, "refresh", live.version))
-                    report["requeued"] += 1
-            svc._governor.enforce(svc._datasets, report)
-            svc._fresh_cv.notify_all()
+        with span("flush.commit"):
+            svc = self._svc
+            job.committed = True
+            with svc._lock:
+                live = svc._datasets.get(job.name)
+                if live is not job.live:             # dropped or replaced
+                    report["dropped"] += 1
+                    return
+                copy = job.copy
+                if job.produced and copy.result is not None:
+                    # consistent (result, version, base graph) triple from
+                    # the snapshot — the LIVE graph may already be ahead
+                    live.commit_at(copy.result, version=copy.result_version,
+                                   graph=copy.base_graph, bounds=copy.bounds,
+                                   supports=copy.supports)
+                live.refreshes = copy.refreshes
+                live.full_recomputes = copy.full_recomputes
+                live.last_error = copy.last_error
+                svc._governor.touch(live)
+                if (job.produced and live.result is not None
+                        and live.version > live.result_version
+                        and not svc._queue.pending(job.name)):
+                    # a mutation raced the compute: keep the dataset queued
+                    with contextlib.suppress(ServiceUnavailableError):
+                        svc._queue.submit(
+                            WorkItem(job.name, "refresh", live.version))
+                        report["requeued"] += 1
+                svc._governor.enforce(svc._datasets, report)
+                svc._fresh_cv.notify_all()
 
 
 # --------------------------------------------------------------------- #
