@@ -10,8 +10,12 @@ non-overlapping tip-number ranges by running the peel core
 * ``cd_dispatch="graph"`` (``_receipt_cd_graph``): the whole CD phase in
   ``device_cd_graph_loop``, with findHi, the FD init snapshot, subset
   stamping and DGM (column compaction, staircase re-tightening, HUC bound
-  re-estimate) on the device; the ``DeviceGraph`` is built and uploaded
-  once.
+  re-estimate) on the device; the ``DeviceGraph`` is built once.
+
+Every ``DeviceGraph`` (the first, each subset-dispatch DGM, a resume) is
+built on the card: the host finds the residual edges by masks and counts,
+uploads their ids (8 bytes an edge) and the card scatters them into a
+zeroed matrix.  No dense matrix is made on the host or copied to the card.
 
 The reference's peel-buffer overflow replay has no counterpart in either:
 the port sizes each gather to its peel set.
@@ -130,9 +134,9 @@ def receipt_cd(
     see the module docstring (``None`` sizes everything from the graph).
 
     Spans (``utils.spans``, on ``stats.trace``): ``cd`` the whole phase,
-    ``cd.dgm`` each ``DeviceGraph`` built (host induce, dense fill,
-    upload) with its fresh state, ``cd.find_hi`` each subset's snapshot
-    and range choice.
+    ``cd.dgm`` each ``DeviceGraph`` built (host residual edges, their
+    upload, the scatter on the card) with its fresh state, ``cd.find_hi``
+    each subset's snapshot and range choice.
     """
     if cfg.max_sweeps < 1:
         raise ValueError(
@@ -316,7 +320,7 @@ def _receipt_cd_subset(g: BipartiteGraph, cfg: ReceiptConfig,
                 live = np.where(alive_np)[0]
                 new_members = dg.members[live]
                 sup_keep = sup_np[live]
-                # the old matrix goes before the new one is uploaded: the
+                # the old matrix goes before the new one is built: the
                 # card never holds two
                 dg = support = alive = dv = None
                 dg = DeviceGraph(g, new_members, cfg, device=device,

@@ -1048,23 +1048,49 @@ def _batched_level_loop_edge(a, support, alive, dv, lo, eu, ev, *, backend,
 # ---------------------------------------------------------------------- #
 # device-graph container (bucketed, compacted view of the residual graph)
 # ---------------------------------------------------------------------- #
+def _residual_edges(g: BipartiteGraph, members: np.ndarray):
+    """The residual graph of ``members``, as ``g.induced_on_u(members,
+    min_degree_v=2)`` gives it, by masks and counts alone (no sort):
+    (``eu``, ``ev``) int64 row and column ids, the column count and the
+    columns' degrees.  Rows follow ``members``' order; columns are the V
+    vertices with residual degree >= 2 (the DGM column compaction: a
+    degree-<2 column cannot complete a wedge), numbered in ascending V
+    order as ``np.unique`` would number them.  For ascending ``members``
+    the edges come out in ``induced_on_u``'s (u, v) order too."""
+    keep = np.zeros(g.n_u, dtype=bool)
+    keep[members] = True
+    sel = keep[g.edges_u]
+    eu, ev = g.edges_u[sel], g.edges_v[sel]
+    dv = np.bincount(ev, minlength=g.n_v)
+    col = dv >= 2
+    good = col[ev]
+    u_map = np.full(g.n_u, -1, dtype=np.int64)
+    u_map[members] = np.arange(len(members))
+    v_map = np.cumsum(col) - 1
+    return u_map[eu[good]], v_map[ev[good]], int(col.sum()), dv[col]
+
+
 class DeviceGraph:
     """Bucket-padded dense residual graph on ``device``.
 
     rows 0..n_rows-1 are live U vertices (original ids in ``members``);
-    cols are the compacted V vertices with residual degree >= 2.  Alongside
-    the biadjacency it carries what the sweep loop needs: the initial
+    cols are the compacted V vertices with residual degree >= 2.  The
+    biadjacency is built on the device: zeros, then ones scattered at the
+    residual edges' linear ids (``_residual_edges``, 8 bytes an edge
+    uploaded), so no host array of the padded shape is ever made.
+    Alongside it the graph carries what the sweep loop needs: the initial
     residual V-degree vector (``dv0``), the static per-row wedge counts
     (host ``w_np`` for findHi) and the HUC recount bound ``c_rcnt``.  On
     the sparse backends it also carries the staircase extents, computed on
-    the device from the uploaded matrix: ``row_ext`` per row and ``kmax``
+    the device from the built matrix: ``row_ext`` per row and ``kmax``
     per ``bi``-row tile (None on the dense backends, which never read
     them).
 
     With a ``plan`` (``repro_torch.api.ExecutionPlan``) the padded shape
     is recorded through ``plan.quantize_dim("dgm_rows" / "dgm_cols")``,
     the reference's shape hook, and left as built.  With ``stats`` its
-    two uploads (the matrix and ``dv0``) count in ``stats.trace``.
+    two uploads (the edge ids and ``dv0``) count in ``stats.trace``, and
+    the matrix's bytes in ``stats.trace.built_bytes``.
     """
 
     def __init__(self, g: BipartiteGraph, members: np.ndarray,
@@ -1076,35 +1102,34 @@ class DeviceGraph:
             raise ValueError("sparse backends require square row tiles "
                              f"(bi == bj), got kernel_blocks "
                              f"{cfg.kernel_blocks!r}")
-        # induce on the live rows, dropping V columns that cannot form a
-        # wedge (residual degree < 2) — the DGM column compaction
-        sub, _ = g.induced_on_u(members, min_degree_v=2)
-        dvk = sub.degrees_v()
-        eu, ev = sub.edges_u, sub.edges_v
+        eu, ev, n_v, dvk = _residual_edges(g, members)
 
         self.members = np.asarray(members)
         self.n_rows = len(members)
-        self.n_cols = max(int(sub.n_v), 1)
+        self.n_cols = max(n_v, 1)
         self.rows_pad = bucket(self.n_rows, max(bi, bj))
         self.cols_pad = bucket(self.n_cols, bk)
         if plan is not None:
             self.rows_pad = plan.quantize_dim("dgm_rows", self.rows_pad)
             self.cols_pad = plan.quantize_dim("dgm_cols", self.cols_pad)
 
-        a = np.zeros((self.rows_pad, self.cols_pad), np.float32)
-        a[eu, ev] = 1.0
-        self.a = upload(stats, a, device, cfg.dtype)
+        self.a = torch.zeros((self.rows_pad, self.cols_pad),
+                             dtype=cfg.dtype, device=device)
+        self.a.view(-1).index_fill_(
+            0, upload(stats, eu * self.cols_pad + ev, device), 1)
+        if stats is not None:
+            stats.trace.built_bytes += self.a.numel() * self.a.element_size()
         self.ids = torch.arange(self.rows_pad, dtype=torch.int32,
                                 device=device)
         # residual V degrees at construction (everything alive)
         dv_pad = np.zeros(self.cols_pad, np.float32)
         dv_pad[: len(dvk)] = dvk
         self.dv0 = upload(stats, dv_pad, device)
-        # static per-row wedge counts in this residual graph (range proxy)
-        w = np.zeros(self.rows_pad, np.float64)
-        np.add.at(w, eu, (dvk[ev] - 1).astype(np.float64))
-        self.w_np = w
-        self.total_wedges = float(w.sum())
+        # static per-row wedge counts in this residual graph (range proxy);
+        # integer sums, exact in float64 in any order
+        self.w_np = np.bincount(eu, weights=(dvk[ev] - 1).astype(np.float64),
+                                minlength=self.rows_pad)
+        self.total_wedges = float(self.w_np.sum())
         # Chiba-Nishizeki recount bound of this residual graph (HUC C_rcnt)
         du = np.bincount(eu, minlength=self.rows_pad)
         self.c_rcnt = float(np.minimum(du[eu], dvk[ev]).sum())

@@ -11,8 +11,9 @@ costs two ``perf_counter`` calls.
 Each run's numbers live on ``stats.trace``, a ``RunTrace`` that
 ``RunStats`` sets as a plain attribute (not a dataclass field, so
 ``dataclasses.asdict``, ``fields`` and ``==`` do not see it): host seconds
-and calls by span name, and the bytes and count of host-to-card uploads
-(``core.engine.peel_loop.upload``).
+and calls by span name, the bytes and count of host-to-card uploads
+(``core.engine.peel_loop.upload``), and the bytes of the matrices built
+on the card from uploaded edge ids (``built_bytes``).
 
 ``recent_runs()`` is the operator's view of what recent runs did: the
 ``RunStats`` of the last ``RECENT_RUNS`` engine runs (``Executor``'s
@@ -46,12 +47,15 @@ _recent: Deque = collections.deque(maxlen=RECENT_RUNS)
 
 @dataclasses.dataclass
 class RunTrace:
-    """One run's span table and upload counters."""
+    """One run's span table and upload counters; ``built_bytes`` the
+    bytes of every matrix built on the card from edge ids
+    (``core.engine.peel_loop.DeviceGraph``)."""
 
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     upload_bytes: int = 0
     uploads: int = 0
+    built_bytes: int = 0
 
     def add(self, name: str, seconds: float) -> None:
         self.seconds[name] = self.seconds.get(name, 0.0) + seconds

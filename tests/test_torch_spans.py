@@ -126,13 +126,24 @@ def test_upload_bytes_count_the_first_device_graph_exactly():
     cfg = _cfg()
     stats = RunStats()
     dg = DeviceGraph(g, np.arange(g.n_u), cfg, device=CPU, stats=stats)
-    first = dg.rows_pad * dg.cols_pad * 4 + dg.cols_pad * 4
+    # the matrix is built on the card from its edges' int64 linear ids:
+    # those and dv0 are the two uploads
+    sub, _ = g.induced_on_u(np.arange(g.n_u), min_degree_v=2)
+    first = len(sub.edges_u) * 8 + dg.cols_pad * 4
     assert stats.trace.upload_bytes == first
     assert stats.trace.uploads == 2
+    built = dg.rows_pad * dg.cols_pad * 4
+    assert stats.trace.built_bytes == built
     _, run = tip_decompose(g, _cfg(degree_sort=False), device=CPU)
     # the run's first DeviceGraph is this one; DGM and FD upload more
     assert run.trace.upload_bytes > first
     assert run.trace.uploads > 2
+    assert run.dgm_compactions > 0
+    # every DGM builds a matrix no larger than the first, and at least one
+    # row tile by one column tile
+    floor = BLOCKS[0] * BLOCKS[2] * 4
+    assert run.trace.built_bytes >= built + run.dgm_compactions * floor
+    assert run.trace.built_bytes <= (1 + run.dgm_compactions) * built
 
 
 def test_upload_makes_the_same_tensor_and_counts_it():
