@@ -1,7 +1,8 @@
 """The control of ``correct``: the plain reference put in the program's
 place and computed in bfloat16, the step below the program's float32
-integer regime, judged by the same check as a run.  A control has to come
-out as not correct.
+integer regime, judged by the same check as a run, against the same
+limits: ``max_support``'s is the configuration's ``exact_limit`` less 1.
+A control has to come out as not correct.
 
     python3 tipbench/control.py --workload chunglu_marvel.decompose \
         --seeds 1 2 3 --answers 8

@@ -24,12 +24,14 @@ import torch
 
 from . import loops, reference, trace
 
-__all__ = ["ROOT", "load_cell", "run_cell", "check", "FORBIDDEN"]
+__all__ = ["ROOT", "load_cell", "run_cell", "check", "passes", "FORBIDDEN"]
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 # top-level module names a run may not hold once its window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+# the float64 reference is exact for every support below it
+REFERENCE_LIMIT = 2 ** 53
 
 
 class CellError(RuntimeError):
@@ -46,6 +48,11 @@ def load_cell(workload: str, root: Path = ROOT) -> Dict:
     cell = cells[workload]
     conf = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     cfg = json.loads((root / conf["file"]).read_text())
+    limit = loops.exact_limit(cfg)
+    if type(limit) is not int or not 0 < limit <= REFERENCE_LIMIT:
+        raise CellError(f"configuration {conf['name']!r}: exact_limit "
+                        f"{limit!r} is not a whole number from 1 to 2^53, "
+                        "as far as the float64 reference is exact")
     traffic = json.loads(
         (root / "tipbench" / "traffic" / f"{cell['traffic']}.json")
         .read_text())
@@ -83,8 +90,9 @@ def check(loop, sample: List[int], answer_of=None) -> Dict:
     """The numbers compared, each ``{"value": ..., "limit": ...}``: tip
     numbers that differ from the reference's over the answers ``sample``
     (indices into ``loop.answers``), and the largest butterfly support
-    among their graphs against the exact regime.  ``answer_of(k)`` gives
-    the answer to judge (the program's by default)."""
+    among their graphs against the configuration's exact limit
+    (``loops.exact_limit``).  ``answer_of(k)`` gives the answer to judge
+    (the program's by default)."""
     answer_of = answer_of or (lambda k: loop.answers[k])
     wrong = 0
     top = 0
@@ -96,7 +104,12 @@ def check(loop, sample: List[int], answer_of=None) -> Dict:
                   else int(want.size))
     return {"theta_mismatches": {"value": wrong, "limit": 0},
             "max_support": {"value": top,
-                            "limit": loops.EXACT_LIMIT - 1}}
+                            "limit": loops.exact_limit(loop.cfg) - 1}}
+
+
+def passes(numbers: Dict) -> bool:
+    """Whether every number compared is within its limit."""
+    return all(c["value"] <= c["limit"] for c in numbers.values())
 
 
 def _sample(loop, n: int, seed: int) -> List[int]:
@@ -213,9 +226,7 @@ def run_cell(spec: Dict, seed: int, seconds: float, traced: bool,
                **check(loop, sample)}
     log(f"tipbench: the reference took {time.perf_counter() - t_check:.3f}"
         " s", file=sys.stderr)
-    correct = (failed == 0 and numbers["theta_mismatches"]["value"] == 0
-               and numbers["max_support"]["value"]
-               <= numbers["max_support"]["limit"])
+    correct = passes(numbers)
 
     metrics = {}
     if traced:

@@ -23,6 +23,12 @@ checked like the window's.  Every loop keeps, per request, the host times
 of its spans and the program's ``RunStats`` counters, and its answers;
 ``expected(k)`` is the plain reference's answer to request ``k``, worked
 out from the seed's data alone.
+
+A configuration may state ``exact_limit``: every butterfly support below
+it is computed exactly by the program under that configuration (its
+``precision`` text names the DESIGN.md section that says so).  Without
+the key the limit is ``EXACT_LIMIT``, the float32 integer regime
+(DESIGN.md section 8).
 """
 from __future__ import annotations
 
@@ -34,9 +40,15 @@ import torch
 
 from . import generator, reference
 
-__all__ = ["LOOPS", "DecomposeLoop", "RefreshLoop", "span"]
+__all__ = ["LOOPS", "DecomposeLoop", "RefreshLoop", "exact_limit", "span"]
 
 EXACT_LIMIT = 2 ** 24
+
+
+def exact_limit(cfg: Dict):
+    """The configuration's exact limit: its ``exact_limit``, else
+    ``EXACT_LIMIT``."""
+    return cfg.get("exact_limit", EXACT_LIMIT)
 
 
 def span(name: str):

@@ -1,6 +1,6 @@
 """upload_mb.decompose: MB the program copies from the host to the card
-per request (``stats.trace.upload_bytes``: the DGM matrices and vectors,
-the FD stacks), mean over the traced run's window
+per request (``stats.trace.upload_bytes``: the DGM's residual edge ids
+and vectors, the FD stacks), mean over the traced run's window
 (``tipbench.program_spans``)."""
 from tipbench import program_spans
 

@@ -43,7 +43,12 @@ def test_a_small_cell_runs_correct(cell):
         (ROOT / "tipbench" / "traffic" / f"{cell.split('.')[1]}.json")
         .read_text())["metric"]}
     assert list(r)[-1] == "checks"
+    assert list(r["checks"]) == ["failed_requests", "theta_mismatches",
+                                 "max_support"]
     assert r["checks"]["theta_mismatches"] == {"value": 0, "limit": 0}
+    # no configuration states an exact limit: the float32 regime's
+    assert "exact_limit" not in _spec(cell)["config"]
+    assert r["checks"]["max_support"]["limit"] == 2 ** 24 - 1 == 16777215
 
 
 @pytest.mark.parametrize("cell", ["marvel.decompose", "marvel.refresh"])
@@ -192,6 +197,78 @@ def test_new_config_mix_and_metric_come_from_new_files(tmp_path):
         d = stack.pop()
         assert d.diff_files == [] and d.left_only == []
         stack.extend(d.subdirs.values())
+
+
+def _with_configs(tmp_path, configs):
+    """A copy of the benchmark's folders with each of ``configs`` (name to
+    the keys it changes in Marvel's file) as a new file, and a cell
+    ``<name>.decompose`` of it, as new entries in ``BENCHMARK.json``."""
+    shutil.copytree(ROOT / "tipbench", tmp_path / "tipbench",
+                    ignore=shutil.ignore_patterns("out", "__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    base = json.loads((ROOT / "tipbench/configs/chunglu_marvel.json")
+                      .read_text())
+    for name, keys in configs.items():
+        (tmp_path / f"tipbench/configs/{name}.json").write_text(
+            json.dumps(dict(base, name=name, **keys)))
+        bench["configs"].append({"name": name, "source": "a test",
+                                 "file": f"tipbench/configs/{name}.json",
+                                 "reduced": [], "why": "a test"})
+        bench["workloads"].append({"name": f"{name}.decompose",
+                                   "config": name, "traffic": "decompose",
+                                   "chips": 1, "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+@pytest.mark.parametrize("limit,loads", [
+    (2 ** 25, True), (2 ** 53, True), (2 ** 53 + 1, False),
+    (2 ** 64, False), (0, False), (2.0 ** 30, False), (True, False)])
+def test_a_configuration_states_its_exact_limit(tmp_path, limit, loads):
+    """A stated limit, a whole number up to 2^53, reaches the check; one
+    past what the float64 reference holds exactly is refused at load."""
+    _with_configs(tmp_path, {"stated": {"exact_limit": limit}})
+    if not loads:
+        with pytest.raises(harness.CellError, match="exact_limit"):
+            harness.load_cell("stated.decompose", root=tmp_path)
+        return
+    spec = harness.load_cell("stated.decompose", root=tmp_path)
+    spec["config"] = dict(spec["config"], **SMALL)
+    spec["traffic"] = dict(spec["traffic"], pool=2)
+    r = _run(spec)
+    assert r["correct"] is True
+    assert r["checks"]["max_support"]["limit"] == limit - 1
+
+
+@pytest.mark.parametrize("stated", [True, False])
+def test_a_graph_past_2_24_is_correct_only_under_a_stated_limit(
+        tmp_path, monkeypatch, stated):
+    """K_{2,6000}: both supports are C(6000, 2) = 17,997,000 > 2^24.  With
+    the reference's own answers in the program's place, as the control
+    puts its own, the check comes out correct under a configuration
+    (new files only) that states a larger limit, and not correct on
+    ``max_support`` under one without the key."""
+    from tipbench import loops
+
+    keys = {"n_u": 2, "n_v": 6000, "m": 12000}
+    if stated:
+        keys.update(exact_limit=2 ** 53, precision="a test: exact below "
+                    "2^53 (DESIGN.md, the section that says so)")
+    _with_configs(tmp_path, {"k2_6000": keys})
+    spec = harness.load_cell("k2_6000.decompose", root=tmp_path)
+    loop = loops.LOOPS["decompose"](spec["config"],
+                                    dict(spec["traffic"], pool=2),
+                                    2 ** 31 + 5, "cpu")
+    k26 = (np.repeat(np.arange(2), 6000), np.tile(np.arange(6000), 2))
+    monkeypatch.setattr(loop, "draw", lambda seed: k26)
+    loop.prepare()
+    got = {k: loop.expected(k)[0] for k in range(2)}
+    assert got[0].tolist() == [17997000, 17997000]
+    numbers = harness.check(loop, [0, 1], answer_of=got.get)
+    assert numbers["theta_mismatches"] == {"value": 0, "limit": 0}
+    assert numbers["max_support"] == {
+        "value": 17997000,
+        "limit": (2 ** 53 if stated else 2 ** 24) - 1}
+    assert harness.passes(numbers) is stated
 
 
 def test_roofline_divides_by_the_device_time_inside_the_wrapped_calls():

@@ -1,6 +1,7 @@
 """CPU tests of the benchmark's yardstick: the plain reference against a
-brute-force peel, the generator copy against Marvel's seed-0 figures, and
-the run's import boundary (no JAX, no JAX package)."""
+brute-force peel and against the dense form of the level peel, the
+generator copy against Marvel's seed-0 figures, and the run's import
+boundary (no JAX, no JAX package)."""
 import json
 import subprocess
 import sys
@@ -44,6 +45,30 @@ def _brute_theta(n_u, n_v, eu, ev):
     return np.array(theta, np.int64)
 
 
+def _dense_tip_numbers(n_u, n_v, eu, ev):
+    """The level peel over the whole dense B2 in float64 (the reference's
+    form before its memory followed the wedge pairs): (theta, levels,
+    largest support)."""
+    b2 = reference.pair_butterflies(n_u, n_v, eu, ev)
+    sup = b2.sum(dim=1)
+    top = float(sup.max().item()) if n_u else 0.0
+    theta = torch.zeros(n_u, dtype=torch.float64)
+    alive = torch.ones(n_u, dtype=torch.bool)
+    levels = 0
+    left = n_u
+    while left:
+        t = torch.where(alive, sup, torch.tensor(float("inf"),
+                                                 dtype=torch.float64)).min()
+        rows = torch.nonzero(alive & (sup <= t)).squeeze(1)
+        theta[rows] = t
+        alive[rows] = False
+        left -= rows.numel()
+        drop = b2.index_select(0, rows).sum(dim=0)
+        sup = torch.where(alive, torch.maximum(sup - drop, t), sup)
+        levels += 1
+    return theta.round().to(torch.int64).numpy(), levels, top
+
+
 def _fig1():
     """The paper's Fig. 1 graph: u1: v1 v2 | u2: v1 v2 v3 | u3: v1..v5 |
     u4: v4 v5 (butterfly counts 2, 4, 5, 1; tip numbers 2, 3, 3, 1)."""
@@ -76,6 +101,65 @@ def test_reference_matches_a_brute_force_peel(seed):
         eu, ev = np.nonzero(a)
     theta, _, _ = reference.tip_numbers(n_u, n_v, eu, ev)
     assert theta.tolist() == _brute_theta(n_u, n_v, eu, ev).tolist()
+
+
+def _seeded_graph(kind, seed):
+    """The graphs the tests above and the loops' tests draw: Chung-Lu
+    (hubs, ties, isolated rows) and uniform ones."""
+    if kind == "fig1":
+        return _fig1()
+    if kind == "uniform":
+        rng = np.random.default_rng(seed)
+        a = rng.random((35, 25)) < 0.2
+        return (35, 25) + np.nonzero(a)
+    n_u, n_v, m = {"powerlaw": (40, 30, 160), "bf16": (60, 80, 500),
+                   "loop": (45, 35, 260)}[kind]
+    if kind == "loop":
+        return (n_u, n_v) + generator.powerlaw_edges_exact(
+            n_u, n_v, m, seed=((2 ** 31 + 3, seed), 0))
+    return (n_u, n_v) + generator.powerlaw_edges(n_u, n_v, m,
+                                                 seed=(seed, 0))
+
+
+@pytest.mark.parametrize("block_cells", [None, 96])
+@pytest.mark.parametrize("kind,seed", [
+    ("fig1", 0), ("uniform", 0), ("uniform", 2), ("uniform", 4),
+    ("powerlaw", 1), ("powerlaw", 3), ("powerlaw", 5), ("bf16", 3),
+    ("loop", 0), ("loop", 1)])
+def test_reference_equals_the_dense_form(monkeypatch, kind, seed,
+                                         block_cells):
+    """Tip numbers, levels and largest support as the level peel over the
+    whole dense B2 gives them, with W in one block and in many."""
+    if block_cells:
+        monkeypatch.setattr(reference, "_BLOCK_CELLS", block_cells)
+    n_u, n_v, eu, ev = _seeded_graph(kind, seed)
+    theta, levels, top = reference.tip_numbers(n_u, n_v, eu, ev)
+    want, want_levels, want_top = _dense_tip_numbers(n_u, n_v, eu, ev)
+    assert theta.tolist() == want.tolist()
+    assert (levels, top) == (want_levels, want_top)
+
+
+@pytest.mark.parametrize("block_cells", [None, 4096])
+def test_reference_memory_follows_the_wedge_pairs(monkeypatch,
+                                                  block_cells):
+    """100,000 peeled vertices x 50 others, 2,000 edges: the dense B2
+    would take 80 GB.  Vertices of degree below 2 have tip number 0, and
+    the others the dense form's numbers on the graph of them alone."""
+    if block_cells:
+        monkeypatch.setattr(reference, "_BLOCK_CELLS", block_cells)
+    n_u, n_v = 100_000, 50
+    eu, ev = generator.powerlaw_edges_exact(n_u, n_v, 2000, seed=(17, 0))
+    theta, levels, top = reference.tip_numbers(n_u, n_v, eu, ev)
+    deg = np.bincount(eu, minlength=n_u)
+    keep = np.flatnonzero(deg >= 2)
+    on = deg[eu] >= 2
+    pos = np.searchsorted(keep, eu[on])
+    want, want_levels, want_top = _dense_tip_numbers(keep.size, n_v, pos,
+                                                     ev[on])
+    assert 100 < keep.size < 2000 and want_top > 100
+    assert np.all(theta[deg < 2] == 0)
+    assert theta[keep].tolist() == want.tolist() and top == want_top
+    assert levels == want_levels + (0 if 0 in want else 1)
 
 
 def test_reference_handles_an_edgeless_graph():
