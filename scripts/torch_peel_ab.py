@@ -8,7 +8,8 @@ OTHER_CSRC is a directory holding the other version's
 ``butterfly_sparse.cu`` and its headers, for example a parent commit's
 ``src/repro_torch/kernels/csrc`` unpacked with ``git archive``.  Both
 sources are built into ``build/peel_ab/``; each launch calls the
-library's ``butterfly_update_peel_f32`` with the argument list that source
+library's ``butterfly_update_peel_f32`` with the argument list and the
+output dtype (float32, or float64 since the supports widened) that source
 declares.  The operands are phase 3's CD update of ``chip_smoke.py``: the
 full-size graph's degree-sorted device matrix, 256 gathered rows of which
 240 are valid, without extents (kernel 1) and with the staircase's extents
@@ -28,10 +29,14 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def build(nvcc, arch, csrc: Path, out: Path):
     """Compile csrc/butterfly_sparse.cu into out; return (library, whether
-    its peel entry takes the group arguments)."""
+    its peel entry takes the group arguments, its output dtype)."""
+    import torch
+
     src = (csrc / "butterfly_sparse.cu").read_text()
     entry = src[src.index('extern "C" int butterfly_update_peel_f32('):]
-    grouped = re.search(r"int stack", entry[:entry.index("{")]) is not None
+    head = entry[:entry.index("{")]
+    grouped = re.search(r"int stack", head) is not None
+    out_dtype = torch.float64 if "double* out" in head else torch.float32
     subprocess.run([nvcc, *arch, "-std=c++17", "-O3", "-shared",
                     "-Xcompiler", "-fPIC", "-I", str(csrc), "-o", str(out),
                     str(csrc / "butterfly_sparse.cu")], check=True)
@@ -40,7 +45,7 @@ def build(nvcc, arch, csrc: Path, out: Path):
     lib.butterfly_update_peel_f32.argtypes = (
         [ptr] * 8 + [i32] * (10 if grouped else 6) + [ptr, i64, ptr])
     lib.butterfly_update_peel_f32.restype = i32
-    return lib, grouped
+    return lib, grouped, out_dtype
 
 
 def main() -> int:
@@ -96,8 +101,8 @@ def main() -> int:
     forms = {"kernel 1": (None, None),
              "kernel 4": (dg.kmax.contiguous(), kb.contiguous())}
 
-    def call(lib, grouped, kmax_a, kmax_b):
-        out = torch.zeros(n_a, device=dev)
+    def call(lib, grouped, out_dtype, kmax_a, kmax_b):
+        out = torch.zeros(n_a, dtype=out_dtype, device=dev)
         n_scratch = bfly.peel_scratch_bytes(width, n_v)
         scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
         ext = ((ptr(kmax_a), ptr(kmax_b)) if kmax_a is not None
@@ -121,10 +126,10 @@ def main() -> int:
                 if ka is None else bsp.butterfly_update_sparse_plain(
                     a, b, valid, ids, rows, ka, kbb, blocks=(bi, bj, bk)))
         for name in ("other", "this", "this", "other"):
-            lib, grouped = libs[name]
-            fn = (lambda lib=lib, grouped=grouped:
-                  call(lib, grouped, ka, kbb))
-            if not torch.equal(fn(), want):
+            lib, grouped, out_dtype = libs[name]
+            fn = (lambda lib=lib, grouped=grouped, out_dtype=out_dtype:
+                  call(lib, grouped, out_dtype, ka, kbb))
+            if not torch.equal(fn().double(), want.double()):
                 raise AssertionError(f"{form}, {name}: differs from the "
                                      "plain version")
             print(f"{form} peel, {name}: {cs.time_ms(torch, fn, 50):.4f} ms "

@@ -325,6 +325,11 @@ class Executor:
         (``verify_tip_decomposition`` / ``verify_wing_decomposition``, on
         the host in float64) and records the check count in ``RunStats``;
         a violation raises ``VerificationError``.
+
+        Tip numbers are exact below the route's limit
+        (``core.engine.peel_loop.exact_limit``: 2^53, or 2^24 on the tiled
+        representation and with a mesh); a counted support at or past it
+        raises ``PlanInfeasibleError`` and returns no numbers.
         """
         if self.workload == "wing" and self.mesh is not None:
             raise ValueError(

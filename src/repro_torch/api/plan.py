@@ -76,8 +76,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.engine.fd import (ROW_STATE_BYTES, fd_state_bytes,
-                              fd_update_bytes)
+from ..core.engine.fd import (ROW_STATE_BYTES, WIDE_ROW_VECTORS,
+                              fd_state_bytes, fd_update_bytes)
 from ..core.engine.peel_loop import ReceiptConfig, bucket, cd_gather_width
 from ..core.graph import BipartiteGraph
 from ..core.scheduler import lpt_shard_plan
@@ -116,10 +116,14 @@ _F32_BYTES = 4
 _F64_BYTES = 8
 # per-row and per-column bytes of the sweep state (supports, masks, theta,
 # ids, extents, column sums and the like: the FD stacks' own model,
-# ``fd.fd_state_bytes``), and per-edge-slot bytes of the wing state
+# ``fd.fd_state_bytes``, whose supports, theta and deltas are float64),
+# and per-edge-slot bytes of the wing state
 # (supports, masks, theta, int64 endpoints, the closed form's float64
 # gathers)
 _ROW_STATE_BYTES = ROW_STATE_BYTES
+# the tiled route keeps float32 supports and theta (kernel 6)
+_F32_ROW_STATE_BYTES = ROW_STATE_BYTES - WIDE_ROW_VECTORS * (_F64_BYTES
+                                                             - _F32_BYTES)
 _COL_STATE_BYTES = 32
 _EDGE_STATE_BYTES = 96
 
@@ -236,7 +240,8 @@ def _tiled_bytes(n_tiles: int, br: int, bc: int, n_rt: int, n_ct: int,
     lists = _F32_BYTES * (3 * n_tiles + n_rt + 1 + n_rt * n_ct)
     return int(payload + max(scratch, payload // 4) + lists
                + 3 * _F32_BYTES * n_tiles * (br + bc)
-               + _ROW_STATE_BYTES * rows_pad + _COL_STATE_BYTES * cols_pad)
+               + _F32_ROW_STATE_BYTES * rows_pad
+               + _COL_STATE_BYTES * cols_pad)
 
 
 def _wing_member_bytes(rows_pad: int, cols_pad: int, m_pad: int) -> int:

@@ -32,14 +32,18 @@ from .cd import cd_checkpoint_state, find_hi_np, receipt_cd
 from .fd import build_fd_tasks, build_level_stack, receipt_fd
 from .peel_loop import (
     DELTA_RULES,
+    EXACT_LIMIT,
+    F32_EXACT_LIMIT,
     DeviceGraph,
     ReceiptConfig,
     RunStats,
     batched_level_loop,
     bucket,
     cd_graph_state0,
+    check_exact,
     device_cd_graph_loop,
     device_peel_loop,
+    exact_limit,
     host_sweep,
     resolve_device,
 )
@@ -86,6 +90,10 @@ __all__ = [
     "batched_level_loop",
     "host_sweep",
     "bucket",
+    "EXACT_LIMIT",
+    "F32_EXACT_LIMIT",
+    "exact_limit",
+    "check_exact",
 ]
 
 
@@ -113,6 +121,12 @@ def tip_decompose(
 
     The span ``engine.prepare`` (``utils.spans``) times the degree sort
     and relabel, on the returned stats' ``trace``.
+
+    Every tip number is exact while every butterfly support stays below
+    the route's limit (``peel_loop.exact_limit``, DESIGN.md section 8):
+    2^53 on the dense pipeline on one device, 2^24 on the tiled
+    representation and with a ``mesh``.  A counted support at or past it
+    raises ``PlanInfeasibleError`` and returns no numbers.
 
     Returns (theta int64[n_side], RunStats).
     """
@@ -149,8 +163,9 @@ def tip_decompose(
         # biadjacency
         theta_work = receipt_tiled(g_work, cfg, stats, device=dev, plan=plan)
     else:
-        subset_id, init_support, bounds, _ = receipt_cd(g_work, cfg, stats,
-                                                        device=dev, plan=plan)
+        subset_id, init_support, bounds, _ = receipt_cd(
+            g_work, cfg, stats, device=dev, plan=plan,
+            exact_limit=exact_limit(cfg.representation, mesh))
         theta_work = receipt_fd(g_work, subset_id, init_support, bounds,
                                 cfg, stats, device=dev, mesh=mesh,
                                 plan=plan)

@@ -9,6 +9,10 @@ synchronization rounds, which is the paper's argument.
 The port's loops size each gather to its peel set, so the reference's
 peel-buffer overflow and its host replay (``host_sweep`` after an
 overflow) have no counterpart: ``RunStats.overflow_fallbacks`` stays 0.
+
+The device theta takes the supports' dtype (float64), so ParB is exact
+below ``peel_loop.EXACT_LIMIT`` = 2^53 as RECEIPT is: the count's largest
+support rides each loop's fetch (``check_exact``).
 """
 from __future__ import annotations
 
@@ -22,9 +26,12 @@ from ...kernels import ops as kops
 from ..graph import BipartiteGraph
 from .peel_loop import (
     _INF,
+    EXACT_LIMIT,
+    SUPPORT_DTYPE,
     DeviceGraph,
     ReceiptConfig,
     RunStats,
+    check_exact,
     device_peel_loop,
     fetch,
     host_sweep,
@@ -60,14 +67,16 @@ def parb_tip_decompose(
     stats.wedges_pvbcnt = g.counting_wedge_bound()
     alive = torch.arange(dg.rows_pad, device=dev) < dg.n_rows
     support = support_all(dg.a, alive, dg.ids, dg.kmax if sparse else None,
-                          backend=backend, blocks=blocks)
+                          backend=backend, blocks=blocks, stats=stats)
+    # the largest count, read with every loop's fetch
+    top = torch.where(alive, support, 0.0).amax()
     support = torch.where(alive, support, _INF)
 
     theta = np.zeros(g.n_u, np.int64)
     t0 = time.perf_counter()
     if cfg.device_loop:
         dv = dg.dv0
-        theta_dev = torch.zeros(dg.rows_pad, dtype=torch.float32, device=dev)
+        theta_dev = torch.zeros(dg.rows_pad, dtype=SUPPORT_DTYPE, device=dev)
         while True:
             (support, alive, dv, theta_dev, peeled, d_rho, d_wedges, _h,
              d_elided, _c, _s, _ovf) = device_peel_loop(
@@ -76,8 +85,9 @@ def parb_tip_decompose(
                 max_sweeps=cfg.max_sweeps, minmode=True, row_ext=dg.row_ext,
                 kmax=dg.kmax, stats=stats)
             stats.device_loop_calls += 1
-            peeled_np, alive_np, th_np, wedges_np = fetch(
-                stats, peeled, alive, theta_dev, d_wedges)
+            peeled_np, alive_np, th_np, wedges_np, top_h = fetch(
+                stats, peeled, alive, theta_dev, d_wedges, top)
+            check_exact(stats, float(top_h), EXACT_LIMIT, backend=backend)
             stats.rho_cd += d_rho
             stats.wedges_cd += int(wedges_np)
             stats.elided_sweeps += d_elided
@@ -90,8 +100,10 @@ def parb_tip_decompose(
                 break
     else:
         while True:
-            n_alive, mn = fetch(stats, alive.sum(),
-                                torch.where(alive, support, _INF).amin())
+            n_alive, mn, top_h = fetch(
+                stats, alive.sum(), torch.where(alive, support, _INF).amin(),
+                top)
+            check_exact(stats, float(top_h), EXACT_LIMIT, backend=backend)
             if int(n_alive) == 0:
                 break
             mn = float(mn)

@@ -42,14 +42,18 @@ from ...utils.spans import span
 from ..graph import BipartiteGraph
 from .peel_loop import (
     _INF,
+    EXACT_LIMIT,
+    SUPPORT_DTYPE,
     DeviceGraph,
     ReceiptConfig,
     RunStats,
     cd_graph_state0,
+    check_exact,
     device_cd_graph_loop,
     device_peel_loop,
     fetch,
     host_sweep,
+    note_wide,
     support_all,
     upload,
 )
@@ -102,19 +106,21 @@ def cd_checkpoint_state(subset_id, init_support, bounds, members, support_np,
 def _fresh_state(dg: DeviceGraph, sup_keep: np.ndarray, cfg: ReceiptConfig,
                  stats: RunStats):
     """Device support/alive vectors of a (re-)induced graph whose first
-    ``n_rows`` rows are alive with supports ``sup_keep`` (uploaded, and
-    counted in ``stats.trace``)."""
+    ``n_rows`` rows are alive with supports ``sup_keep`` (float64,
+    uploaded, and counted in ``stats.trace``)."""
     dev = dg.a.device
     alive = torch.zeros(dg.rows_pad, dtype=torch.bool, device=dev)
     alive[: dg.n_rows] = True
-    support = torch.full((dg.rows_pad,), _INF, dtype=cfg.dtype, device=dev)
-    support[: dg.n_rows] = upload(stats, sup_keep, dev, cfg.dtype)
+    support = note_wide(stats, torch.full((dg.rows_pad,), _INF,
+                                          dtype=SUPPORT_DTYPE, device=dev))
+    support[: dg.n_rows] = upload(stats, sup_keep, dev, SUPPORT_DTYPE)
     return support, alive
 
 
 def receipt_cd(
     g: BipartiteGraph, cfg: ReceiptConfig, stats: RunStats,
     *, device, checkpoint_cb=None, resume_state=None, plan=None,
+    exact_limit: int = EXACT_LIMIT,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, None]:
     """Partition U into subsets with non-overlapping tip-number ranges.
 
@@ -133,10 +139,19 @@ def receipt_cd(
     from such a state.  Both need ``cd_dispatch="subset"``.  ``plan``:
     see the module docstring (``None`` sizes everything from the graph).
 
+    ``exact_limit`` (``peel_loop.exact_limit``: the route's): the largest
+    counted support, read where the dispatch reads the count anyway, is
+    kept as ``stats.trace.max_support``, and one at or past the limit
+    raises ``PlanInfeasibleError`` (``peel_loop.check_exact``): on the
+    subset dispatch right after the count's fetch, on the graph dispatch,
+    which reads nothing between the count and the loop, after the final
+    fetch, before any tip number is made.
+
     Spans (``utils.spans``, on ``stats.trace``): ``cd`` the whole phase,
-    ``cd.dgm`` each ``DeviceGraph`` built (host residual edges, their
-    upload, the scatter on the card) with its fresh state, ``cd.find_hi``
-    each subset's snapshot and range choice.
+    ``count`` the counting pass (the launch and, on the subset dispatch,
+    its fetch and the limit check), ``cd.dgm`` each ``DeviceGraph`` built
+    (host residual edges, their upload, the scatter on the card) with its
+    fresh state, ``cd.find_hi`` each subset's snapshot and range choice.
     """
     if cfg.max_sweeps < 1:
         raise ValueError(
@@ -154,15 +169,17 @@ def receipt_cd(
             raise ValueError(_GRAPH_CHECKPOINT_ERROR)
     with span("cd", stats):
         if cfg.cd_dispatch == "graph":
-            return _receipt_cd_graph(g, cfg, stats, device=device, plan=plan)
+            return _receipt_cd_graph(g, cfg, stats, device=device, plan=plan,
+                                     exact_limit=exact_limit)
         return _receipt_cd_subset(g, cfg, stats, device=device,
                                   checkpoint_cb=checkpoint_cb,
-                                  resume_state=resume_state, plan=plan)
+                                  resume_state=resume_state, plan=plan,
+                                  exact_limit=exact_limit)
 
 
 def _receipt_cd_subset(g: BipartiteGraph, cfg: ReceiptConfig,
                        stats: RunStats, *, device, checkpoint_cb,
-                       resume_state, plan):
+                       resume_state, plan, exact_limit):
     """The subset dispatch of ``receipt_cd`` (module docstring)."""
     backend = kops.resolve_backend(cfg.backend, device)
     sparse = backend in kops.SPARSE_BACKENDS
@@ -204,13 +221,18 @@ def _receipt_cd_subset(g: BipartiteGraph, cfg: ReceiptConfig,
         alive[: dg.n_rows] = True
         fault_point("kernel_launch", KernelBackendError,
                     dispatch="subset", backend=backend, phase="count")
-        support = support_all(dg.a, alive, dg.ids,
-                              dg.kmax if sparse else None,
-                              backend=backend, blocks=blocks)
-        support = torch.where(alive, support, _INF)
-        dv = dg.dv0
-        sup_np, alive_np = fetch(stats, support, alive)   # the blocking sync
-        alive_np = alive_np.astype(bool)
+        with span("count", stats):
+            support = support_all(dg.a, alive, dg.ids,
+                                  dg.kmax if sparse else None,
+                                  backend=backend, blocks=blocks,
+                                  stats=stats)
+            support = torch.where(alive, support, _INF)
+            dv = dg.dv0
+            # the blocking sync
+            sup_np, alive_np = fetch(stats, support, alive)
+            alive_np = alive_np.astype(bool)
+            check_exact(stats, sup_np[alive_np].max(initial=0.0),
+                        exact_limit, backend=backend)
         stats.time_count = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -255,8 +277,8 @@ def _receipt_cd_subset(g: BipartiteGraph, cfg: ReceiptConfig,
                 (support, alive, dv, _th, peeled, d_rho, d_wedges, d_hucs,
                  d_elided, d_covered, _d_sweeps, _ovf) = device_peel_loop(
                     dg.a, dg.ids, support, alive, dv,
-                    torch.zeros(dg.rows_pad, dtype=torch.float32,
-                                device=device),
+                    note_wide(stats, torch.zeros(
+                        dg.rows_pad, dtype=SUPPORT_DTYPE, device=device)),
                     hi, lo, dg.c_rcnt, 0,
                     backend=backend, blocks=blocks, use_huc=cfg.use_huc,
                     max_sweeps=cfg.max_sweeps, minmode=False,
@@ -346,7 +368,8 @@ def _receipt_cd_subset(g: BipartiteGraph, cfg: ReceiptConfig,
 
 
 def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
-                      stats: RunStats, *, device, plan=None):
+                      stats: RunStats, *, device, plan=None,
+                      exact_limit=EXACT_LIMIT):
     """Whole-graph CD (reference ``_receipt_cd_graph``): count, then every
     subset in ``device_cd_graph_loop``, re-entered only on a
     ``max_sweeps`` cap-exit, then one fetch of the subset ids, the FD init
@@ -374,9 +397,12 @@ def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
     alive[: dg.n_rows] = True
     fault_point("kernel_launch", KernelBackendError,
                 dispatch="graph", backend=backend, phase="count")
-    support = support_all(dg.a, alive, dg.ids, dg.kmax, backend=backend,
-                          blocks=blocks)
-    support = torch.where(alive, support, _INF)
+    with span("count", stats):
+        support = support_all(dg.a, alive, dg.ids, dg.kmax, backend=backend,
+                              blocks=blocks, stats=stats)
+        # the largest count, read with the final fetch
+        top = torch.where(alive, support, 0.0).amax()
+        support = torch.where(alive, support, _INF)
     # asynchronous: no blocking read between counting and the CD loop
     stats.time_count = time.perf_counter() - t0
 
@@ -385,6 +411,7 @@ def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
     # buffer); every gather here is sized to its peel set
     fault_point("peel_buffer", dispatch="graph", backend=backend)
     state = cd_graph_state0(dg, support, alive, p_total)
+    note_wide(stats, state["init_sup"], state["bounds"])
     dg.a = support = alive = None       # the state owns them now
     widths = []
     while True:
@@ -405,9 +432,10 @@ def _receipt_cd_graph(g: BipartiteGraph, cfg: ReceiptConfig,
                         compactions=state["dgm"])
 
     num_subsets = state["i"] + 1
-    subset_of, init_sup, bounds_dev, wedges = fetch(
+    subset_of, init_sup, bounds_dev, wedges, top_h = fetch(
         stats, state["subset_of"][: dg.n_rows], state["init_sup"][: dg.n_rows],
-        state["bounds"], state["wedges"])
+        state["bounds"], state["wedges"], top)
+    check_exact(stats, float(top_h), exact_limit, backend=backend)
     subset_id[dg.members] = subset_of.astype(np.int64)
     init_support[dg.members] = init_sup
     bounds = [0.0] + [float(b) for b in bounds_dev[1: num_subsets + 1]]

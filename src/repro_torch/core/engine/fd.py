@@ -69,11 +69,13 @@ from ..graph import BipartiteGraph, pad_to_multiple
 from ..scheduler import lpt_shard_plan, pack_by_shape
 from .peel_loop import (
     _INF,
+    SUPPORT_DTYPE,
     ReceiptConfig,
     RunStats,
     batched_level_loop,
     bucket,
     fetch,
+    note_wide,
     upload,
 )
 
@@ -82,23 +84,32 @@ __all__ = ["receipt_fd", "build_fd_tasks", "pre_peel_tasks",
 
 # device-memory model of the level stacks (``api/plan.py`` counts a plan's
 # FD bytes with it, and ``_pipeline`` keeps each launch within a plan's):
-# f32 cells, and the per-row and per-column bytes of the sweep state
-# (supports, masks, theta, ids, extents, column sums and the like)
+# f32 cells of the 0/1 stacks, f64 B2 entries, and the per-row and
+# per-column bytes of the sweep state (supports, masks, theta, ids,
+# extents, column sums and the like).  WIDE_ROW_VECTORS of a row's state
+# are float64 (DESIGN.md section 8): the supports, theta, a sweep's delta
+# and its capped successor, 4 bytes each more than the float32 model's
+# 64 a row; the column state (residual degrees, column sums) stays f32.
 _F32_BYTES = 4
-ROW_STATE_BYTES = 64
+_F64_BYTES = 8
+B2_BYTES = _F64_BYTES
+WIDE_ROW_VECTORS = 4
+COL_STATE_BYTES = 64
+ROW_STATE_BYTES = COL_STATE_BYTES + WIDE_ROW_VECTORS * (_F64_BYTES
+                                                        - _F32_BYTES)
 
 
 def fd_state_bytes(n_slots: int, mm: int, cc: int) -> int:
     """What one launched FD shape group keeps on the card until it
     drains: the survivor stack and its per-row and per-column state."""
     return (_F32_BYTES * n_slots * mm * cc
-            + ROW_STATE_BYTES * n_slots * (mm + cc))
+            + ROW_STATE_BYTES * n_slots * mm + COL_STATE_BYTES * n_slots * cc)
 
 
 def fd_update_bytes(n_up: int, mm: int, cc: int, w1: int,
                     b2_mode: bool) -> int:
     """What the level loop of ``n_up`` slots adds while it drains, with a
-    peel set of ``w1`` gathered rows: in b2 mode the B2 stack, then the
+    peel set of ``w1`` gathered rows: in b2 mode the f64 B2 stack, then the
     largest of kernel 3's s8 copy (while the stack is built) and the
     sweep's temporaries: a gathered update's B2 rows (three row blocks
     live at once, as the caching allocator's history shows on the card)
@@ -108,10 +119,10 @@ def fd_update_bytes(n_up: int, mm: int, cc: int, w1: int,
     stack, which its launch uploads meanwhile."""
     if b2_mode:
         if w1 < mm:
-            sweep = _F32_BYTES * n_up * w1 * (3 * mm + 2 * cc)
+            sweep = n_up * w1 * (B2_BYTES * 3 * mm + _F32_BYTES * 2 * cc)
         else:
-            sweep = _F32_BYTES * n_up * mm * mm
-        update = (_F32_BYTES * n_up * mm * mm
+            sweep = B2_BYTES * n_up * mm * mm
+        update = (B2_BYTES * n_up * mm * mm
                   + max(n_up * kbfly.count_scratch_bytes(mm, cc), sweep))
     else:
         update = (_F32_BYTES * n_up * mm * cc
@@ -179,6 +190,7 @@ def _fd_peel_matvec(a_sub, sup0, n_members, lo):
     def b2_row(u):
         a_u = a_sub.gather(1, u[:, None, None].expand(-1, 1, a_sub.shape[2]))
         w = torch.bmm(a_sub, a_u.transpose(1, 2))[:, :, 0]      # (G, M)
+        w = w.to(SUPPORT_DTYPE)
         b2 = w * (w - 1.0) * 0.5
         return torch.where(cols[None, :] == u[:, None], 0.0, b2)
 
@@ -382,7 +394,8 @@ def build_level_stack(group: List[Dict], cfg: ReceiptConfig,
     )
 
 
-def first_level_delta(a, a_l1, n_l1, sup, cap1, *, backend, blocks):
+def first_level_delta(a, a_l1, n_l1, sup, cap1, *, backend, blocks,
+                      stats=None):
     """Apply the last hoisted level's delta to a survivor stack: ONE
     grouped kernel call (kernel 2; kernel 5 on the sparse backends) sized
     to survivors (output side) x first level (gathered side).  The
@@ -390,7 +403,9 @@ def first_level_delta(a, a_l1, n_l1, sup, cap1, *, backend, blocks):
     self-mask).
 
     a (G, mm, cc) and a_l1 (G, w1, cc) stacks, n_l1 (G,) int32 first-level
-    sizes, sup (G, mm) supports, cap1 (G,) level caps, all on one device.
+    sizes, sup (G, mm) supports, cap1 (G,) level caps, all on one device
+    (the supports and caps float64 in the engine; ``stats`` counts the
+    delta in ``wide_bytes``).
     Returns (supports floored at the cap, the survivor stack's per-row
     staircase extents on the sparse backends, else None).
     """
@@ -408,9 +423,9 @@ def first_level_delta(a, a_l1, n_l1, sup, cap1, *, backend, blocks):
         kmb = ksparse.column_extents(a_l1, bj, bk)
     else:
         row_ext = kma = kmb = None
-    delta1 = kops.butterfly_update_batched(
+    delta1 = note_wide(stats, kops.butterfly_update_batched(
         a, a_l1, valid1, ids_s, ids_l1, backend=backend, blocks=blocks,
-        kmax_a=kma, kmax_b=kmb)
+        kmax_a=kma, kmax_b=kmb))
     return torch.maximum(sup - delta1, cap1[:, None]), row_ext
 
 
@@ -513,12 +528,13 @@ def _run_legacy_groups(groups, init_support, cfg, backend, stats, theta, *,
                         for t in group))
 
         a_dev = upload(stats, a_stack, device, cfg.dtype)
-        sup_dev = upload(stats, sup0, device, cfg.dtype)
+        sup_dev = upload(stats, sup0, device, SUPPORT_DTYPE)
         nm_dev = upload(stats, nmem, device)
-        lo_dev = upload(stats, los, device, cfg.dtype)
+        lo_dev = upload(stats, los, device, SUPPORT_DTYPE)
         if cfg.fd_mode == "b2":
-            b2 = kops.b2_stack(a_dev.to(torch.float32), backend=backend,
-                               blocks=cfg.kernel_blocks).to(cfg.dtype)
+            b2 = note_wide(stats, kops.b2_stack(
+                a_dev.to(torch.float32), backend=backend,
+                blocks=cfg.kernel_blocks))
             th = _fd_peel_b2(b2, sup_dev, nm_dev, lo_dev)
         else:
             th = _fd_peel_matvec(a_dev, sup_dev, nm_dev, lo_dev)
@@ -551,12 +567,12 @@ def _run_level_groups(tasks, init_support, cfg, backend, stats, theta, *,
         a_dev = up(built["a"], cfg.dtype)
         sup1, row_ext = first_level_delta(
             a_dev, up(built["a_l1"], cfg.dtype),
-            up(built["n_l1"], torch.int32), up(built["sup0"], cfg.dtype),
-            up(built["cap1"], cfg.dtype),
-            backend=backend, blocks=blocks)
+            up(built["n_l1"], torch.int32), up(built["sup0"], SUPPORT_DTYPE),
+            up(built["cap1"], SUPPORT_DTYPE),
+            backend=backend, blocks=blocks, stats=stats)
         return (a_dev, sup1, up(built["alive0"], torch.bool),
                 up(built["dv0"], torch.float32),
-                up(built["los"], torch.float32),
+                up(built["los"], SUPPORT_DTYPE),
                 row_ext), built["padded_cells"]
 
     def drain(built, state):

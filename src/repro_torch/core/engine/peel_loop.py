@@ -52,9 +52,18 @@ reference's HUC rule.  The edge HUC choice compares host values (the
 peel-set size read anyway against ``c_rcnt``), so an edge sweep costs one
 read, as a level sweep does.
 
-Exactness: supports, wedge counts and the f32 wedge/covered accumulators
-are integers below 2^24 and exact in float32 (DESIGN.md section 8), as in
-the reference.  PyTorch may run a float32 matrix product on the tensor
+Exactness (DESIGN.md section 8, the port's paragraph): supports, theta,
+the CD bounds and the B2 entries are float64 integers (``SUPPORT_DTYPE``),
+exact below ``EXACT_LIMIT`` = 2^53, where the reference's float32 stops at
+2^24; the kernels return float64 from ``C(W, 2)`` on.  The sweep scalars
+(``hi``, ``lo``, the caps) take the dtype of the supports they compare
+with, so the edge axis and the tiled path, which stay float32, are
+unchanged.  The wedge counts and the f32 wedge/covered accumulators move
+bounds and HUC choices, never a support, and stay float32.  The routes
+left in float32 (kernel 6's tiled path, the mesh FD) are exact below
+``F32_EXACT_LIMIT`` = 2^24; ``exact_limit`` names each route's limit and
+``check_exact`` refuses a counted support at or past it.  PyTorch may run
+a float32 matrix product on the tensor
 cores with TF32 inputs (``torch.set_float32_matmul_precision("high")``),
 which hold integers exactly only up to 2048.  The engine's products of two
 0/1 operands (``dv``, column sums) are exact that way too, since the
@@ -103,10 +112,68 @@ __all__ = [
     "select_peel",
     "record_theta",
     "peel_cost",
+    "SUPPORT_DTYPE",
+    "EXACT_LIMIT",
+    "F32_EXACT_LIMIT",
+    "exact_limit",
+    "check_exact",
+    "note_wide",
 ]
 
 _INF = float("inf")
 _F32 = torch.float32
+
+# The exactness limits (DESIGN.md section 8, the port's paragraph).  The
+# supports, theta, the bounds and the B2 entries are float64 integers on
+# every route but the two below: every value below 2^53 is exact, and the
+# atomics' order cannot change a sum of integers below it.  Kernel 6 (the
+# tiled representation) and the mesh FD's sharded stacks keep float32
+# supports: exact below 2^24.  The graph dispatch's device findHi prefix
+# sums and its on-device ``c_rcnt`` stay float32 on every route: they move
+# subset bounds and HUC choices, never a support (Theorem 1 holds for any
+# bounds).
+SUPPORT_DTYPE = torch.float64
+EXACT_LIMIT = 2 ** 53
+F32_EXACT_LIMIT = 2 ** 24
+
+
+def exact_limit(representation: str = "dense", mesh=None) -> int:
+    """The exact limit of a route: ``F32_EXACT_LIMIT`` on the tiled
+    representation and on a mesh FD, ``EXACT_LIMIT`` on every other."""
+    if representation == "tiled" or mesh is not None:
+        return F32_EXACT_LIMIT
+    return EXACT_LIMIT
+
+
+def check_exact(stats, top: float, limit: int, **context) -> None:
+    """Record ``top``, the largest counted support of the run, as
+    ``stats.trace.max_support``, and refuse the run when it reaches
+    ``limit`` (``exact_limit``): ``PlanInfeasibleError`` with
+    ``dispatch="decompose"`` and ``context``.  ``top`` comes from a read
+    the caller makes anyway; this makes none."""
+    from ...api.errors import PlanInfeasibleError
+
+    if stats is not None:
+        stats.trace.max_support = max(stats.trace.max_support, float(top))
+    if top >= limit:
+        raise PlanInfeasibleError(
+            f"a counted butterfly support reaches {top:.0f}, at or past "
+            f"this route's exact limit {limit} (DESIGN.md section 8): its "
+            "tip numbers would not be exact; run the dense representation "
+            "on one device (exact below 2^53)",
+            dispatch="decompose", max_support=float(top), exact_limit=limit,
+            **context)
+
+
+def note_wide(stats, *tensors):
+    """Count the bytes of the float64 ``tensors`` (supports, deltas,
+    theta, bounds, B2 stacks) the run allocates in
+    ``stats.trace.wide_bytes``; returns the first."""
+    if stats is not None:
+        stats.trace.wide_bytes += sum(
+            t.numel() * t.element_size() for t in tensors
+            if t.dtype == torch.float64)
+    return tensors[0]
 
 
 # ---------------------------------------------------------------------- #
@@ -339,44 +406,54 @@ def upload(stats: Optional[RunStats], array, device,
            dtype=None) -> torch.Tensor:
     """``array`` (numpy) on ``device``, cast to ``dtype`` when given: the
     same copy as ``torch.as_tensor(array).to(...)`` (pageable, no sync).
-    Counts its ``nbytes`` and one upload in ``stats.trace``."""
+    Counts its ``nbytes`` and one upload in ``stats.trace``, and a float64
+    result's bytes in ``wide_bytes`` (``note_wide``)."""
     array = np.asarray(array)
     if stats is not None:
         stats.trace.upload_bytes += int(array.nbytes)
         stats.trace.uploads += 1
     t = torch.as_tensor(array)
-    return t.to(device) if dtype is None else t.to(device=device,
-                                                    dtype=dtype)
+    t = t.to(device) if dtype is None else t.to(device=device, dtype=dtype)
+    return note_wide(stats, t)
 
 
 def _f32_scalar(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=_F32, device=device)
 
 
+def _scalar(x, like) -> torch.Tensor:
+    """``x`` (a number or tensor) in the dtype and on the device of
+    ``like``: a sweep's bound or cap beside the supports it compares
+    with."""
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
 def _masked_rows_sum(m, mask):
-    """``mask @ m`` over the row axis (second to last) as a masked sum:
-    full f32 for entries past 2048 (the B2 rows), whatever the global
-    TF32 setting."""
+    """``mask @ m`` over the row axis (second to last) as a masked sum in
+    ``m``'s dtype (the B2 rows: float64), whatever the global TF32
+    setting."""
     return (m * mask.to(m.dtype).unsqueeze(-1)).sum(dim=-2)
 
 
 # ---------------------------------------------------------------------- #
 # device primitives
 # ---------------------------------------------------------------------- #
-def support_all(a, alive, ids, kmax, *, backend, blocks):
+def support_all(a, alive, ids, kmax, *, backend, blocks, stats=None):
     """HUC recount / initial count: support of every row w.r.t. alive rows
-    (``kmax`` the row-tile extents on the sparse backends, else None)."""
-    return kops.butterfly_update(a, a, alive.to(a.dtype), ids, ids,
-                                 backend=backend, blocks=blocks,
-                                 kmax_a=kmax, kmax_b=kmax, body="count")
+    (``kmax`` the row-tile extents on the sparse backends, else None);
+    float64, counted in ``stats.trace.wide_bytes``."""
+    return note_wide(stats, kops.butterfly_update(
+        a, a, alive.to(a.dtype), ids, ids, backend=backend, blocks=blocks,
+        kmax_a=kmax, kmax_b=kmax, body="count"))
 
 
 def support_delta(a, a_peel, valid, ids, ids_peel, kmax_a, kmax_b, *,
-                  backend, blocks):
-    """CD peel update: delta[u'] = sum_{u in S} C(W[u, u'], 2)."""
-    return kops.butterfly_update(a, a_peel, valid.to(a.dtype), ids, ids_peel,
-                                 backend=backend, blocks=blocks,
-                                 kmax_a=kmax_a, kmax_b=kmax_b)
+                  backend, blocks, stats=None):
+    """CD peel update: delta[u'] = sum_{u in S} C(W[u, u'], 2) (float64,
+    counted in ``stats.trace.wide_bytes``)."""
+    return note_wide(stats, kops.butterfly_update(
+        a, a_peel, valid.to(a.dtype), ids, ids_peel, backend=backend,
+        blocks=blocks, kmax_a=kmax_a, kmax_b=kmax_b))
 
 
 def residual_dv(a, alive):
@@ -397,26 +474,27 @@ def residual_wedges(a, dv):
 # so the SAME code runs shape-(M,) single-graph and shape-(G, M) batched)
 # ---------------------------------------------------------------------- #
 def level_threshold(support, alive, lo):
-    """Min-peel threshold: cap = max(min alive support, lo), hi = cap + 1.
+    """Min-peel threshold: cap = max(min alive support, lo), hi = cap + 1,
+    in the supports' dtype.
 
     Dead batch members yield cap = inf, which makes every downstream piece
     a no-op.
     """
     mn = torch.where(alive, support, _INF).amin(dim=-1)
-    cap = torch.maximum(mn, _f32_scalar(lo, support.device))
+    cap = torch.maximum(mn, _scalar(lo, support))
     return cap + 1.0, cap
 
 
 def select_peel(support, alive, hi):
     """Peel set of one sweep: alive rows with support below ``hi``."""
-    hi = _f32_scalar(hi, support.device)
+    hi = _scalar(hi, support)
     return alive & (support < hi.unsqueeze(-1))
 
 
 def apply_delta(support, alive, peel, delta, lo):
     """Alg. 2 update with the Alg. 3 range cap: cap at theta(i) = lo."""
     alive_after = alive & ~peel
-    cap = _f32_scalar(lo, support.device).unsqueeze(-1)
+    cap = _scalar(lo, support).unsqueeze(-1)
     sup = torch.where(alive_after, torch.maximum(support - delta, cap),
                       support)
     return sup, alive_after
@@ -455,13 +533,13 @@ def _gather_peel(a, order, n: int, width: int):
 
 
 def peel_delta(a, peel, n_peel: int, ids, row_ext, kmax, *, backend,
-               blocks):
+               blocks, stats=None):
     """The peel update ``delta[u'] = sum_{u in S} C(W[u, u'], 2)`` of the
     peel set ``S`` (``n_peel`` rows, read by the caller): its rows
     gathered in row order (a stable sort puts them first) and handed to
     kernel 1's peel body (kernel 4's on the sparse backends, with the
     gathered rows' tile extents), ``cd_gather_width`` rows per call; the
-    chunks' deltas are summed (integers below 2^24: exact in f32)."""
+    chunks' deltas are summed (float64 integers below 2^53: exact)."""
     sparse = backend in kops.SPARSE_BACKENDS
     chunk = cd_gather_width(a.shape[0], blocks[1])
     order = torch.argsort((~peel).to(torch.int8), stable=True)[:n_peel]
@@ -474,7 +552,7 @@ def peel_delta(a, peel, n_peel: int, ids, row_ext, kmax, *, backend,
               if sparse else None)
         d = support_delta(a, a_peel, valid, ids, rows,
                           kmax if sparse else None, kb, backend=backend,
-                          blocks=blocks)
+                          blocks=blocks, stats=stats)
         delta = d if delta is None else delta + d
         # dropped before the next chunk's gather: one gather on the card
         del rows, valid, a_peel, kb
@@ -527,12 +605,12 @@ def _sweep_once(a, ids, row_ext, kmax, c_rcnt, cap, support, alive, dv,
     if use_rec:
         alive2 = alive & ~peel
         s2 = support_all(a, alive2, ids, kmax if sparse else None,
-                         backend=backend, blocks=blocks)
+                         backend=backend, blocks=blocks, stats=stats)
         support2 = torch.where(alive2, torch.maximum(s2, cap), _INF)
         wedges = wedges + c_rcnt
     else:
         delta = peel_delta(a, peel, n_peel, ids, row_ext, kmax,
-                           backend=backend, blocks=blocks)
+                           backend=backend, blocks=blocks, stats=stats)
         s2, alive2 = apply_delta(support, alive, peel, delta, cap)
         support2 = torch.where(alive2, s2, _INF)
         wedges = wedges + c_peel
@@ -640,7 +718,8 @@ def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
 
     Residual V-degrees ``dv`` are maintained incrementally.  The
     ``max_sweeps`` valve bounds ONE invocation, never the schedule: the
-    callers re-enter on a cap-exit with peelable rows left.  ``row_ext`` /
+    callers re-enter on a cap-exit with peelable rows left.  ``hi``,
+    ``lo`` and the caps take the supports' dtype.  ``row_ext`` /
     ``kmax`` are ``a``'s staircase extents, required on the sparse
     backends.  ``widths`` (a list, or None) gets each gather's row count.
 
@@ -662,8 +741,8 @@ def device_peel_loop(a, ids, support, alive, dv, theta, hi, lo, c_rcnt,
             max_sweeps=max_sweeps, minmode=minmode, peel_width=peel_width,
             stats=stats)
     dev = support.device
-    hi = _f32_scalar(hi, dev)
-    lo = _f32_scalar(lo, dev)
+    hi = _scalar(hi, support)
+    lo = _scalar(lo, support)
     c_rcnt = _f32_scalar(c_rcnt, dev)
     peeled = torch.zeros_like(alive)
     wedges = torch.zeros((), dtype=_F32, device=dev)
@@ -701,8 +780,8 @@ def _device_peel_loop_edge(geom, support, alive, dv, theta, hi, lo, c_rcnt,
     choice on the host.  Returns (geom, support, alive, dv, theta,
     peeled, rho, wedges, hucs, elided, covered, sweeps, overflow)."""
     dev = support.device
-    hi = _f32_scalar(hi, dev)
-    lo = _f32_scalar(lo, dev)
+    hi = _scalar(hi, support)
+    lo = _scalar(lo, support)
     peeled = torch.zeros_like(alive)
     wedges = torch.zeros((), dtype=_F32, device=dev)
     covered = torch.zeros((), dtype=_F32, device=dev)
@@ -745,7 +824,9 @@ def cd_graph_state0(dg: "DeviceGraph", support, alive, p_total: int) -> dict:
     ``hi = -inf`` makes the first iteration a boundary, which opens subset
     0 on the device.  The residual graph rides in the state (``a``, ``dv``,
     ``row_ext``/``kmax``, ``c_rcnt``): the on-device DGM step rewrites
-    them.  ``_receipt_cd_graph`` re-enters with the returned state after a
+    them.  ``init_sup``, ``bounds``, ``hi`` and ``lo`` take the supports'
+    dtype; the findHi target and the wedge counters stay float32.
+    ``_receipt_cd_graph`` re-enters with the returned state after a
     ``max_iters`` cap-exit, resetting only ``iters``.
     """
     dev = support.device
@@ -755,10 +836,10 @@ def cd_graph_state0(dg: "DeviceGraph", support, alive, p_total: int) -> dict:
         c_rcnt=_f32_scalar(dg.c_rcnt, dev), dgm=0,
         support=support, alive=alive,
         subset_of=torch.full((rows_pad,), -1, dtype=torch.int32, device=dev),
-        init_sup=torch.zeros(rows_pad, dtype=_F32, device=dev),
-        bounds=torch.zeros(p_total + 1, dtype=_F32, device=dev),
+        init_sup=torch.zeros(rows_pad, dtype=support.dtype, device=dev),
+        bounds=torch.zeros(p_total + 1, dtype=support.dtype, device=dev),
         rho_sub=[], i=-1,
-        hi=_f32_scalar(-_INF, dev), lo=_f32_scalar(0.0, dev),
+        hi=_scalar(-_INF, support), lo=_scalar(0.0, support),
         scale=_f32_scalar(1.0, dev), tgt=_f32_scalar(0.0, dev),
         covered=_f32_scalar(0.0, dev), rho_start=0,
         rho=0, wedges=_f32_scalar(0.0, dev), hucs=0, elided=0,
@@ -910,11 +991,13 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
     computes the (G, M, M) shared-butterfly stack ONCE with kernel 3
     (whose CUDA version masks ragged edges, so unlike the reference no
     block-alignment test routes around it) and reduces its gathered rows
-    per sweep.  Both give bit-identical deltas.
+    per sweep.  Both give bit-identical deltas (float64, as ``support``,
+    ``lo`` and ``theta``).
 
     Returns (support, alive, dv, theta, rho, wedges, max_level, sweeps)
-    as the reference does: ``theta`` (G, M), per-group ``rho`` (int32),
-    ``wedges`` (f32) and ``max_level`` (int32) tensors, ``sweeps`` int.
+    as the reference does: ``theta`` (G, M) in the supports' dtype,
+    per-group ``rho`` (int32), ``wedges`` (f32) and ``max_level`` (int32)
+    tensors, ``sweeps`` int.
 
     ``axis="edge"`` (wing FD): ``support``/``alive`` are per edge slot
     (G, E), ``eu``/``ev`` the slots' endpoints (int64, (E,) or (G, E))
@@ -932,7 +1015,7 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
     g_n, mm, _cc = a.shape
     dev = a.device
     sparse = backend in kops.SPARSE_BACKENDS
-    lo = _f32_scalar(lo, dev)
+    lo = _scalar(lo, support)
     ids = torch.arange(mm, dtype=torch.int32, device=dev).expand(
         g_n, mm).contiguous()
     if sparse:
@@ -941,7 +1024,8 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
     else:
         kmax_a = kmax_mask = None
     if update_mode == "b2":
-        b2 = kops.b2_stack(a.to(_F32), backend=backend, blocks=blocks)
+        b2 = note_wide(stats, kops.b2_stack(a.to(_F32), backend=backend,
+                                            blocks=blocks))
     elif update_mode != "kernel":
         raise ValueError(f"unknown update_mode {update_mode!r}")
 
@@ -950,9 +1034,9 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
         if update_mode == "b2":
             delta = _masked_rows_sum(b2, peel)
         else:
-            delta = kops.butterfly_update_batched(
+            delta = note_wide(stats, kops.butterfly_update_batched(
                 a, a, peel.to(a.dtype), ids, ids, backend=backend,
-                blocks=blocks, kmax_a=kmax_a, kmax_b=kmax_mask)
+                blocks=blocks, kmax_a=kmax_a, kmax_b=kmax_mask))
         return delta, torch.einsum("gm,gmc->gc", peel.to(_F32),
                                    a.to(_F32))
 
@@ -974,12 +1058,13 @@ def batched_level_loop(a, support, alive, dv, lo, *, backend, blocks,
             kb = (ksparse.batched_gathered_tile_extents(row_ext, rows, valid,
                                                         blocks[1])
                   if sparse else None)
-            delta = kops.butterfly_update_batched(
+            delta = note_wide(stats, kops.butterfly_update_batched(
                 a, a_peel, valid, ids, rows, backend=backend, blocks=blocks,
-                kmax_a=kmax_a, kmax_b=kb)
+                kmax_a=kmax_a, kmax_b=kb))
         return delta, a_peel.to(_F32).sum(dim=1)
 
-    theta = torch.zeros((g_n, mm), dtype=_F32, device=dev)
+    theta = note_wide(stats, torch.zeros((g_n, mm), dtype=support.dtype,
+                                         device=dev))
     rho = torch.zeros(g_n, dtype=torch.int32, device=dev)
     wedges = torch.zeros(g_n, dtype=_F32, device=dev)
     max_level = torch.zeros(g_n, dtype=torch.int32, device=dev)
@@ -1017,7 +1102,7 @@ def _batched_level_loop_edge(a, support, alive, dv, lo, eu, ev, *, backend,
     anyway, so the reference's recount of it is skipped)."""
     g_n = a.shape[0]
     dev = a.device
-    lo = _f32_scalar(lo, dev)
+    lo = _scalar(lo, support)
     theta = torch.zeros(support.shape, dtype=_F32, device=dev)
     rho = torch.zeros(g_n, dtype=torch.int32, device=dev)
     wedges = torch.zeros(g_n, dtype=_F32, device=dev)
@@ -1163,7 +1248,7 @@ def host_sweep(dg, cfg: ReceiptConfig, stats: RunStats,
     if n_peel == 0:
         return support, alive, None
     stats.rho_cd += 1
-    lo_t = _f32_scalar(lo, support.device)
+    lo_t = _scalar(lo, support)
 
     if int(n_alive) - n_peel == 0:
         # terminal-sweep elision: no survivor to update
@@ -1174,13 +1259,13 @@ def host_sweep(dg, cfg: ReceiptConfig, stats: RunStats,
         alive = alive & ~peel
         support = support_all(dg.a, alive, dg.ids,
                               dg.kmax if sparse else None,
-                              backend=backend, blocks=blocks)
+                              backend=backend, blocks=blocks, stats=stats)
         support = torch.where(alive, torch.maximum(support, lo_t), _INF)
         stats.huc_recounts += 1
         stats.wedges_cd += int(dg.c_rcnt)
     else:
         delta = peel_delta(dg.a, peel, n_peel, dg.ids, dg.row_ext, dg.kmax,
-                           backend=backend, blocks=blocks)
+                           backend=backend, blocks=blocks, stats=stats)
         support, alive = apply_delta(support, alive, peel, delta, lo_t)
         support = torch.where(alive, support, _INF)
         stats.wedges_cd += int(c_peel)

@@ -36,6 +36,12 @@ list from the survivors on the host.  Supports are CARRIED across a
 rebuild, never recounted: they are the loop's values clamped at the
 running level, and a recount could fall below it.
 
+Kernel 6 sums its supports in float32, so this route is exact below
+``peel_loop.F32_EXACT_LIMIT`` = 2^24 only (DESIGN.md section 8): the
+count's largest support rides each segment's fetch, and one at or past
+the limit refuses the run (``peel_loop.check_exact``) before any tip
+number is returned.
+
 With a ``plan`` (``repro_torch.api.ExecutionPlan``) every slot-list build
 records its padded rows and columns and its slot count through
 ``plan.quantize_dim`` (``tiled_rows``, ``tiled_cols``, ``tiled_slots``).
@@ -55,11 +61,14 @@ import torch
 from ...kernels import butterfly_tiled as ktiled
 from ...kernels import ops as kops
 from ..graph import BipartiteGraph, TiledGraph
+from ...utils.spans import span
 from .peel_loop import (
+    F32_EXACT_LIMIT,
     ReceiptConfig,
     RunStats,
     apply_delta,
     bucket,
+    check_exact,
     fetch,
     level_threshold,
     peel_cost,
@@ -211,8 +220,10 @@ def receipt_tiled(
         sl = ktiled.slot_liveness(td)
         if support_carry is None:
             tc = time.perf_counter()
-            support = _tiled_update(td, lists, sl, alive.to(_F32), n_cur,
-                                    backend)
+            with span("count", stats):
+                support = _tiled_update(td, lists, sl, alive.to(_F32), n_cur,
+                                        backend)
+                top = torch.where(alive, support, 0.0).amax()
             stats.time_count += time.perf_counter() - tc
         else:
             sup_host = np.zeros(rows_pad, np.float32)
@@ -229,9 +240,12 @@ def receipt_tiled(
                 st, lists, backend=backend, max_sweeps=seg_sweeps,
                 regather_every=cfg.tiled_regather_every, stats=stats)
             stats.device_loop_calls += 1
-            wed, alive_h, theta_h, sup_h = fetch(
+            # the count's largest rides every segment's read
+            wed, alive_h, theta_h, sup_h, top_h = fetch(
                 stats, st["wedges"], st["alive"], st["theta"],
-                st["support"])
+                st["support"], top)
+            check_exact(stats, float(top_h), F32_EXACT_LIMIT,
+                        backend=backend, representation="tiled")
             stats.rho_fd += n_sweeps
             stats.wedges_fd += int(round(float(wed)))
             stats.dgm_device_compactions += (

@@ -13,6 +13,11 @@ section 2.1):
 ``ids_a`` / ``ids_b`` carry the row ids of each side so self-pairs (u, u)
 are excluded even when B holds gathered copies of A rows.
 
+The operands are f32 (0/1 matrices, a 0/1 ``s``) and the output is f64:
+each wedge count W is an exact integer (s32 on the tensor cores), and from
+``C(W, 2)`` on every body and every plain version sums in f64, exact for
+every support below 2^53 (DESIGN.md section 8, the port's paragraph).
+
 Two kernels, launched with no stripe extents (each source notes the
 Pallas kernels it replaces, what bounds it on the H100 and how it is
 built):
@@ -76,6 +81,7 @@ __all__ = [
 ]
 
 BODIES = ("count", "peel", "tile")
+_F64 = torch.float64
 STACK_BODIES = ("peel", "tile")
 
 # launches of each kernel body (plain calls are not counted)
@@ -145,10 +151,10 @@ def peel_scratch_bytes(n_b: int, n_v: int, groups: int = 1) -> int:
 def peel_work(n_a: int, n_b: int, n_v: int, groups: int = 1):
     """(operations, bytes) of the peel body over ``groups`` graphs with
     every row valid and every stripe live (``chip_smoke.peel_live_work``
-    with no data): 2 per (A row, B row, column); A, B, s, both ids and
-    out moved once in f32 / int32."""
+    with no data): 2 per (A row, B row, column); A, B, s and both ids
+    moved once in f32 / int32, out in f64."""
     ops = 2 * n_a * n_b * n_v
-    nbytes = 4 * (n_a * n_v + n_b * n_v + 2 * n_b + 2 * n_a)
+    nbytes = 4 * (n_a * n_v + n_b * n_v + 2 * n_b + n_a) + 8 * n_a
     return groups * ops, groups * nbytes
 
 
@@ -156,8 +162,8 @@ def count_work(n: int, n_v: int):
     """(operations, bytes) of the count body (B = A) with every row
     holding mass and every stripe live (``chip_smoke.count_pair_ops``
     with no data): 2 per unordered pair of distinct rows per column; A,
-    s, the ids and out moved once."""
-    return (n * n - n) * n_v, 4 * (n * n_v + 3 * n)
+    s and the ids moved once, the f64 out once."""
+    return (n * n - n) * n_v, 4 * (n * n_v + 2 * n) + 8 * n
 
 
 def _on_meta(plain, a, b, s, ids_a, ids_b, body, groups=1):
@@ -180,19 +186,20 @@ def _on_meta(plain, a, b, s, ids_a, ids_b, body, groups=1):
 
 def butterfly_update_plain(a, b, s, ids_a, ids_b):
     """Plain version of kernel 1 (materializes the (n_a, n_b) wedge
-    matrix the kernel keeps on chip)."""
-    w = a @ b.T
+    matrix the kernel keeps on chip): W in the operands' dtype (exact
+    integers below 2^24), C(W, 2) and the sums in f64."""
+    w = (a @ b.T).to(_F64)
     b2 = w * (w - 1.0) * 0.5
-    not_self = (ids_a[:, None] != ids_b[None, :]).to(a.dtype)
-    return (b2 * not_self) @ s.to(a.dtype)
+    not_self = (ids_a[:, None] != ids_b[None, :]).to(_F64)
+    return (b2 * not_self) @ s.to(_F64)
 
 
 def butterfly_update_batched_plain(a, b, s, ids_a, ids_b):
-    """Plain version of kernel 2."""
-    w = torch.einsum("gic,gjc->gij", a, b)
+    """Plain version of kernel 2 (f64 from C(W, 2) on, as kernel 1's)."""
+    w = torch.einsum("gic,gjc->gij", a, b).to(_F64)
     b2 = w * (w - 1.0) * 0.5
-    not_self = (ids_a[:, :, None] != ids_b[:, None, :]).to(a.dtype)
-    return torch.einsum("gij,gj->gi", b2 * not_self, s.to(a.dtype))
+    not_self = (ids_a[:, :, None] != ids_b[:, None, :]).to(_F64)
+    return torch.einsum("gij,gj->gi", b2 * not_self, s.to(_F64))
 
 
 def _check(a, b, s, ids_a, ids_b, *, batched: bool):
@@ -248,7 +255,7 @@ def _launch(counts, name, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
     g_n = a.shape[0] if batched else 1
     n_a, n_v = a.shape[-2:]
     n_b = b.shape[-2]
-    out = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+    out = torch.zeros(a.shape[:-1], dtype=_F64, device=a.device)
     if not (g_n and n_a and n_b and n_v):
         return out
     if body == "count":
@@ -285,7 +292,7 @@ def _launch(counts, name, a, b, s, ids_a, ids_b, kmax_a=None, kmax_b=None,
 
 def butterfly_update(a, b, s, ids_a, ids_b, *, body="peel"):
     """Kernel 1.  a (n_a, n_v) f32 0/1, b (n_b, n_v), s (n_b,) f32,
-    ids_a (n_a,) / ids_b (n_b,) int32; returns out (n_a,) f32.  ``body``
+    ids_a (n_a,) / ids_b (n_b,) int32; returns out (n_a,) f64.  ``body``
     (one of ``BODIES``) is the body launched on CUDA tensors; its form is
     checked on every device."""
     check_body(body, a, b, ids_a, ids_b)
@@ -299,7 +306,8 @@ def butterfly_update(a, b, s, ids_a, ids_b, *, body="peel"):
 
 def butterfly_update_batched(a, b, s, ids_a, ids_b, *, body="peel"):
     """Kernel 2.  a (G, n_a, n_v) f32 0/1, b (G, n_b, n_v), s (G, n_b),
-    ids_a (G, n_a) / ids_b (G, n_b) int32 local ids; returns (G, n_a).
+    ids_a (G, n_a) / ids_b (G, n_b) int32 local ids; returns (G, n_a)
+    f64.
     ``body`` (one of ``STACK_BODIES``) is the body launched on CUDA
     tensors; it is checked on every device."""
     check_stack_body(body)

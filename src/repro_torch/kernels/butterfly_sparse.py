@@ -73,6 +73,9 @@ LAUNCHES = {"butterfly_update_sparse[count]": 0,
             "b2_stack[pairs]": 0, "b2_stack[tile]": 0}
 
 B2_BODIES = ("pairs", "tile")
+# the outputs' dtype: C(W, 2) on, every kernel here sums in f64 (exact
+# below 2^53; DESIGN.md section 8, the port's paragraph)
+_F64 = torch.float64
 
 
 def b2_scratch_bytes(g: int, m: int, n_v: int) -> int:
@@ -86,8 +89,9 @@ def b2_work(g: int, m: int, n_v: int, n_extents: int = 0):
     """(operations, bytes) of kernel 3's pairs body with every row and
     stripe live (``chip_smoke.b2_pair_ops`` with no data): 2 per
     unordered pair of distinct rows per column; the stack read once, the
-    (g, m, m) output written once, the extents read."""
-    return g * m * (m - 1) * n_v, 4 * (g * m * n_v + g * m * m + n_extents)
+    (g, m, m) f64 output written once, the extents read."""
+    return (g * m * (m - 1) * n_v,
+            4 * (g * m * n_v + n_extents) + 8 * g * m * m)
 
 
 def row_extents(a: np.ndarray, block_k: int) -> np.ndarray:
@@ -185,20 +189,20 @@ def _live_wedges(a, b, kmax_a, kmax_b, blocks):
 def butterfly_update_sparse_plain(a, b, s, ids_a, ids_b, kmax_a, kmax_b, *,
                                   blocks):
     """Plain version of kernel 4 (materializes the (n_a, n_b) wedge
-    matrix, stripe by stripe)."""
-    w = _live_wedges(a, b, kmax_a, kmax_b, blocks)
+    matrix, stripe by stripe; f64 from C(W, 2) on, as kernel 1's)."""
+    w = _live_wedges(a, b, kmax_a, kmax_b, blocks).to(_F64)
     b2 = w * (w - 1.0) * 0.5
     not_self = ids_a[:, None] != ids_b[None, :]
-    return (b2 * not_self * s[None, :]).sum(dim=-1)
+    return (b2 * not_self * s[None, :].to(_F64)).sum(dim=-1)
 
 
 def butterfly_update_sparse_batched_plain(a, b, s, ids_a, ids_b, kmax_a,
                                           kmax_b, *, blocks):
-    """Plain version of kernel 5."""
-    w = _live_wedges(a, b, kmax_a, kmax_b, blocks)
+    """Plain version of kernel 5 (f64 from C(W, 2) on)."""
+    w = _live_wedges(a, b, kmax_a, kmax_b, blocks).to(_F64)
     b2 = w * (w - 1.0) * 0.5
     not_self = ids_a[:, :, None] != ids_b[:, None, :]
-    return (b2 * not_self * s[:, None, :]).sum(dim=-1)
+    return (b2 * not_self * s[:, None, :].to(_F64)).sum(dim=-1)
 
 
 def _check_extents(a, b, kmax_a, kmax_b, blocks):
@@ -233,7 +237,7 @@ def butterfly_update_sparse(a, b, s, ids_a, ids_b, kmax_a, kmax_b, *,
     """Kernel 4.  a (n_a, n_v) f32 0/1, b (n_b, n_v), s (n_b,) f32,
     ids_a (n_a,) / ids_b (n_b,) int32, kmax_a (ceil(n_a/bi),) and
     kmax_b (ceil(n_b/bj),) int32 stripe extents of ``blocks = (bi, bj,
-    bk)`` row tiles; returns out (n_a,) f32.  ``body`` (one of
+    bk)`` row tiles; returns out (n_a,) f64.  ``body`` (one of
     ``butterfly.BODIES``) is the body launched on CUDA tensors, as for
     kernel 1; its form is checked on every device."""
     _bfly.check_body(body, a, b, ids_a, ids_b, kmax_a, kmax_b)
@@ -248,7 +252,7 @@ def butterfly_update_sparse_batched(a, b, s, ids_a, ids_b, kmax_a, kmax_b,
                                     *, blocks, body="peel"):
     """Kernel 5.  a (G, n_a, n_v), b (G, n_b, n_v), s (G, n_b), local ids
     (G, n_a) / (G, n_b) int32, per-group extents (G, ceil(n_a/bi)) and
-    (G, ceil(n_b/bj)) int32; returns (G, n_a) f32.  ``body`` (one of
+    (G, ceil(n_b/bj)) int32; returns (G, n_a) f64.  ``body`` (one of
     ``butterfly.STACK_BODIES``) is the body launched on CUDA tensors; it
     is checked on every device."""
     _bfly.check_stack_body(body)
@@ -260,19 +264,19 @@ def butterfly_update_sparse_batched(a, b, s, ids_a, ids_b, kmax_a, kmax_b,
 
 
 def b2_stack_plain(a, kmax_a, kmax_b, *, blocks):
-    """Plain version of kernel 3.  It reads every stripe, so it equals the
-    kernel for any extents that upper-bound the true ones (the stripes
-    the kernel skips are all zero)."""
-    w = torch.einsum("gmc,gnc->gmn", a, a)
+    """Plain version of kernel 3 (f64 entries).  It reads every stripe,
+    so it equals the kernel for any extents that upper-bound the true ones
+    (the stripes the kernel skips are all zero)."""
+    w = torch.einsum("gmc,gnc->gmn", a, a).to(_F64)
     b2 = w * (w - 1.0) * 0.5
-    eye = torch.eye(a.shape[1], dtype=a.dtype, device=a.device)
+    eye = torch.eye(a.shape[1], dtype=_F64, device=a.device)
     return b2 * (1.0 - eye)[None]
 
 
 def b2_stack(a, kmax_a, kmax_b, *, blocks, body="pairs"):
     """Kernel 3.  a (G, m, n_v) f32 0/1; kmax_a (G, ceil(m/bi)) and
     kmax_b (G, ceil(m/bj)) int32 stripe extents of ``blocks = (bi, bj,
-    bk)`` row tiles; returns (G, m, m) f32.  ``body`` (one of
+    bk)`` row tiles; returns (G, m, m) f64.  ``body`` (one of
     ``B2_BODIES``) is the body launched on CUDA tensors; it is checked on
     every device."""
     if body not in B2_BODIES:
@@ -308,8 +312,8 @@ def b2_stack(a, kmax_a, kmax_b, *, blocks, body="pairs"):
             raise ValueError(f"{name} must be contiguous")
     if not (g_n and m and n_v):
         # no pair, or no column: every W is 0, C(0, 2) = 0
-        return torch.zeros((g_n, m, m), dtype=torch.float32, device=a.device)
-    out = torch.empty((g_n, m, m), dtype=torch.float32, device=a.device)
+        return torch.zeros((g_n, m, m), dtype=_F64, device=a.device)
+    out = torch.empty((g_n, m, m), dtype=_F64, device=a.device)
     lib = _build.library("b2_stack")
     key = f"b2_stack[{body}]"
     if body == "pairs":

@@ -16,8 +16,8 @@
 // butterfly_sparse.py, body=):
 //
 // THE PAIRS BODY (the default).  What bounds it on the H100 is bytes: the
-// G m^2 f32 output (67 MB at FD's (16, 1024, 1024) stack, 0.02 ms at 3.35
-// TB/s) and A's live stripes, read once; the product over the distinct
+// G m^2 f64 output (134 MB at FD's (16, 1024, 1024) stack, 0.04 ms at
+// 3.35 TB/s) and A's live stripes, read once; the product over the distinct
 // nonzero row pairs is some 17 GOP, under 0.01 ms at the int8 tensor-core
 // rate.  So the body moves each byte once and keeps the product off the
 // f32 units:
@@ -34,17 +34,17 @@
 //      three stages deep so that two blocks share an SM and one block's
 //      stores overlap the other's loads, over min(kcut_I, kcut_J)
 //      columns.
-//   3. The epilogue converts each s32 W to f32 (exact: W <= n_v < 2^24),
-//      evaluates C(W, 2) in the reference's order (W * (W - 1), then
-//      * 0.5), zeroes the diagonal x = y and writes tile (I, J) and, off
-//      the diagonal, its transpose into (J, I), straight from the
-//      accumulators.  In wgmma's layout a quad of lanes holds 8
-//      neighbouring columns of one row (32 bytes) and the eight row
-//      groups of a warp 8 neighbouring rows, so each store instruction
-//      fills whole 32-byte sectors in both orientations when m % 8 == 0:
-//      8 rows x 32 bytes for (I, J) (float2 stores), 4 rows x 32 bytes for
-//      (J, I).  Ragged shapes mask the edge (scalar stores when m is
-//      odd).  The output is written once and never read back.
+//   3. The epilogue converts each s32 W to f64, evaluates C(W, 2) in the
+//      reference's order (W * (W - 1), then * 0.5), zeroes the diagonal
+//      x = y and writes tile (I, J) and, off the diagonal, its transpose
+//      into (J, I), straight from the accumulators, as f64.  In wgmma's
+//      layout a quad of lanes holds 8 neighbouring columns of one row (64
+//      bytes) and the eight row groups of a warp 8 neighbouring rows, so
+//      each store instruction fills whole 32-byte sectors in both
+//      orientations when m % 8 == 0: 8 rows x 64 bytes for (I, J)
+//      (double2 stores), 4 rows x 64 bytes for (J, I).  Ragged shapes
+//      mask the edge (scalar stores when m is odd).  The output is
+//      written once and never read back.
 //
 // THE TILE BODY (body="tile", b2_stack_kernel): the f32 FMA tile of
 // wedge_tile.cuh (64 x 64 per block, 16-column K-stripes through shared
@@ -52,11 +52,12 @@
 // extents; the yardstick the pairs body is timed against.
 //
 // Exactness.  0/1 operands, integer wedge counts below 2^24 and C(W, 2) in
-// the reference's operation order: every entry is bit-identical to the
-// reference while it is below 2^24.
+// the reference's operation order, in f64 (DESIGN.md section 8, the port's
+// paragraph): every entry is an integer below 2^53, bit-identical to the
+// plain version's.
 //
 // Shapes need not be multiples of any tile.  a is (G, m, n_v) f32, kmax_a
-// (G, n_ta) and kmax_b (G, n_tb) int32, out (G, m, m) f32, all contiguous.
+// (G, n_ta) and kmax_b (G, n_tb) int32, out (G, m, m) f64, all contiguous.
 // The launches go on the caller's stream, allocate nothing (the pairs
 // body's s8 copy is the wrapper's scratch) and return cudaGetLastError().
 
@@ -68,7 +69,7 @@ using namespace wedge;
 
 __global__ void __launch_bounds__(THREADS)
 b2_stack_kernel(const float* __restrict__ a, const int* __restrict__ kmax_a,
-                const int* __restrict__ kmax_b, float* __restrict__ out,
+                const int* __restrict__ kmax_b, double* __restrict__ out,
                 int m, int n_v, int n_ta, int n_tb, int bi, int bj, int bk) {
   const int64_t g = blockIdx.z;
   a += g * m * (int64_t)n_v;
@@ -97,8 +98,8 @@ b2_stack_kernel(const float* __restrict__ a, const int* __restrict__ kmax_a,
     for (int q = 0; q < 4; ++q) {
       const int y = y0 + tx + 16 * q;
       if (y >= m) continue;
-      const float w = acc[p][q];
-      out[(int64_t)x * m + y] = (x != y) ? w * (w - 1.0f) * 0.5f : 0.0f;
+      const double w = acc[p][q];
+      out[(int64_t)x * m + y] = (x != y) ? w * (w - 1.0) * 0.5 : 0.0;
     }
   }
 }
@@ -106,9 +107,9 @@ b2_stack_kernel(const float* __restrict__ a, const int* __restrict__ kmax_a,
 }  // namespace
 
 extern "C" int b2_stack_f32(const float* a, const int* kmax_a,
-                            const int* kmax_b, float* out, int groups, int m,
-                            int n_v, int n_ta, int n_tb, int bi, int bj,
-                            int bk, void* stream) {
+                            const int* kmax_b, double* out, int groups,
+                            int m, int n_v, int n_ta, int n_tb, int bi,
+                            int bj, int bk, void* stream) {
   const dim3 grid((m + TI - 1) / TI, (m + TJ - 1) / TJ, groups);
   b2_stack_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       a, kmax_a, kmax_b, out, m, n_v, n_ta, n_tb, bi, bj, bk);
@@ -138,13 +139,13 @@ __device__ __forceinline__ int pair_kcut(const int* kmax_a, const int* kmax_b,
 
 // grid (n_t (n_t + 1) / 2, G) for n_t = ceil(m / 128) row tiles, C_THREADS
 // threads, B2_SMEM dynamic bytes; a8_map spans G * m_pad rows.  kPair: m
-// is even and out 8-byte aligned, so the (I, J) stores go two columns at
+// is even and out 16-byte aligned, so the (I, J) stores go two columns at
 // a time.
 template <bool kPair>
 __global__ void __launch_bounds__(C_THREADS, 2)
 b2_pairs_kernel(const __grid_constant__ CUtensorMap a8_map,
                 const int* __restrict__ kmax_a, const int* __restrict__ kmax_b,
-                float* __restrict__ out, int m, int n_v, int m_pad, int n_ta,
+                double* __restrict__ out, int m, int n_v, int m_pad, int n_ta,
                 int n_tb, int bi, int bj, int bk) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
@@ -194,19 +195,19 @@ b2_pairs_kernel(const __grid_constant__ CUtensorMap a8_map,
   for (int h = 0; h < 2; ++h) {
     const int x = i0 + r0 + 8 * h;
     if (x >= m) continue;
-    float* row = out + (int64_t)x * m;
+    double* row = out + (int64_t)x * m;
 #pragma unroll
     for (int v = 0; v < 16; ++v) {
       const int y = j0 + 8 * v + 2 * q;
-      float b2[2];
+      double b2[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float w = (float)acc[4 * v + 2 * h + e];
-        b2[e] = (x != y + e) ? w * (w - 1.0f) * 0.5f : 0.0f;
+        const double w = (double)acc[4 * v + 2 * h + e];
+        b2[e] = (x != y + e) ? w * (w - 1.0) * 0.5 : 0.0;
       }
       if (kPair) {
         if (y < m)
-          *reinterpret_cast<float2*>(row + y) = make_float2(b2[0], b2[1]);
+          *reinterpret_cast<double2*>(row + y) = make_double2(b2[0], b2[1]);
       } else {
         if (y < m) row[y] = b2[0];
         if (y + 1 < m) row[y + 1] = b2[1];
@@ -222,12 +223,12 @@ b2_pairs_kernel(const __grid_constant__ CUtensorMap a8_map,
     for (int e = 0; e < 2; ++e) {
       const int y = j0 + 8 * v + 2 * q + e;
       if (y >= m) continue;
-      float* row = out + (int64_t)y * m;
+      double* row = out + (int64_t)y * m;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int x = i0 + r0 + 8 * h;
-        const float w = (float)acc[4 * v + 2 * h + e];
-        if (x < m) row[x] = w * (w - 1.0f) * 0.5f;   // x < y: never diagonal
+        const double w = (double)acc[4 * v + 2 * h + e];
+        if (x < m) row[x] = w * (w - 1.0) * 0.5;   // x < y: never diagonal
       }
     }
   }
@@ -236,7 +237,7 @@ b2_pairs_kernel(const __grid_constant__ CUtensorMap a8_map,
 template <bool kPair>
 cudaError_t launch_pairs(unsigned n_pairs, int groups, cudaStream_t stream,
                          const CUtensorMap& map, const int* kmax_a,
-                         const int* kmax_b, float* out, int m, int n_v,
+                         const int* kmax_b, double* out, int m, int n_v,
                          int m_pad, int n_ta, int n_tb, int bi, int bj,
                          int bk) {
   // one-time opt-in above 48 KB of dynamic shared memory
@@ -265,7 +266,7 @@ static int64_t b2_scratch_bytes(int groups, int m, int n_v) {
 // aligned, needing no initial value.  Returns a cudaError_t, or 100000
 // plus the CUresult of a failed tensor-map encoding.
 extern "C" int b2_stack_pairs_f32(const float* a, const int* kmax_a,
-                                  const int* kmax_b, float* out, int groups,
+                                  const int* kmax_b, double* out, int groups,
                                   int m, int n_v, int n_ta, int n_tb, int bi,
                                   int bj, int bk, void* scratch,
                                   long long scratch_bytes, void* stream) {
@@ -286,7 +287,7 @@ extern "C" int b2_stack_pairs_f32(const float* a, const int* kmax_a,
       pack_and_map(a, kmax_a, kmax_b, groups, m, n_v, n_ta, n_tb, bi, bj, bk,
                    static_cast<uint8_t*>(scratch), st, &map);
   if (packed != 0) return packed;
-  const bool pair = (m % 2 == 0) && (((uintptr_t)out & 7) == 0);
+  const bool pair = (m % 2 == 0) && (((uintptr_t)out & 15) == 0);
   const cudaError_t err =
       pair ? launch_pairs<true>((unsigned)n_pairs, groups, st, map, kmax_a,
                                 kmax_b, out, m, n_v, (int)m_pad, n_ta, n_tb,

@@ -38,20 +38,21 @@
 //      wgmma.mma_async m64n128k32 .s32.s8.s8, both operands K-major as s8
 //      wgmma requires (A A^T needs no transpose), 64 s32 accumulators per
 //      thread, releasing each stage once its products are done.
-//   3. The epilogue converts each W to f32 (exact: W <= n_v < 2^24),
-//      applies C(W, 2) in the reference's order (W * (W - 1), then * 0.5)
-//      and the not-self mask on the ids, then adds the rows' sums weighted
-//      by s[j] into out[I rows] and, off the diagonal, the columns' sums
-//      weighted by s[i] into out[J rows] (W is symmetric, so the pair
-//      (J, I) is the transpose of (I, J)), with atomicAdd.
+//   3. The epilogue converts each s32 W to f64, applies C(W, 2) in the
+//      reference's order (W * (W - 1), then * 0.5) and the not-self mask
+//      on the ids, then adds the rows' sums weighted by s[j] into out[I
+//      rows] and, off the diagonal, the columns' sums weighted by s[i]
+//      into out[J rows] (W is symmetric, so the pair (J, I) is the
+//      transpose of (I, J)), with f64 atomicAdd (native on sm_90).
 //
 // Exactness.  A is 0/1 (the function's contract), so every product is
-// exact in s8 x s8 -> s32 and every W an integer below 2^24.  The engine
-// works where every butterfly support is below 2^24 (DESIGN.md section 8):
-// every C(W, 2), every partial row or column sum and every atomicAdd
-// operand is a non-negative integer no larger than a final support, so
-// each f32 addition is exact in any order and the bits equal the plain
-// version's.
+// exact in s8 x s8 -> s32 and every W an integer no larger than n_v.  From
+// W on the epilogue works in f64 (DESIGN.md section 8, the port's
+// paragraph): W (W - 1) < 2^53 for W < 2^26, and every C(W, 2), every
+// partial row or column sum and every atomicAdd operand is a non-negative
+// integer no larger than a final support, so while the supports stay below
+// 2^53 each f64 addition is exact in any order and the bits equal the
+// plain version's.
 //
 // The launches go on the caller's stream, allocate nothing (the s8 copy is
 // the wrapper's scratch) and return cudaGetLastError().
@@ -66,18 +67,18 @@ constexpr int STAGES = 4;                // TMA ring depth
 constexpr int RING_BYTES = ring_bytes(STAGES);
 
 // dynamic shared memory: the ring (A tiles, then B tiles), the barriers,
-// s and ids of both tiles' rows, the column partials of the 8 consumer
+// s and ids of both tiles' rows, the f64 column partials of the 8 consumer
 // warps; plus 1 KB to align the ring to the 1024-byte swizzle atom
 constexpr int BAR_BYTES = 2 * STAGES * 8;
 constexpr int SMEM_BYTES =
-    1024 + RING_BYTES + BAR_BYTES + 4 * CT * 4 + 8 * CT * 4;
+    1024 + RING_BYTES + BAR_BYTES + 4 * CT * 4 + 8 * CT * 8;
 
 // grid (n_t (n_t + 1) / 2) for n_t = n_pad / 128 row tiles, C_THREADS
 // threads, SMEM_BYTES of dynamic shared memory.
 __global__ void __launch_bounds__(C_THREADS, 1)
 count_update_kernel(const __grid_constant__ CUtensorMap a8_map,
                     const float* __restrict__ s, const int* __restrict__ ids,
-                    const int* __restrict__ kmax, float* __restrict__ out,
+                    const int* __restrict__ kmax, double* __restrict__ out,
                     int n, int n_v, int bi, int bk) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
@@ -90,7 +91,7 @@ count_update_kernel(const __grid_constant__ CUtensorMap a8_map,
   int* id_i = reinterpret_cast<int*>(s_i + CT);
   float* s_j = reinterpret_cast<float*>(id_i + CT);
   int* id_j = reinterpret_cast<int*>(s_j + CT);
-  float* col_part = reinterpret_cast<float*>(id_j + CT);   // [8][CT]
+  double* col_part = reinterpret_cast<double*>(id_j + CT);   // [8][CT]
 
   // block p -> tile pair (I, J), I <= J, J-major
   int I, J;
@@ -129,33 +130,40 @@ count_update_kernel(const __grid_constant__ CUtensorMap a8_map,
   int acc[64];
   pair_consume<STAGES>(ring_a, ring_b, full, empty, n_k, diag, wg, acc);
 
-  // epilogue: C(W, 2) and the not-self mask; rows weighted by s[j] into
-  // out[I rows], columns weighted by s[i] into out[J rows] off the diagonal
+  // epilogue, in f64: C(W, 2) and the not-self mask; rows weighted by
+  // s[j] into out[I rows], columns weighted by s[i] into out[J rows] off
+  // the diagonal.  Each column's sum over the warp's 16 rows is reduced
+  // (shuffles over the row groups) as soon as it is made, so no array of
+  // 32 f64 partials stays live.
   const int warp = tid >> 5;          // 0..7
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int q = lane & 3;
   const int r0 = 64 * wg + 16 * (warp & 3) + g;   // rows r0 and r0 + 8
-  const float si[2] = {s_i[r0], s_i[r0 + 8]};
+  const double si[2] = {(double)s_i[r0], (double)s_i[r0 + 8]};
   const int idi[2] = {id_i[r0], id_i[r0 + 8]};
-  float row_sum[2] = {0.0f, 0.0f};
-  float col_sum[32];
+  double row_sum[2] = {0.0, 0.0};
 #pragma unroll
   for (int v = 0; v < 16; ++v) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = 8 * v + 2 * q + e;
-      const float sj = s_j[c];
+      const double sj = (double)s_j[c];
       const int idj = id_j[c];
-      float cs = 0.0f;
+      double cs = 0.0;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float w = (float)acc[4 * v + 2 * h + e];
-        const float b2 = (idi[h] != idj) ? w * (w - 1.0f) * 0.5f : 0.0f;
+        const double w = (double)acc[4 * v + 2 * h + e];
+        const double b2 = (idi[h] != idj) ? w * (w - 1.0) * 0.5 : 0.0;
         row_sum[h] += b2 * sj;
         cs += b2 * si[h];
       }
-      col_sum[2 * v + e] = cs;
+      if (!diag) {
+        cs += __shfl_xor_sync(0xffffffffu, cs, 4);
+        cs += __shfl_xor_sync(0xffffffffu, cs, 8);
+        cs += __shfl_xor_sync(0xffffffffu, cs, 16);
+        if (g == 0) col_part[warp * CT + c] = cs;
+      }
     }
   }
 #pragma unroll
@@ -163,29 +171,16 @@ count_update_kernel(const __grid_constant__ CUtensorMap a8_map,
     row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
     row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
     const int i = i0 + r0 + 8 * h;
-    if (q == 0 && i < n && row_sum[h] != 0.0f) atomicAdd(out + i, row_sum[h]);
+    if (q == 0 && i < n && row_sum[h] != 0.0) atomicAdd(out + i, row_sum[h]);
   }
   if (diag) return;
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    col_sum[e] += __shfl_xor_sync(0xffffffffu, col_sum[e], 4);
-    col_sum[e] += __shfl_xor_sync(0xffffffffu, col_sum[e], 8);
-    col_sum[e] += __shfl_xor_sync(0xffffffffu, col_sum[e], 16);
-  }
-  if (g == 0) {
-#pragma unroll
-    for (int v = 0; v < 16; ++v)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        col_part[warp * CT + 8 * v + 2 * q + e] = col_sum[2 * v + e];
-  }
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
   if (tid < CT) {
-    float total = 0.0f;
+    double total = 0.0;
 #pragma unroll
     for (int w = 0; w < CONSUMERS / 32; ++w) total += col_part[w * CT + tid];
     const int j = j0 + tid;
-    if (j < n && total != 0.0f) atomicAdd(out + j, total);
+    if (j < n && total != 0.0) atomicAdd(out + j, total);
   }
 }
 
@@ -199,7 +194,7 @@ static int64_t count_scratch_bytes(int n, int n_v) {
 }
 
 // The count body of kernels 1 and 4: a (n, n_v) f32 0/1, s (n,) f32,
-// ids (n,) int32, out (n,) f32 zeroed by the caller; kmax
+// ids (n,) int32, out (n,) f64 zeroed by the caller; kmax
 // (ceil(n / bi),) int32 row-tile extents of bi rows and bk columns, or
 // null for no stripe skip (bi and bk then unused); scratch: at least
 // count_scratch_bytes(n, n_v) bytes of device memory, 128-byte aligned,
@@ -207,7 +202,7 @@ static int64_t count_scratch_bytes(int n, int n_v) {
 // CUresult of a failed tensor-map encoding.
 extern "C" int butterfly_count_f32(const float* a, const float* s,
                                    const int* ids, const int* kmax,
-                                   float* out, int n, int n_v, int bi, int bk,
+                                   double* out, int n, int n_v, int bi, int bk,
                                    void* scratch, long long scratch_bytes,
                                    void* stream) {
   if (n <= 0 || n_v <= 0) return (int)cudaSuccess;

@@ -64,11 +64,10 @@
 //      blocks share an SM.  Eight warps (4 x 16 A rows,
 //      2 x 64 mass rows) multiply with mma.sync m16n8k32 s8 x s8 -> s32
 //      (wedge_mma.cuh) over only the n-tiles that hold mass rows.  The
-//      epilogue converts each s32 W to f32 (exact: below 2^24) and applies
-//      C(W, 2) in the reference's order (W * (W - 1), then * 0.5), s[j],
-//      the not-self mask on the rows' ids (a gathered row is its own A
-//      row's id), the row reduction (quad shuffles) and an exact f32
-//      atomicAdd.
+//      epilogue converts each s32 W to f64 and applies C(W, 2) in the
+//      reference's order (W * (W - 1), then * 0.5), s[j], the not-self
+//      mask on the rows' ids (a gathered row is its own A row's id), the
+//      row reduction (quad shuffles) and an exact f64 atomicAdd.
 // mma.sync is enough here: the 256-row CD shape needs 34.4 GOP, 0.017 ms
 // at the int8 peak, under the byte bound even at a quarter of that rate.
 //
@@ -76,11 +75,11 @@
 // computes a 64 x 64 wedge tile W = A[i0:i0+64] . B[j0:j0+64]^T in
 // registers (4 x 4 per thread), from 16-column K-stripes staged through
 // shared memory, with f32 FMA (wedge_tile.cuh, shared with b2_stack.cu's
-// tile body).  The epilogue applies C(W, 2) = W * (W - 1) * 0.5, the row
-// mask s and the not-self mask, row-reduces the tile (half-warp shuffles)
-// and adds the partial row sums into out with atomicAdd.  The Pallas grid
-// carries out_i across j in order on one core; here the j-tiles run as
-// parallel blocks and meet in the atomics.  Stripe skip: the block reads
+// tile body).  The epilogue applies C(W, 2) = W * (W - 1) * 0.5 in f64,
+// the row mask s and the not-self mask, row-reduces the tile (half-warp
+// shuffles) and adds the partial row sums into out with f64 atomicAdd.
+// The Pallas grid carries out_i across j in order on one core; here the
+// j-tiles run as parallel blocks and meet in the atomics.  Stripe skip: the block reads
 // the extents of the reference tiles (bi rows on the A side, bj rows on
 // the B side) that cover its 64 rows and 64 columns and stops its K loop
 // at min(max kmax_a, max kmax_b) * bk: exact for extents that upper-bound
@@ -90,17 +89,17 @@
 //
 // Exactness.  A and B are 0/1 (the function's contract; the peel body's
 // s8 conversion [v != 0] relies on it), so every wedge count W is an
-// integer below n_v: exact in f32 while n_v < 2^24, and the s32 products
-// cannot overflow (W <= n_v < 2^31).  The engine works in the regime where
-// every butterfly support is below 2^24 (DESIGN.md section 8); then every
-// C(W, 2), every partial row sum and every atomicAdd operand is a
-// non-negative integer no larger than the final support, so each f32
-// addition is exact in ANY order: every body gives the same bits on every
-// run, and the same bits as the reference.
+// integer no larger than n_v: exact in s32 and, in the tile body's f32
+// FMA, while n_v < 2^24.  From W on every body works in f64 (DESIGN.md
+// section 8, the port's paragraph): every C(W, 2), every partial row sum
+// and every atomicAdd operand is a non-negative integer no larger than the
+// final support, so while the supports stay below 2^53 each f64 addition
+// is exact in ANY order: every body gives the same bits on every run, and
+// the same bits as its plain version.
 //
 // Shapes need not be multiples of any tile: loads and the epilogue mask the
-// ragged edge.  All tensors are contiguous, f32 (a, b, s, out) and int32
-// (ids, extents).  The launches go on the caller's stream, allocate nothing
+// ragged edge.  All tensors are contiguous, f32 (a, b, s), f64 (out) and
+// int32 (ids, extents).  The launches go on the caller's stream, allocate nothing
 // (the peel body's scratch comes from the wrapper) and return
 // cudaGetLastError().
 
@@ -120,7 +119,7 @@ sparse_update_kernel(const float* __restrict__ a, const float* __restrict__ b,
                      const int* __restrict__ ids_a,
                      const int* __restrict__ ids_b,
                      const int* __restrict__ kmax_a,
-                     const int* __restrict__ kmax_b, float* __restrict__ out,
+                     const int* __restrict__ kmax_b, double* __restrict__ out,
                      int n_a, int n_b, int n_v, int n_ta, int n_tb, int bi,
                      int bj, int bk) {
   const int64_t g = blockIdx.z;
@@ -152,13 +151,13 @@ sparse_update_kernel(const float* __restrict__ a, const float* __restrict__ b,
 }  // namespace
 
 // kernels 1 and 4 (groups = 1), 2 and 5.  a (G, n_a, n_v), b (G, n_b, n_v),
-// s (G, n_b), ids_a (G, n_a), ids_b (G, n_b), out (G, n_a) zeroed by the
-// caller.  kmax_a (G, n_ta) and kmax_b (G, n_tb) with n_ta >= ceil(n_a / bi)
+// s (G, n_b), ids_a (G, n_a), ids_b (G, n_b), out (G, n_a) f64 zeroed by
+// the caller.  kmax_a (G, n_ta) and kmax_b (G, n_tb) with n_ta >= ceil(n_a / bi)
 // and n_tb >= ceil(n_b / bj), or both null for no stripe skip (kernels 1
 // and 2; n_ta, n_tb, bi, bj and bk are then unused).
 extern "C" int butterfly_update_sparse_f32(
     const float* a, const float* b, const float* s, const int* ids_a,
-    const int* ids_b, const int* kmax_a, const int* kmax_b, float* out,
+    const int* ids_b, const int* kmax_a, const int* kmax_b, double* out,
     int groups, int n_a, int n_b, int n_v, int n_ta, int n_tb, int bi, int bj,
     int bk, void* stream) {
   if ((kmax_a == nullptr) != (kmax_b == nullptr))
@@ -272,7 +271,7 @@ peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
                    const int* __restrict__ kmax_a,
                    const int* __restrict__ kmax_b,
                    const int* __restrict__ flags,
-                   const uint8_t* __restrict__ b8, float* __restrict__ out,
+                   const uint8_t* __restrict__ b8, double* __restrict__ out,
                    int n_a, int n_b, int n_v, int n_str, int n_ta, int n_tb,
                    int bi, int bj, int bk) {
   constexpr int SUB = stage_stripes(kWide);
@@ -400,14 +399,15 @@ peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
     __syncthreads();   // the ring and the list are free for the next window
   }
 
-  // epilogue: C(W, 2) * s[j] * [ids differ], reduced over the quad's columns
+  // epilogue, in f64: C(W, 2) * s[j] * [ids differ], reduced over the
+  // quad's columns
   const int lane = tid & 31;
   const int gq = lane >> 2;
   const int t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = i0 + 16 * wm + gq + 8 * h;
-    float part = 0.0f;
+    double part = 0.0;
     if (i < n_a) {
       const int ida = ids_a[i];
 #pragma unroll
@@ -418,15 +418,15 @@ peel_update_kernel(const float* __restrict__ a, const float* __restrict__ s,
           const int m = 64 * wn + 8 * nt + 2 * t + e;
           if (m >= n_mass) continue;
           const int j = j0 + mrow[m];
-          const float w = (float)acc[nt][2 * h + e];
-          const float b2 = w * (w - 1.0f) * 0.5f;
-          if (ida != ids_b[j]) part += b2 * s[j];
+          const double w = (double)acc[nt][2 * h + e];
+          const double b2 = w * (w - 1.0) * 0.5;
+          if (ida != ids_b[j]) part += b2 * (double)s[j];
         }
       }
     }
     part += __shfl_xor_sync(0xffffffffu, part, 1);
     part += __shfl_xor_sync(0xffffffffu, part, 2);
-    if (t == 0 && i < n_a && part != 0.0f) atomicAdd(out + i, part);
+    if (t == 0 && i < n_a && part != 0.0) atomicAdd(out + i, part);
   }
 }
 
@@ -440,7 +440,7 @@ struct PeelArgs {
   const int* kmax_b;
   const int* flags;
   const uint8_t* b8;
-  float* out;
+  double* out;
   int n_a, n_b, n_v, n_str, n_ta, n_tb, bi, bj, bk;
 };
 
@@ -489,7 +489,7 @@ static int64_t peel_scratch_bytes(int groups, int n_b, int n_v) {
 // value.
 extern "C" int butterfly_update_peel_f32(
     const float* a, const float* b, const float* s, const int* ids_a,
-    const int* ids_b, const int* kmax_a, const int* kmax_b, float* out,
+    const int* ids_b, const int* kmax_a, const int* kmax_b, double* out,
     int groups, int n_a, int n_b, int n_v, int n_ta, int n_tb, int bi, int bj,
     int bk, int stack, void* scratch, long long scratch_bytes, void* stream) {
   if ((kmax_a == nullptr) != (kmax_b == nullptr))

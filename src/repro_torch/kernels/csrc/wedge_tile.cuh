@@ -11,9 +11,12 @@
 // the bound read as zero, so ragged shapes need no padding.
 //
 // A and B are 0/1, so every W is an integer below 2^24 and exact in f32;
-// the update epilogue evaluates C(W, 2) in the reference's operation order
-// (W * (W - 1), then * 0.5) and its partial row sums are integers no larger
-// than the final support, so the atomicAdds are exact in any order.
+// the update epilogue of kernels 1-5 evaluates C(W, 2) in the reference's
+// operation order (W * (W - 1), then * 0.5) in f64, and its partial row
+// sums are integers no larger than the final support, so its f64
+// atomicAdds are exact in any order below 2^53.  Kernel 6 adds f32
+// partials (add_row_partials<float>): exact below 2^24 (DESIGN.md
+// section 8).
 
 #pragma once
 
@@ -97,8 +100,10 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ a,
 // Adds each row's partial sum part[p] (row i0 + ty + 16 p, summed over the
 // tile's columns tx + 16 q by the caller) into out with atomicAdd, after a
 // half-warp reduction over tx.  Rows past n_a and zero sums add nothing.
-__device__ __forceinline__ void add_row_partials(float (&part)[4],
-                                                 float* __restrict__ out,
+// T is float (kernel 6) or double (kernels 1-5).
+template <typename T>
+__device__ __forceinline__ void add_row_partials(T (&part)[4],
+                                                 T* __restrict__ out,
                                                  int n_a, int i0) {
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -113,24 +118,25 @@ __device__ __forceinline__ void add_row_partials(float (&part)[4],
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const int i = i0 + ty + 16 * p;
-      if (i < n_a && part[p] != 0.0f) atomicAdd(out + i, part[p]);
+      if (i < n_a && part[p] != T(0)) atomicAdd(out + i, part[p]);
     }
   }
 }
 
-// The butterfly-update epilogue: C(W, 2) * s * not-self, reduced over the
-// tile's columns (half-warp shuffles) and added into out with atomicAdd.
-// The wrapper zeroes out before the launch.
+// The butterfly-update epilogue of kernels 1-5, in f64: C(W, 2) * s *
+// not-self, reduced over the tile's columns (half-warp shuffles) and
+// added into out with atomicAdd.  The wrapper zeroes out before the
+// launch.
 __device__ __forceinline__ void update_epilogue(
     const float (&acc)[4][4], const float* __restrict__ s,
     const int* __restrict__ ids_a, const int* __restrict__ ids_b,
-    float* __restrict__ out, int n_a, int n_b, int i0, int j0) {
+    double* __restrict__ out, int n_a, int n_b, int i0, int j0) {
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  float part[4];
+  double part[4];
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
-    part[p] = 0.0f;
+    part[p] = 0.0;
     const int i = i0 + ty + 16 * p;
     if (i >= n_a) continue;
     const int ida = ids_a[i];
@@ -138,10 +144,9 @@ __device__ __forceinline__ void update_epilogue(
     for (int q = 0; q < 4; ++q) {
       const int j = j0 + tx + 16 * q;
       if (j >= n_b) continue;
-      const float w = acc[p][q];
-      const float b2 = w * (w - 1.0f) * 0.5f;
-      const float not_self = (ida != ids_b[j]) ? 1.0f : 0.0f;
-      part[p] += b2 * not_self * s[j];
+      const double w = acc[p][q];
+      const double b2 = w * (w - 1.0) * 0.5;
+      if (ida != ids_b[j]) part[p] += b2 * (double)s[j];
     }
   }
   add_row_partials(part, out, n_a, i0);

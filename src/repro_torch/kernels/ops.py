@@ -249,6 +249,7 @@ def butterfly_support(a, s, *, backend=None, blocks=DEFAULT_BLOCKS,
 
     a: (n_u, n_v) 0/1 float tensor; s: (n_u,) mask; ``kmax`` the shared
     row-tile extents on the sparse backends (square tiles, bi == bj).
+    Returns f64 (n_u,), as every kernel here from ``C(W, 2)`` on.
     """
     ids = torch.arange(a.shape[0], dtype=torch.int32, device=a.device)
     return butterfly_update(a, a, s, ids, ids, backend=backend,
@@ -287,18 +288,19 @@ def find_hi_device(support, alive, w, tgt):
     mass (``tgt = inf`` included), ``max(alive support) + 1`` — the
     catch-all bound.  Device twin of ``engine.cd.find_hi_np``; the f32
     prefix sums are exact while the residual wedge mass stays below 2^24
-    (DESIGN.md section 8).  Returns a 0-dim f32 tensor, with no read of
-    the device (the pick is a gather, not an index by a 0-dim tensor,
+    (DESIGN.md section 8: past it they move the bound, never a support).
+    The bound itself is a support plus one in the supports' dtype (f64 in
+    the engine: exact below 2^53).  Returns a 0-dim tensor, with no read
+    of the device (the pick is a gather, not an index by a 0-dim tensor,
     which PyTorch would read on the host).
     """
-    f32 = torch.float32
-    sup = torch.where(alive, support, float("inf")).to(f32)
+    sup = torch.where(alive, support, float("inf"))
     order = torch.argsort(sup, stable=True)
-    ws = torch.where(alive, w, 0.0).to(f32)[order]
+    ws = torch.where(alive, w, 0.0).to(torch.float32)[order]
     hit = torch.cumsum(ws, dim=0) >= tgt
     first = torch.argmax(hit.to(torch.uint8)).view(1)
     hi_hit = sup[order].gather(0, first).squeeze(0)
-    hi_max = torch.where(alive, support.to(f32), float("-inf")).amax()
+    hi_max = torch.where(alive, support, float("-inf")).amax()
     return torch.where(hit.any(), hi_hit, hi_max) + 1.0
 
 
@@ -424,7 +426,7 @@ def vertex_support_edge_delta(a, mu, mv, valid, *, backend=None,
     row: a slot that repeats an edge, names an absent cell or is padding
     removes nothing, as the reference's gate on ``a[u, v]`` makes it.
     Run it on the union graph with the inserted set for per-vertex gains,
-    with the deleted set for losses.  Returns f32 (n_u,), >= 0.
+    with the deleted set for losses.  Returns f64 (n_u,), >= 0.
     """
     backend = resolve_backend(backend, a.device)
     bi, _bj, bk = blocks

@@ -12,8 +12,10 @@ Each run's numbers live on ``stats.trace``, a ``RunTrace`` that
 ``RunStats`` sets as a plain attribute (not a dataclass field, so
 ``dataclasses.asdict``, ``fields`` and ``==`` do not see it): host seconds
 and calls by span name, the bytes and count of host-to-card uploads
-(``core.engine.peel_loop.upload``), and the bytes of the matrices built
-on the card from uploaded edge ids (``built_bytes``).
+(``core.engine.peel_loop.upload``), the bytes of the matrices built on the
+card from uploaded edge ids (``built_bytes``), the largest support the
+run's count read (``max_support``) and the bytes of the float64 buffers
+it allocated for supports, tip numbers and B2 stacks (``wide_bytes``).
 
 ``recent_runs()`` is the operator's view of what recent runs did: the
 ``RunStats`` of the last ``RECENT_RUNS`` engine runs (``Executor``'s
@@ -49,13 +51,20 @@ _recent: Deque = collections.deque(maxlen=RECENT_RUNS)
 class RunTrace:
     """One run's span table and upload counters; ``built_bytes`` the
     bytes of every matrix built on the card from edge ids
-    (``core.engine.peel_loop.DeviceGraph``)."""
+    (``core.engine.peel_loop.DeviceGraph``); ``max_support`` the largest
+    support the run's count read, 0 where it read none
+    (``peel_loop.check_exact``); ``wide_bytes`` the bytes of every float64
+    buffer the run allocated on its device for supports and their peel
+    deltas, tip numbers, bounds and B2 stacks, counted where each is made
+    (``peel_loop.note_wide``; temporaries of elementwise steps are not)."""
 
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     upload_bytes: int = 0
     uploads: int = 0
     built_bytes: int = 0
+    max_support: float = 0.0
+    wide_bytes: int = 0
 
     def add(self, name: str, seconds: float) -> None:
         self.seconds[name] = self.seconds.get(name, 0.0) + seconds

@@ -1612,3 +1612,123 @@ def test_moe_sharded_on_four_cards_equals_local(card):
                                       (4, 512, 256), gen)
     assert errs["out"] <= 5e-2, errs
     assert max(errs[k] for k in ("x", "gate", "down")) <= 1e-2, errs
+
+
+# ---------------------------------------------------------------------- #
+# past 2^24: the float64 epilogues (DESIGN.md section 8, the port's
+# paragraph)
+# ---------------------------------------------------------------------- #
+def _wide_operands(gen, card, n, n_v, density):
+    """A 0/1 matrix whose supports pass 2^24, s with zeros, ids that are
+    not the row positions; the plain versions' inputs on the CPU (no
+    TF32 there), the kernels' on the card."""
+    a = _adj(gen, n, n_v, density=density)
+    s = (torch.rand(n, generator=gen) < 0.8).float()
+    s[0] = 1.0
+    ids = (torch.randperm(n, generator=gen) + 3).to(torch.int32)
+    return a, s, ids, (a.to(card), s.to(card), ids.to(card))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,n_v", [(64, 6000), (300, 2500)])
+def test_wide_bodies_equal_float64_plain_past_2_24(card, n, n_v):
+    """Kernels 1 and 4 (count, peel and tile bodies) and kernels 2 and 5
+    (stack peel and tile bodies) on supports past 2^24: every output is
+    float64 and ``torch.equal`` to the float64 plain version, which equals
+    the exact count; the float32 rounding of that count differs."""
+    gen = torch.Generator().manual_seed(n + n_v)
+    a, s, ids, (ac, sc, idc) = _wide_operands(gen, card, n, n_v, 0.5)
+    want = bfly.butterfly_update_plain(a, a, s, ids, ids)
+    w64 = a.double() @ a.double().T
+    exact = ((w64 * (w64 - 1) / 2).fill_diagonal_(0)
+             * s.double()[None, :]).sum(dim=1)
+    assert float(exact.max()) >= 2 ** 24
+    assert torch.equal(want, exact)
+    assert not torch.equal(exact.float().double(), exact)
+    for body in ("count", "peel", "tile"):
+        got = bfly.butterfly_update(ac, ac, sc, idc, idc, body=body)
+        assert got.dtype == torch.float64
+        assert torch.equal(got.cpu(), want), body
+    for bi, bk in ((16, 64), (128, 512)):
+        blocks = (bi, bi, bk)
+        kmax = bsp.column_extents(a, bi, bk).to(torch.int32).contiguous()
+        kc = kmax.to(card)
+        for body in ("count", "peel", "tile"):
+            got = bsp.butterfly_update_sparse(ac, ac, sc, idc, idc, kc, kc,
+                                              blocks=blocks, body=body)
+            assert torch.equal(got.cpu(), want), (blocks, body)
+    # a gathered peel set: 40 rows, 30 of them valid
+    rows = torch.randint(0, n, (40,), generator=gen)
+    valid = (torch.arange(40) < 30).float()
+    b = a[rows] * valid[:, None]
+    rid = ids[rows]
+    want_p = bfly.butterfly_update_plain(a, b, valid, ids, rid)
+    for body in ("peel", "tile"):
+        got = bfly.butterfly_update(ac, b.to(card), valid.to(card), idc,
+                                    rid.to(card), body=body)
+        assert torch.equal(got.cpu(), want_p), body
+    # the stacks: two graphs of the same shape
+    a3 = torch.stack([a, a.flip(1)])
+    s3 = torch.stack([s, s.flip(0)])
+    i3 = torch.arange(n, dtype=torch.int32).expand(2, n).contiguous()
+    want3 = bfly.butterfly_update_batched_plain(a3, a3, s3, i3, i3)
+    args3 = tuple(x.to(card) for x in (a3, a3, s3, i3, i3))
+    for body in ("peel", "tile"):
+        got = bfly.butterfly_update_batched(*args3, body=body)
+        assert got.dtype == torch.float64
+        assert torch.equal(got.cpu(), want3), body
+    blocks = (16, 16, 64)
+    k3 = bsp.column_extents(a3, 16, 64).to(torch.int32).contiguous()
+    got = bsp.butterfly_update_sparse_batched(*args3, k3.to(card),
+                                              k3.to(card), blocks=blocks)
+    assert torch.equal(got.cpu(), want3)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("body", ["pairs", "tile"])
+def test_b2_bodies_equal_float64_plain_past_2_24(card, body):
+    """Kernel 3 writes float64 entries: entries past 2^24 (W near 6,700)
+    equal the float64 plain version, odd and even m (the pairs body's
+    scalar and double2 stores)."""
+    gen = torch.Generator().manual_seed(5)
+    for m in (40, 37):
+        a = _adj(gen, 2, m, 12000, density=0.75)
+        want = bsp.b2_stack_plain(a, None, None, blocks=(16, 16, 64))
+        assert float(want.max()) >= 2 ** 24
+        for blocks in ((16, 16, 64), (128, 128, 512)):
+            bi, _bj, bk = blocks
+            k = bsp.column_extents(a, bi, bk).to(torch.int32).contiguous()
+            got = bsp.b2_stack(a.to(card), k.to(card), k.to(card),
+                               blocks=blocks, body=body)
+            assert got.dtype == torch.float64
+            assert torch.equal(got.cpu(), want), (m, blocks)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", ["U", "V"])
+@pytest.mark.parametrize("dispatch", ["subset", "graph"])
+@pytest.mark.parametrize("backend", ["cuda", "cuda_sparse"])
+def test_main_path_on_card_exact_past_2_24(card, backend, dispatch, side):
+    """``Executor.decompose`` on the card equals the int64 oracle on a
+    graph whose supports pass 2^24 (float32 rounding would merge or move
+    them), and records the largest count it read."""
+    from repro_torch.api import EngineConfig, Executor
+    from repro_torch.core.graph import BipartiteGraph
+
+    rng = np.random.default_rng(13)
+    eu, ev = np.nonzero(rng.random((40, 7000)) < 0.4)
+    peeled = BipartiteGraph.from_edges(40, 7000, eu, ev)
+    g = peeled if side == "U" else peeled.transposed()
+    want, _ = peeling.bup_oracle(peeled)
+    sup = peeling.shared_butterfly_matrix(peeled).sum(axis=1)
+    assert sup.max() >= 2 ** 24
+    assert (sup.astype(np.float32).astype(np.int64) != sup).any()
+    ex = Executor(EngineConfig(side=side, backend=backend,
+                               cd_dispatch=dispatch, num_partitions=4,
+                               representation="dense"))
+    td = ex.decompose(g)
+    np.testing.assert_array_equal(td.theta, want)
+    assert td.stats.trace.max_support == float(sup.max())
+    assert td.stats.trace.wide_bytes > 0
